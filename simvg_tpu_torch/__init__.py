@@ -2,8 +2,9 @@
 
 The JAX package ``simvg_tpu`` stays the reference; every part of this
 package is held against its counterpart there.  Plain tensor code is
-PyTorch; the attention core of the BEiT-3 encoder is a hand-written CUDA
-kernel (``csrc/attention_fwd.cu``), built with ``nvcc`` at first use.
+PyTorch; the attention core of the BEiT-3 encoder is two hand-written CUDA
+kernels, forward (``csrc/attention_fwd.cu``) and backward
+(``csrc/attention_bwd.cu``), built with ``nvcc`` at first use.
 This package imports no JAX and nothing of ``simvg_tpu``.
 """
 

@@ -7,7 +7,9 @@
 // probability tile rounded to the input type before its P.V product, and the
 // P.V sum accumulated in fp32 and stored in the input type.  Padded keys
 // (key_padding_mask == 1) get the logit -1e30, as the TPU kernel's additive
-// bias gives them.
+// bias gives them.  When a gradient will be needed the kernel also writes
+// the per-row log-sum-exp lse = m + log(l) of those fp32 logits, [B, H, Sq],
+// for the backward kernel (attention_bwd.cu) to recompute P from.
 //
 // Layout: q [B, Sq, H, HD], k/v [B, Sk, H, HD], out like q, all contiguous;
 // the kernel reads the heads in place, with no transpose to [B*H, S, HD].
@@ -32,48 +34,13 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block
-constexpr int kBlockK = 64;   // keys per streamed tile
-constexpr int kThreadsX = 16; // threads across keys / head-dim columns
-constexpr int kThreadsY = 16; // threads across query rows
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kRowsPerThread = kBlockQ / kThreadsY;  // 4
-constexpr int kKeysPerThread = kBlockK / kThreadsX;  // 4
-constexpr int kLdP = kBlockK + 1;  // padded row stride of the P tile
-constexpr float kPadLogit = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// Sum or max across the 16 lanes that share one query row (tx = lane % 16).
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = kThreadsX / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = kThreadsX / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using namespace simvg;
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -87,7 +54,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ pad,
-                     T* __restrict__ out, int sq, int sk, int heads) {
+                     T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+                     int heads) {
   static_assert(HD % kThreadsX == 0, "head_dim must be a multiple of 16");
   constexpr int kLd = HD + 1;
   constexpr int kColsPerThread = HD / kThreadsX;
@@ -139,23 +107,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // logits for rows ty + 16*i and keys tx + 16*j of this tile
     float logit[kRowsPerThread][kKeysPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) logit[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[kRowsPerThread], kv[kKeysPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) qv[i] = q_s[(ty + kThreadsY * i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) kv[j] = k_s[(tx + kThreadsX * j) * kLd + d];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeysPerThread; ++j)
-          logit[i][j] = fmaf(qv[i], kv[j], logit[i][j]);
-    }
+    tile_logits<HD>(q_s, k_s, kLd, tx, ty, logit);
 
     // Keys past Sk are left out (-inf); padded keys get the TPU kernel's
     // -1e30.  Every tile starts with an in-range key, so each row's tile
@@ -218,12 +170,15 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kColsPerThread; ++c)
       o_b[s * row + tx + kThreadsX * c] = from_float<T>(acc[i][c] * inv);
+    // every lane of the row holds the same m and l after the row reductions
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * heads + head) * sq + s] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* pad, void* out,
-           int batch, int sq, int sk, int heads, cudaStream_t stream) {
+           void* lse, int batch, int sq, int sk, int heads, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -232,25 +187,27 @@ int launch(const void* q, const void* k, const void* v, const void* pad, void* o
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
   attention_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(out), sq, sk, heads);
+      static_cast<const uint8_t*>(pad), static_cast<T*>(out), static_cast<float*>(lse),
+      sq, sk, heads);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  pad may be null (no padded keys).
+// dtype: 0 = float32, 1 = bfloat16.  pad may be null (no padded keys); lse
+// (float32 [B, H, Sq]) may be null (not written).
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* pad, void* out, int batch, int sq,
-                                   int sk, int heads, int head_dim, int dtype,
+                                   const void* pad, void* out, void* lse, int batch,
+                                   int sq, int sk, int heads, int head_dim, int dtype,
                                    void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // head_dim is a template parameter; 64 is every shipped config's
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, pad, out, batch, sq, sk, heads, s);
+    return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, pad, out, batch, sq, sk, heads, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
   return (int)cudaErrorInvalidValue;
 }

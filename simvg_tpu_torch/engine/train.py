@@ -1,0 +1,119 @@
+"""The train step (port of ``simvg_tpu/engine/train.py::make_train_step``).
+
+One step: the forward in train mode on the device-normalised batch, the
+SimVG branch losses with Hungarian matching, the backward (through the
+attention kernels K1/K2 when ``attn_impl="pallas"`` on the card), the
+freeze mask, the global-norm clip, the Adam/amsgrad update in place on the
+model's parameters and the optional EMA.  The loss terms, ``grad_norm`` and
+the train metrics come back as device scalars; the only host round trips
+are the Hungarian matchings (``ops/hungarian.py``).
+
+Train-mode randomness draws from one ``torch.Generator`` on the model's
+device that the step owns; it is seeded from (seed, step) every step, as
+the JAX step folds the step into its rng.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from simvg_tpu_torch.losses.criterion import (normalize_targets,
+                                              simvg_branch_losses)
+from simvg_tpu_torch.models.layers import set_generator
+from simvg_tpu_torch.models.model import decode_predictions
+from simvg_tpu_torch.ops.boxes import box_iou_aligned
+from .eval import BRANCH_KEYS, normalize_images_on_device
+from .train_state import Optimizer, TrainState, ema_update, global_norm
+
+
+def _train_metrics(out, batch) -> Dict[str, torch.Tensor]:
+    """Per-branch Prec@0.5 and mIoU on the device, scored against the FIRST
+    target of each sample, as the JAX step does."""
+    metrics = {}
+    gt = batch["gt_boxes"][:, 0, :]
+    for name, cls_key, box_key in BRANCH_KEYS:
+        pred = decode_predictions(out[cls_key][-1], out[box_key][-1],
+                                  batch["img_shape"])
+        iou = box_iou_aligned(pred["best_box"], gt.float())
+        metrics[f"{name}_det_acc"] = (iou >= 0.5).float().mean() * 100.0
+        metrics[f"{name}_miou"] = iou.mean() * 100.0
+    return metrics
+
+
+def train_losses(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                 images: torch.Tensor, **loss_kw):
+    """The train-mode forward and the SimVG branch losses of one batch:
+    returns (losses, head outputs).  ``loss_kw`` goes to
+    ``simvg_branch_losses``."""
+    model.train()
+    out = model(images, batch["text_ids"], batch["text_padding_mask"],
+                img_shape=batch["img_shape"])
+    targets = normalize_targets(batch["gt_boxes"], batch["gt_labels"],
+                                batch["gt_valid"], batch["img_shape"])
+    return simvg_branch_losses(out, targets, gt_count=batch.get("gt_count"),
+                               **loss_kw), out
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    optimizer: Optimizer,
+    *,
+    branch_loss_weight: Dict,
+    prepare_target_mode: str = "score_iou_weighted",
+    distill_type: str = "hard_weighted",
+    mlp_aux_loss: bool = False,
+    ema_alpha: Optional[float] = None,
+    dp_size: int = 1,
+    with_metrics: bool = True,
+    device_norm: Optional[Dict] = None,
+) -> Callable:
+    """Returns ``train_step(state, batch, seed) -> (state, scalars)``.
+
+    ``batch`` holds tensors on the model's device: image, text_ids,
+    text_padding_mask, img_shape, gt_boxes [B, T, 4] (xyxy, image scale),
+    gt_labels [B, T], gt_valid [B, T] and optionally gt_count [B].  With
+    ``device_norm`` ({mean, std, to_rgb}) the image is a uint8 BGR canvas
+    normalised on the device.  The model's parameters and the state are
+    updated in place."""
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    generator = torch.Generator(device=params[0].device)
+    set_generator(model, generator)
+
+    def _images(batch):
+        if device_norm is None:
+            return batch["image"]
+        return normalize_images_on_device(
+            batch["image"], device_norm["mean"], device_norm["std"],
+            device_norm.get("to_rgb", True), img_shape=batch.get("img_shape"))
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   seed: int):
+        generator.manual_seed((seed * 1_000_003 + state.step) % 2 ** 63)
+        losses, out = train_losses(
+            model, batch, _images(batch),
+            branch_loss_weight=branch_loss_weight,
+            prepare_target_mode=prepare_target_mode,
+            distill_type=distill_type, mlp_aux_loss=mlp_aux_loss,
+            dp_size=dp_size)
+        grads = torch.autograd.grad(losses["loss_total"], params,
+                                    allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+
+        scalars = {k: v.detach() for k, v in losses.items()}
+        scalars["grad_norm"] = global_norm(grads)
+        state.opt_state = optimizer.apply(names, params, grads,
+                                          state.opt_state)
+        if state.ema_params is not None and ema_alpha is not None:
+            state.ema_step = ema_update(state.ema_params, params,
+                                        state.ema_step, ema_alpha)
+        state.step += 1
+        if with_metrics:
+            with torch.no_grad():
+                scalars.update(_train_metrics(out, batch))
+        return state, scalars
+
+    return train_step

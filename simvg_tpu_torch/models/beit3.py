@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simvg_tpu_torch.ops.attention import multihead_attention
-from .layers import LayerNorm, Linear
+from .layers import LayerNorm, Linear, Stochastic, keep_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +141,7 @@ class MultiwayAttention(nn.Module):
             self.inner_attn_ln((out[:, :split], out[:, split:])))
 
 
-class DropPath(nn.Module):
+class DropPath(Stochastic):
     """Per-sample stochastic depth on a residual branch, with ONE mask per
     sample for both segments, as the reference draws it over the whole
     joint sequence.  Identity in eval mode."""
@@ -154,8 +154,8 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return xs
         keep = 1.0 - self.rate
-        mask = torch.bernoulli(torch.full(
-            (xs[0].shape[0], 1, 1), keep, device=xs[0].device)).to(xs[0].dtype)
+        mask = keep_mask((xs[0].shape[0], 1, 1), keep, self.generator,
+                         xs[0].device).to(xs[0].dtype)
         return tuple(x / keep * mask for x in xs)
 
 

@@ -26,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simvg_tpu_torch.ops.attention import multihead_attention
-from ..layers import LayerNorm, Linear
+from ..layers import Dropout, LayerNorm, Linear, Stochastic
 
 
 class _PackedProjections(nn.Module):
@@ -41,8 +41,9 @@ class _PackedProjections(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
 
-class DetrAttention(nn.Module):
-    """nn.MultiheadAttention-style attention with residual from identity."""
+class DetrAttention(Stochastic):
+    """nn.MultiheadAttention-style attention with residual from identity;
+    its prob dropout draws from ``self.generator``."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  attn_dropout: float = 0.1,
@@ -73,6 +74,7 @@ class DetrAttention(nn.Module):
             deterministic=not self.training,
             dtype=dt,
             return_weights=True,
+            generator=self.generator,
         )
         return query + self.attn.out_proj(out)
 
@@ -86,9 +88,9 @@ class DetrFFN(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList([
             nn.Sequential(Linear(embed_dim, feedforward_dim, dtype),
-                          nn.ReLU(), nn.Dropout(ffn_dropout)),
+                          nn.ReLU(), Dropout(ffn_dropout)),
             Linear(feedforward_dim, embed_dim, dtype),
-            nn.Dropout(ffn_dropout),
+            Dropout(ffn_dropout),
         ])
 
     def forward(self, x):

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``simvg_tpu_torch/_build/`` and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds.  The library's
-file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  A failed build
-raises; nothing falls back.
+file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source is rebuilt and a stale library is
+never loaded.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -45,9 +47,12 @@ def _nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compiles ``csrc/<name>.cu`` unless an up-to-date build exists; the
-    library's name carries a hash of the source and the flags."""
+    library's name carries a hash of the source, the headers and the
+    flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{key[:16]}.so"
     if out.exists():
         return out
@@ -63,6 +68,12 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Builds every named source at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,9 +6,11 @@
     out    <- probs @ v, summed in float32
 
 ``impl="pallas"`` (the config value the JAX package uses) selects the
-Hopper kernel (``fused_attention``) for CUDA tensors when there is no
-``attn_bias``, no active dropout and no ``return_weights``; every other
-call takes the plain path below.
+Hopper kernels (``fused_attention``: K1 forward, K2 backward) for CUDA
+tensors when there is no ``attn_bias``, no active dropout and no
+``return_weights``; every other call takes the plain path below.  The q
+scale is applied here, outside the kernels, so autograd carries its
+gradient as JAX does.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from .fused_attention import fused_attention
 
@@ -34,6 +35,7 @@ def multihead_attention(
     dtype: torch.dtype = torch.float32,
     impl: str = "xla",
     return_weights: bool = False,
+    generator: Optional[torch.Generator] = None,
 ):
     """Batched multi-head attention.
 
@@ -42,7 +44,8 @@ def multihead_attention(
         key_padding_mask: optional [B, S_k]; nonzero = PADDED key.
         attn_bias: optional additive bias broadcastable to [B, H, S_q, S_k].
         dropout_rate: attention-prob dropout (post-softmax), active only
-            when ``deterministic`` is False.
+            when ``deterministic`` is False; its mask is drawn from
+            ``generator``.
         dtype: compute dtype of the matmuls (softmax is always fp32).
 
     Returns:
@@ -76,7 +79,10 @@ def multihead_attention(
 
     probs = torch.softmax(logits, dim=-1)
     if dropout_active:
-        probs = F.dropout(probs, dropout_rate, training=True)
+        keep = 1.0 - dropout_rate
+        mask = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < keep
+        probs = torch.where(mask, probs / keep, 0.0)
 
     probs = probs.to(dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())

@@ -1,27 +1,25 @@
-"""Fused multi-head attention forward: the Hopper kernel and its plain version.
+"""Fused multi-head attention, forward and backward: the Hopper kernels and
+their plain versions.
 
-Port of ``simvg_tpu/ops/pallas_attention.py::fused_attention``, whose TPU
-kernel is ``_attn_kernel`` (pallas_attention.py:55, called at :131).  The
-CUDA kernel lives in ``csrc/attention_fwd.cu``; its header says how it
-streams K/V through shared memory with an online softmax, because one
-head's K/V at S = 1621 do not fit a Hopper block's shared memory the way
-they fit the TPU's VMEM.
+Port of ``simvg_tpu/ops/pallas_attention.py::fused_attention`` and its
+custom VJP.  The TPU kernels are ``_attn_kernel`` (pallas_attention.py:55,
+called at :131) and ``_attn_bwd_kernel`` (:66, called at :165 by
+``_attention_flat_bwd``).  The CUDA kernels live in ``csrc/attention_fwd.cu``
+(K1) and ``csrc/attention_bwd.cu`` (K2); their headers say how they stream
+K/V through shared memory with an online softmax, and how K2 replaces the
+TPU kernel's sequential dK/dV accumulation with two passes and no atomics.
 
-On this card the flagship's call (S = 421, head_dim 64, bf16) is a small,
-latency-bound product: the encoder's linear layers take ~92% of a layer's
-FLOPs, so this kernel moves little of the end-to-end time.
-
-``fused_attention`` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take; only a tensor on the CPU goes to
-``fused_attention_reference``, the plain PyTorch version of the same
-function.  The backward kernel (``_attn_bwd_kernel``) is not ported yet,
-so a call that would need a gradient raises.
+``fused_attention`` is one ``torch.autograd.Function`` around the two.  For
+CUDA tensors it launches K1 (and, for the gradient, K2) or raises on
+anything the kernels do not take; only tensors on the CPU go to the plain
+PyTorch versions, ``fused_attention_reference`` and
+``fused_attention_bwd_reference``, through the same Function.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,7 +27,16 @@ from . import _build
 
 _NEG = -1e30  # the TPU kernel's additive bias on padded keys
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64,)  # the instantiations in attention_fwd.cu
+HEAD_DIMS = (64,)  # the instantiations in attention_fwd.cu / attention_bwd.cu
+
+
+def _logits(q, k, key_padding_mask):
+    """fp32 logits [B, H, Sq, Sk] with -1e30 on padded keys."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if key_padding_mask is not None:
+        pad = key_padding_mask.to(torch.bool)[:, None, None, :]
+        logits = logits.masked_fill(pad, _NEG)
+    return logits
 
 
 def fused_attention_reference(
@@ -38,30 +45,50 @@ def fused_attention_reference(
     v: torch.Tensor,  # [B, Sk, H, hd]
     key_padding_mask: Optional[torch.Tensor] = None,  # [B, Sk], 1 = pad
 ) -> torch.Tensor:
-    """What the kernel computes, in plain PyTorch: fp32 logits, -1e30 on
-    padded keys, fp32 softmax, probabilities cast to v's dtype, P.V summed
-    in fp32 and returned in q's dtype."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    if key_padding_mask is not None:
-        pad = key_padding_mask.to(torch.bool)[:, None, None, :]
-        logits = logits.masked_fill(pad, _NEG)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    """What K1 computes, in plain PyTorch: fp32 logits, -1e30 on padded
+    keys, fp32 softmax, probabilities cast to v's dtype, P.V summed in fp32
+    and returned in q's dtype."""
+    probs = torch.softmax(_logits(q, k, key_padding_mask), dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(q.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("attention_fwd")
-    fn = lib.simvg_attention_fwd
+def fused_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,  # [B, Sq, H, hd], the cotangent of the output
+    key_padding_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What K2 computes, in plain PyTorch, with the TPU kernel's formula and
+    roundings (pallas_attention.py:81-105): P recomputed in fp32; dV =
+    round(P)^T dO; dP = dO V^T; dS = P (dP - rowsum(dP P)); dQ = round(dS)
+    K; dK = round(dS)^T q; round() is the cast to the input dtype, every
+    sum fp32.  Returns (dq, dk, dv) in q's dtype."""
+    cd = q.dtype
+    p = torch.softmax(_logits(q, k, key_padding_mask), dim=-1)
+    do = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(cd).float(), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_c = ds.to(cd).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_c, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_c, q.float())
+    return dq.to(cd), dk.to(cd), dv.to(cd)
+
+
+def _library(name: str, n_pointers: int, n_ints: int):
+    lib = _build.load(name)
+    fn = getattr(lib, f"simvg_{name}")
     # pointers and the stream as c_void_p, or ctypes would cut them to int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(q, k, v, key_padding_mask):
-    """Raises on any input the kernel does not take (device aside)."""
+    """Raises on any input the kernels do not take (device aside)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError("fused_attention: q, k, v must share one dtype of "
                         f"{list(_DTYPE_CODES)}, got {q.dtype, k.dtype, v.dtype}")
@@ -82,10 +109,106 @@ def _check(q, k, v, key_padding_mask):
         raise ValueError(f"fused_attention: key_padding_mask "
                          f"{tuple(key_padding_mask.shape)} is not "
                          f"{(b, k.shape[1])}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "fused_attention has no backward kernel yet; run it under "
-            "torch.no_grad() or use the plain attention path")
+
+
+def _check_grad(q, dout):
+    """Raises on a cotangent the backward kernel does not take."""
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"fused_attention: gradient {dout.dtype} "
+                         f"{tuple(dout.shape)} does not match the output "
+                         f"{q.dtype} {tuple(q.shape)}")
+
+
+def _check_device(tensors):
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError("fused_attention: no kernel for inputs on "
+                         f"{sorted(str(d) for d in devices)}")
+
+
+def _pad_u8(key_padding_mask):
+    if key_padding_mask is None:
+        return None
+    return key_padding_mask.to(torch.uint8).contiguous()
+
+
+def attention_fwd(q, k, v, key_padding_mask=None, with_lse=False):
+    """Launches K1 on CUDA tensors: returns out [B, Sq, H, hd] in q's dtype
+    and, with ``with_lse``, the fp32 row log-sum-exp [B, H, Sq]."""
+    _check_device([q, k, v, key_padding_mask])
+    _check(q, k, v, key_padding_mask)
+    fn = _library("attention_fwd", 6, 6)
+    b, sq, h, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    pad = _pad_u8(key_padding_mask)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if pad is None else pad.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    fused_attention.launches += 1
+    return out, lse
+
+
+def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
+    """Launches K2 on CUDA tensors: (dq, dk, dv) in q's dtype, from the
+    forward's out and lse (``attention_fwd(..., with_lse=True)``)."""
+    _check_device([q, k, v, out, dout, lse, key_padding_mask])
+    _check(q, k, v, key_padding_mask)
+    _check_grad(q, dout)
+    b, sq, h, hd = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype \
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError("attention_bwd: out/lse do not match q")
+    dout = dout.contiguous()
+    fn = _library("attention_bwd", 11, 6)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dsum = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    pad = _pad_u8(key_padding_mask)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(),
+                None if pad is None else pad.data_ptr(), dsum.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward, K2 backward; on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask):
+        if q.device.type == "cpu":
+            out, lse = fused_attention_reference(q, k, v, key_padding_mask), None
+        else:
+            out, lse = attention_fwd(q, k, v, key_padding_mask, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, key_padding_mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, key_padding_mask = ctx.saved_tensors
+        if q.device.type == "cpu":
+            _check_grad(q, dout)
+            grads = fused_attention_bwd_reference(q, k, v, dout,
+                                                  key_padding_mask)
+        else:
+            grads = attention_bwd(q, k, v, out, dout, lse, key_padding_mask)
+        return (*grads, None)
 
 
 def fused_attention(
@@ -95,32 +218,16 @@ def fused_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns [B, Sq, H, hd] in q.dtype; the contract of the JAX entry
-    point (pallas_attention.py:207) without ``block_q``/``interpret``."""
+    point (pallas_attention.py:207) without ``block_q``/``interpret``.
+    Differentiable in q, k and v; the mask gets no gradient."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if needs_grad:
+        return _FusedAttention.apply(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, key_padding_mask)
-    tensors = [q, k, v] + ([key_padding_mask]
-                           if key_padding_mask is not None else [])
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("fused_attention: no kernel for inputs on "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    _check(q, k, v, key_padding_mask)
-    lib = _library()
-    b, sq, h, hd = q.shape
-    out = torch.empty_like(q)
-    pad = None
-    if key_padding_mask is not None:
-        pad = key_padding_mask.to(torch.uint8).contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.simvg_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if pad is None else pad.data_ptr(), out.data_ptr(),
-            b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
-                           f"{rc}")
-    fused_attention.launches += 1
-    return out
+    return attention_fwd(q, k, v, key_padding_mask)[0]
 
 
-fused_attention.launches = 0  # kernel launches; chip_smoke.py reads it
+fused_attention.launches = 0  # K1 launches; chip_smoke.py reads it
+attention_bwd.launches = 0  # K2 launches; chip_smoke.py reads it

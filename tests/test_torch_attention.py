@@ -5,24 +5,31 @@
 - ``fused_attention`` on CPU tensors, which takes its plain version, vs
   the JAX Pallas kernel itself in interpret mode, as
   tests/test_pallas_attention.py runs it;
+- its gradients (the autograd Function with the plain forward and
+  backward on CPU tensors) vs ``jax.grad`` through the Pallas kernels in
+  interpret mode, and ``fused_attention_bwd_reference`` vs the Pallas
+  backward's cotangents;
 - the wrapper's checks, which raise rather than fall back.
 
-Tolerance 2e-5 (float32), the bound of tests/test_pallas_attention.py.
-The CUDA kernel is held against its plain version on the card by
-chip_smoke.py and tests/test_torch_cuda.py.
+Tolerances: forward 2e-5 (float32); gradients 3e-4 absolute / 1e-3
+relative, the bounds of tests/test_pallas_attention.py.  The CUDA kernels
+are held against their plain versions on the card by chip_smoke.py and
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from simvg_tpu.ops.attention import multihead_attention as jax_mha
 from simvg_tpu.ops.pallas_attention import fused_attention as jax_fused
 from simvg_tpu_torch.ops.attention import multihead_attention
-from simvg_tpu_torch.ops.fused_attention import (fused_attention,
-                                                 fused_attention_reference)
+from simvg_tpu_torch.ops.fused_attention import (
+    attention_bwd, fused_attention, fused_attention_bwd_reference,
+    fused_attention_reference)
 
 
 def _qkv(b, sq, sk, d, seed):
@@ -122,10 +129,15 @@ def test_fused_attention_checks_reject_what_the_kernel_does_not_take(case):
         mask = torch.zeros(2, 9, dtype=torch.bool)
     elif case == "layout":
         q = mk().transpose(1, 2).contiguous().transpose(1, 2)
-    else:
-        q = mk().requires_grad_()
     _check(mk(), mk(), mk(), None)  # the good case passes
-    with pytest.raises((TypeError, ValueError, NotImplementedError)):
+    if case == "grad":  # a cotangent the backward kernel does not take
+        from simvg_tpu_torch.ops.fused_attention import _check_grad
+
+        _check_grad(mk(), mk())
+        with pytest.raises(ValueError):
+            _check_grad(mk(), mk(dtype=torch.bfloat16))
+        return
+    with pytest.raises((TypeError, ValueError)):
         _check(q, k, v, mask)
 
 
@@ -141,3 +153,80 @@ def test_reference_matches_plain_attention_in_bf16():
         *(x.to(torch.bfloat16) for x in (q * hd ** -0.5, k, v)), pad)
     assert out16.dtype == torch.bfloat16
     torch.testing.assert_close(out16.float(), out32, atol=2e-2, rtol=0)
+
+
+GRAD_CASES = [  # (b, sq, sk, h, hd, key lengths)
+    (2, 37, 37, 4, 64, [30, 10]),  # padded keys
+    (2, 13, 70, 3, 64, [70, 1]),  # Sq != Sk, one live key
+    (1, 150, 20, 2, 64, None),  # several query blocks, fewer keys
+]
+
+
+def _np_qkv_do(b, sq, sk, h, hd, seed):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(b, sq, h, hd)).astype(np.float32),
+            r.normal(size=(b, sk, h, hd)).astype(np.float32),
+            r.normal(size=(b, sk, h, hd)).astype(np.float32),
+            r.normal(size=(b, sq, h, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", GRAD_CASES)
+def test_fused_attention_grads_match_pallas_interpret(b, sq, sk, h, hd,
+                                                      lengths):
+    """Autograd through the port's Function (plain versions on CPU) vs
+    jax.grad through the Pallas kernels, with the q scale applied outside
+    the kernel in both, so its gradient flows as in JAX."""
+    q, k, v, do = _np_qkv_do(b, sq, sk, h, hd, seed=4)
+    pad = None if lengths is None else _pad(b, sk, lengths)
+    scale = hd ** -0.5
+
+    def loss_j(q, k, v):
+        out = jax_fused(q * scale, k, v, interpret=True,
+                        key_padding_mask=None if pad is None
+                        else jnp.asarray(pad))
+        return (out * do).sum()
+
+    grads_j = jax.grad(loss_j, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    before = (fused_attention.launches, attention_bwd.launches)
+    out = fused_attention(ts[0] * scale, ts[1], ts[2],
+                          None if pad is None else torch.from_numpy(pad))
+    (out * torch.from_numpy(do)).sum().backward()
+    assert (fused_attention.launches, attention_bwd.launches) == before
+    for name, t, g in zip("qkv", ts, grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=3e-4,
+                                   rtol=1e-3, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_reference_matches_pallas_backward(dtype):
+    """fused_attention_bwd_reference vs the cotangents of the Pallas
+    backward (_attention_flat_bwd) in interpret mode, on the same inputs in
+    the same dtype.  bf16: both round P and dS to bf16 at the same places,
+    so they differ where fp32 summation order flips a rounding; bound 2e-2
+    of each gradient's max |value|, five bf16 steps."""
+    b, sq, sk, h, hd = 2, 45, 45, 2, 64
+    q, k, v, do = _np_qkv_do(b, sq, sk, h, hd, seed=5)
+    q = q * hd ** -0.5
+    pad = _pad(b, sk, [45, 17])
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_fused(
+        q, k, v, key_padding_mask=jnp.asarray(pad), interpret=True),
+        jq, jk, jv)
+    grads_j = vjp(jdo)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                       .to(tdt) for x in (jq, jk, jv, jdo))
+    grads_t = fused_attention_bwd_reference(tq, tk, tv, tdo,
+                                            torch.from_numpy(pad))
+    for name, t, g in zip("qkv", grads_t, grads_j):
+        assert t.dtype == tdt
+        g = np.asarray(g.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(t.numpy(), g, atol=3e-4, rtol=1e-3,
+                                       err_msg=f"d{name}")
+        else:
+            err = np.abs(t.float().numpy() - g).max()
+            assert err <= 2e-2 * np.abs(g).max(), (name, err)

@@ -7,17 +7,22 @@ port does not need, so it is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The cases reach what chip_smoke.py's flagship shapes do not: Sq != Sk,
-fewer keys than one tile, a row with one live key.  Bounds:
+fewer keys than one tile, a row with one live key.  Forward bounds:
 float32 2e-5 (tests/test_pallas_attention.py); bf16 2e-2, one bf16 step
 for |out| < 4, since the kernel rounds P before normalising and the plain
-version after.
+version after.  Backward (K2) bounds: float32 3e-4 absolute / 1e-3
+relative (tests/test_pallas_attention.py); bf16 2e-2 of each gradient's
+max |value|: five bf16 steps, since K2 takes the row term from the rounded
+output (rowsum(dO * out)) and its own P, so a rounding of P or dS may land
+one bf16 step away from the plain version's.
 """
 
 import pytest
 import torch
 
-from simvg_tpu_torch.ops.fused_attention import (fused_attention,
-                                                 fused_attention_reference)
+from simvg_tpu_torch.ops.fused_attention import (
+    attention_bwd, attention_fwd, fused_attention, fused_attention_bwd_reference,
+    fused_attention_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,24 +35,33 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", [
+CASES = [
     (2, 421, 421, 12, 64, [421, 404]),  # the flagship, padded text
     (3, 13, 70, 3, 64, [70, 1, 33]),  # Sq != Sk, one live key
     (1, 200, 5, 2, 64, None),  # fewer keys than one 64-key tile
     (1, 1, 1, 1, 64, None),
-])
-def test_attention_fwd_matches_plain_version(gen, dtype, atol, b, sq, sk, h,
-                                             hd, lengths):
+]
+
+
+def _inputs(gen, dtype, b, sq, sk, h, hd, lengths):
     q = (torch.randn(b, sq, h, hd, device="cuda", generator=gen)
          * hd ** -0.5).to(dtype)
     k, v = (torch.randn(b, sk, h, hd, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
+    dout = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
     pad = None
     if lengths is not None:
         pad = (torch.arange(sk, device="cuda")[None]
                >= torch.tensor(lengths, device="cuda")[:, None])
+    return q, k, v, dout, pad
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", CASES)
+def test_attention_fwd_matches_plain_version(gen, dtype, atol, b, sq, sk, h,
+                                             hd, lengths):
+    q, k, v, _, pad = _inputs(gen, dtype, b, sq, sk, h, hd, lengths)
     before = fused_attention.launches
     out = fused_attention(q, k, v, pad)
     torch.cuda.synchronize()
@@ -61,3 +75,50 @@ def test_attention_fwd_raises_on_unsupported_head_dim(gen):
     q = torch.randn(1, 8, 2, 32, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="head_dim"):
         fused_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", CASES)
+def test_attention_bwd_matches_plain_version(gen, dtype, b, sq, sk, h, hd,
+                                             lengths):
+    q, k, v, dout, pad = _inputs(gen, dtype, b, sq, sk, h, hd, lengths)
+    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    before = attention_bwd.launches
+    grads = attention_bwd(q, k, v, out, dout, lse, pad)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 1
+    refs = fused_attention_bwd_reference(q, k, v, dout, pad)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == ref.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, ref, atol=3e-4, rtol=1e-3,
+                                       msg=name)
+        else:
+            err = (g.float() - ref.float()).abs().max().item()
+            assert err <= 2e-2 * ref.float().abs().max().item(), (name, err)
+    if pad is not None:  # padded keys get exactly zero dk and dv
+        for g in grads[1:]:
+            assert not g[pad].any()
+
+
+def test_attention_bwd_is_deterministic(gen):
+    """Two runs give the same bits: no atomics, no order-dependent sums."""
+    q, k, v, dout, pad = _inputs(gen, torch.bfloat16, *CASES[0])
+    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    first = attention_bwd(q, k, v, out, dout, lse, pad)
+    second = attention_bwd(q, k, v, out, dout, lse, pad)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_autograd_function_launches_k1_once_and_k2_once(gen):
+    q, k, v, dout, pad = _inputs(gen, torch.float32, 2, 37, 37, 3, 64,
+                                 [37, 20])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fused_attention.launches, attention_bwd.launches)
+    fused_attention(*leaves, pad).backward(dout)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    refs = fused_attention_bwd_reference(q, k, v, dout, pad)
+    for t, ref in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, ref, atol=3e-4, rtol=1e-3)
