@@ -9,7 +9,11 @@ the CUDA toolkit:
 It builds every kernel of the port from ``simvg_tpu_torch/csrc/`` (one
 nvcc each, in parallel) and holds each against its plain PyTorch version at
 the main paths' shapes: K1, the attention forward, and K2, its backward.
-Then it drives the two main paths of the flagship configuration
+bf16 takes each kernel's tensor-core route, float32 its CUDA-core route.
+Each K1/K2 row gives the kernel's time beside its plain version's, the
+bound, the achieved TFLOP/s and share of the bound, and PyTorch's SDPA as
+the yardstick: its forward for K1, its backward alone for K2 (and its
+forward plus backward beside K1 + K2).  Then it drives the two main paths of the flagship configuration
 (``configs/single/ViT-base/refcoco/refcoco_onestage.py``: BEiT3-base/32
 at 640 px, 12 layers, D=768, TGQS-KD-DETR head) at full width on random
 weights from a seed:
@@ -130,6 +134,16 @@ def bound_ms(bytes_moved, flops, dname):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def rates(row, flops):
+    """Adds the achieved TFLOP/s, the share of the bound that the kernel
+    reaches (bound_ms / ms) and the route its dtype takes to a K1/K2 row."""
+    row.update(tflops=flops / row["ms"] / 1e9,
+               bound_share=row["bound_ms"] / row["ms"],
+               route=("tensor-core bf16" if row["dtype"] == "bfloat16"
+                      else "CUDA-core fp32"))
+    return row
+
+
 def sdpa_args(q, k, v, pad):
     """q/k/v as [B, H, S, hd] views and the keep-mask for PyTorch's
     scaled_dot_product_attention, timed as the library yardstick only."""
@@ -182,11 +196,13 @@ def check_k1(gen, card):
         p1, k1, k2, p2 = (cuda_ms(fn, 20) for fn in (plain, kern, kern, plain))
         lib_ms = cuda_ms(library, 20)
         nbytes = 4 * q.numel() * q.element_size() + pad.numel()
-        bms, by = bound_ms(nbytes, 4 * b * h * s * s * hd, dname)
-        row = dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=err,
-                   bound=bound, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
-        log(f"K1 {row} [{card}]")
+        flops = 4 * b * h * s * s * hd
+        bms, by = bound_ms(nbytes, flops, dname)
+        row = rates(dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=err,
+                         bound=bound, ms=(k1 + k2) / 2,
+                         plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by), flops)
+        log(f"K1 {row} (library_ms: SDPA forward) [{card}]")
         rows.append(row)
     return rows
 
@@ -230,27 +246,40 @@ def check_k2(gen, card):
         kern = lambda: attention_bwd(q, k, v, out, dout, lse, pad)  # noqa: E731
         plain = lambda: fused_attention_bwd_reference(  # noqa: E731
             q, k, v, dout, pad)
+        fwd = lambda: attention_fwd(q, k, v, pad, with_lse=True)  # noqa: E731
         (qt, kt, vt), keep = sdpa_args(q, k, v, pad)
         leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
         dout_t = dout.transpose(1, 2)
+        graph_out = F.scaled_dot_product_attention(*leaves, attn_mask=keep,
+                                                   scale=1.0)
 
-        def library():  # SDPA forward + backward
+        def library():  # SDPA backward alone, on one forward graph
+            torch.autograd.grad(graph_out, leaves, dout_t, retain_graph=True)
+
+        def library_fwd_bwd():  # SDPA forward + backward
             o = F.scaled_dot_product_attention(*leaves, attn_mask=keep,
                                                scale=1.0)
             torch.autograd.grad(o, leaves, dout_t)
 
-        for fn in (kern, plain, library):
+        for fn in (kern, plain, library, library_fwd_bwd, fwd):
             fn()  # warm-up
         p1, k1, k2, p2 = (cuda_ms(fn, 10) for fn in (plain, kern, kern, plain))
         lib_ms = cuda_ms(library, 10)
+        lib_fb_ms = cuda_ms(library_fwd_bwd, 10)
+        fwd_ms = cuda_ms(fwd, 10)
         # read q, k, v, out, dO, lse and the mask; write dq, dk, dv
         nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4 \
             + pad.numel()
-        bms, by = bound_ms(nbytes, 10 * b * h * s * s * hd, dname)
-        row = dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=errs,
-                   err_over_max_grad=rels, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
-        log(f"K2 {row} (library_ms: SDPA forward + backward) [{card}]")
+        flops = 10 * b * h * s * s * hd
+        bms, by = bound_ms(nbytes, flops, dname)
+        row = rates(dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=errs,
+                         err_over_max_grad=rels, ms=(k1 + k2) / 2,
+                         plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by,
+                         library_fwd_bwd_ms=lib_fb_ms,
+                         k1_plus_k2_ms=fwd_ms + (k1 + k2) / 2), flops)
+        log(f"K2 {row} (library_ms: SDPA backward alone; library_fwd_bwd_ms: "
+            f"SDPA forward + backward, beside k1_plus_k2_ms) [{card}]")
         rows.append(row)
     return rows
 

@@ -27,8 +27,8 @@ STEPS = 3
 
 # kernel-name substrings -> class, first match wins
 CLASSES = (
-    ("K1 attention fwd", ("attention_fwd_kernel",)),
-    ("K2 attention bwd", ("dkdv_kernel", "dq_kernel", "dsum_kernel")),
+    ("K1 attention fwd", ("attention_fwd_",)),
+    ("K2 attention bwd", ("dkdv_", "dq_", "dsum_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
     ("LayerNorm", ("layer_norm",)),

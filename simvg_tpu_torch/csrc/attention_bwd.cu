@@ -32,13 +32,26 @@
 //   (c) dq_kernel: one block per (64-query tile, head, batch) holds Q_i, dO_i,
 //       walks the key tiles, recomputes P and dS and accumulates dQ_i.
 // (b) and (c) both recompute S and dP: seven 64x64x64 products per tile pair
-// where five would do, the price of having no cross-block reduction.
+// where five would do, the price of having no cross-block reduction.  The
+// result is deterministic: every output element is written by one block,
+// from sums taken in a fixed order.
+//
+// Two routes, chosen by dtype in the C entry point.  fp32 runs (a), (b), (c)
+// on the CUDA cores in fp32 FMAs with the forward's 16x16-thread,
+// 4x4-register tiling: the parity route (TF32 would break the fp32 bounds).
+// bf16 runs on the tensor cores (dq_mma_kernel, dkdv_mma_kernel): every
+// product an mma.sync on bf16 fragments fed by cp.async, P and dS kept in
+// registers (see below).  There (a) folds into (c), which runs first and
+// writes D for (b): one launch and one read of dO fewer.
 //
 // What bounds it.  At the flagship's S = 421, HD = 64, the backward is
-// ~10*B*H*S^2*HD FLOP (the TPU kernel's cost estimate) over ~6 [B,S,H,HD]
-// tensors: compute-bound.  This first version runs its products on the CUDA
-// cores in fp32 FMAs with the forward's 16x16-thread, 4x4-register tiling, so
-// FMA issue and shared-memory reads bound it; mma.sync / wgmma are the next step.
+// ~10*B*H*S^2*HD FLOP (the TPU kernel's cost estimate; 43.6 GFLOP at B = 32)
+// over ~8 [B,S,H,HD] tensors read or written once (~166 MB in bf16): 0.044 ms
+// of tensor-core work against 0.050 ms of memory traffic, so the card's
+// bound is the bytes.  The mma.sync route does seven tile products where five
+// would do, reloads every B fragment from shared memory for each warp (16
+// rows of A to 64 columns of B: shared-memory reads, not the tensor cores,
+// set its pace), and spends a multi-function-unit exp2 on every score.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
@@ -46,6 +59,7 @@
 #include <math.h>
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -328,6 +342,280 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+// ---- bf16 on the tensor cores -------------------------------------------
+//
+// The same two-pass shape, with every product an mma.sync on bf16
+// fragments: 4 warps a block, 16 rows of the block's 64-row tile each, the
+// other operand streaming through a 2-stage cp.async ring of 64-row tiles.
+// P and dS stay in registers: the fp32 C fragments of S and dP become, after
+// the elementwise step and the rounding to bf16, the A fragments of the next
+// products (attention_mma.cuh).  Rows past Sq and Sk are zero-filled by the
+// loads; rows past Sk are masked, rows past Sq contribute exact zeros
+// (their dO and D are 0, so P^T dO and dS = P (dP - D) vanish).
+
+// dQ: shared memory for Q, dO and two stages of K and V.
+constexpr size_t kDqSmem = 6 * (size_t)kTileBytes;
+// dK/dV: K, V and two stages of Q, dO, lse and D.
+constexpr size_t kDkdvSmem = 6 * (size_t)kTileBytes + 2 * 2 * kMmaRows * sizeof(float);
+
+// (a) and (c) on the tensor cores: D_i and dQ_i for one 64-query tile of
+// one head.  The block first takes D = rowsum(dO * out) of its rows from the
+// dO and out tiles in shared memory and writes it for the dK/dV kernel, which
+// runs next.  Then per key tile a warp computes S = Q K^T and dP = dO V^T (32
+// mma each), P = exp(S - lse) and dS = P (dP - D) in registers, and dQ +=
+// round(dS) K (32 mma, K through ldmatrix.trans).
+__global__ void __launch_bounds__(kMmaThreads)
+dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ out,
+              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+              float* __restrict__ dsum, const uint8_t* __restrict__ pad,
+              __nv_bfloat16* __restrict__ dq, int sq, int sk, int heads) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* do_s = q_s + kTileElems;
+  __nv_bfloat16* k_s = do_s + kTileElems;  // [2][kTileElems]
+  __nv_bfloat16* v_s = k_s + 2 * kTileElems;  // [2][kTileElems]
+
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const long long row = (long long)heads * kMmaHd;
+  const long long q_off = (long long)b * sq * row + (long long)head * kMmaHd;
+  const long long k_off = (long long)b * sk * row + (long long)head * kMmaHd;
+  const float* lse_b = lse + ((long long)b * heads + head) * sq;
+  float* d_b = dsum + ((long long)b * heads + head) * sq;
+  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
+  const __nv_bfloat16* out_s = v_s + kTileElems;  // stage 1 of V, free until tile 1
+
+  load_tile_async(q_s, q + q_off, row, q0, sq, tid);
+  load_tile_async(do_s, dout + q_off, row, q0, sq, tid);
+  load_tile_async(v_s + kTileElems, out + q_off, row, q0, sq, tid);
+  load_tile_async(k_s, k + k_off, row, 0, sk, tid);
+  load_tile_async(v_s, v + k_off, row, 0, sk, tid);
+  cp_async_commit();
+
+  // exp_arg(lse) and D of rows r0 + g (index 0) and r0 + g + 8 (index 1);
+  // 0 past Sq
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = q0 + r0 + (lane >> 2) + 8 * h;
+    lse_r[h] = exp_arg(s < sq ? lse_b[s] : 0.f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    // D of row r0 + lane / 2: each lane of a pair sums 32 of its 64 columns
+    const int r = r0 + (lane >> 1), c0 = 32 * (lane & 1);
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; c += 8) {
+      const uint4 o8 = *reinterpret_cast<const uint4*>(out_s + r * kPitch + c0 + c);
+      const uint4 g8 = *reinterpret_cast<const uint4*>(do_s + r * kPitch + c0 + c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o8);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]), gf = __bfloat1622float2(g2[e]);
+        d = fmaf(gf.x, of.x, d);
+        d = fmaf(gf.y, of.y, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if ((lane & 1) == 0 && q0 + r < sq) d_b[q0 + r] = d;
+    // rows r0 + g and r0 + g + 8 are held by lanes 2 g and 2 g + 16
+    d_r[0] = __shfl_sync(0xffffffffu, d, 2 * (lane >> 2));
+    d_r[1] = __shfl_sync(0xffffffffu, d, 2 * (lane >> 2) + 16);
+  }
+  __syncthreads();  // out_s is read before tile 1 lands on it
+
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_tiles = (sk + kMmaRows - 1) / kMmaRows;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile_async(k_s + (st ^ 1) * kTileElems, k + k_off, row, (j + 1) * kMmaRows, sk, tid);
+      load_tile_async(v_s + (st ^ 1) * kTileElems, v + k_off, row, (j + 1) * kMmaRows, sk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* kt = k_s + st * kTileElems;
+
+    float p[8][4], ds[8][4];
+    tile_product_nk(p, q_s, r0, kt, lane);                   // S
+    tile_product_nk(ds, do_s, r0, v_s + st * kTileElems, lane);  // dP
+    const int k0 = j * kMmaRows;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + n * 8 + 2 * t + c;
+        const bool outside = key >= sk;
+        const bool padded = !outside && pad_b != nullptr && pad_b[key] != 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          const float pe = outside ? 0.f : exp_sub(padded ? kPadLogit : p[n][e], lse_r[h]);
+          ds[n][e] = pe * (ds[n][e] - d_r[h]);
+        }
+      }
+    tile_product_kn(acc, ds, kt, lane);  // dQ += round(dS) K
+    __syncthreads();
+  }
+  store_rows(acc, 1.f, 1.f, q_s, r0, dq + q_off, row, q0, sq, lane);
+}
+
+// (b) on the tensor cores: dK_j, dV_j for one 64-key tile of one head.  A
+// warp owns 16 keys and computes the transposed products S^T = K Q^T and
+// dP^T = V dO^T (32 mma each), so that P^T and dS^T land in registers as the
+// A operands of dV += round(P^T) dO and dK += round(dS^T) Q (32 mma each, dO
+// and Q through ldmatrix.trans).  lse and D are per column there, read from
+// shared memory beside each query tile.  Three blocks an SM: registers are
+// capped at 168 a thread (ptxas fits it in ~160 with no spills).
+__global__ void __launch_bounds__(kMmaThreads, 3)
+dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                const uint8_t* __restrict__ pad, __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int sq, int sk, int heads) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* v_s = k_s + kTileElems;
+  __nv_bfloat16* q_s = v_s + kTileElems;   // [2][kTileElems]
+  __nv_bfloat16* do_s = q_s + 2 * kTileElems;  // [2][kTileElems]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // [2][64]
+  float* d_s = lse_s + 2 * kMmaRows;                                // [2][64]
+
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
+  const int t = lane & 3;
+  const int k0 = blockIdx.x * kMmaRows;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const long long row = (long long)heads * kMmaHd;
+  const long long q_off = (long long)b * sq * row + (long long)head * kMmaHd;
+  const long long k_off = (long long)b * sk * row + (long long)head * kMmaHd;
+  const float* lse_b = lse + ((long long)b * heads + head) * sq;
+  const float* d_b = dsum + ((long long)b * heads + head) * sq;
+
+  // Q, dO, lse and D of query tile i into stage st; rows past Sq are zeros
+  auto load_query_tile = [&](int i, int st) {
+    const int s0 = i * kMmaRows;
+    load_tile_async(q_s + st * kTileElems, q + q_off, row, s0, sq, tid);
+    load_tile_async(do_s + st * kTileElems, dout + q_off, row, s0, sq, tid);
+    const int r = tid & (kMmaRows - 1);
+    const bool in = s0 + r < sq;
+    const float* from = (tid < kMmaRows ? lse_b : d_b) + (in ? s0 + r : 0);
+    cp_async4((tid < kMmaRows ? lse_s : d_s) + st * kMmaRows + r, from, in ? 4 : 0);
+  };
+
+  load_tile_async(k_s, k + k_off, row, k0, sk, tid);
+  load_tile_async(v_s, v + k_off, row, k0, sk, tid);
+  load_query_tile(0, 0);
+  cp_async_commit();
+
+  // keys r0 + g (index 0) and r0 + g + 8 (index 1) of the tile
+  bool padded[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + r0 + (lane >> 2) + 8 * h;
+    padded[h] = pad != nullptr && key < sk && pad[(long long)b * sk + key] != 0;
+  }
+
+  float acc_dv[8][4], acc_dk[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dv[n][e] = acc_dk[n][e] = 0.f;
+
+  const int n_tiles = (sq + kMmaRows - 1) / kMmaRows;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_tiles) load_query_tile(i + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // two halves of 32 queries, one after the other: P^T and dS^T of a half
+    // are 16 registers each, which leaves room for three blocks on an SM
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;
+      const __nv_bfloat16* qt = q_s + st * kTileElems + c0 * kPitch;
+      const __nv_bfloat16* dot = do_s + st * kTileElems + c0 * kPitch;
+      const float* lse_t = lse_s + st * kMmaRows + c0;
+      const float* d_t = d_s + st * kMmaRows + c0;
+
+      float p[4][4], ds[4][4];
+      tile_product_nk(p, k_s, r0, qt, lane);    // S^T
+      tile_product_nk(ds, v_s, r0, dot, lane);  // dP^T
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float2 lse_c = *reinterpret_cast<const float2*>(lse_t + n * 8 + 2 * t);
+        const float2 d_c = *reinterpret_cast<const float2*>(d_t + n * 8 + 2 * t);
+        const float lse2[2] = {exp_arg(lse_c.x), exp_arg(lse_c.y)};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * h + c;
+            const float pe = exp_sub(padded[h] ? kPadLogit : p[n][e], lse2[c]);
+            p[n][e] = pe;
+            ds[n][e] = pe * (ds[n][e] - (c ? d_c.y : d_c.x));
+          }
+      }
+      tile_product_kn(acc_dv, p, dot, lane);  // dV += round(P^T) dO
+      tile_product_kn(acc_dk, ds, qt, lane);  // dK += round(dS^T) Q
+    }
+    __syncthreads();
+  }
+  // k_s and v_s rows [r0, r0 + 16) were read by this warp alone
+  store_rows(acc_dk, 1.f, 1.f, k_s, r0, dk + k_off, row, k0, sk, lane);
+  store_rows(acc_dv, 1.f, 1.f, v_s, r0, dv + k_off, row, k0, sk, lane);
+}
+
+int launch_mma(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const void* lse, const void* pad, void* dsum, void* dq,
+               void* dk, void* dv, int batch, int sq, int sk, int heads,
+               cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const bf16* do_ = static_cast<const bf16*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  const uint8_t* pad_ = static_cast<const uint8_t*>(pad);
+  float* dsum_ = static_cast<float*>(dsum);
+
+  // D and dQ first: the dK/dV kernel reads the D that this one writes
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((sq + kMmaRows - 1) / kMmaRows, heads, batch);
+  dq_mma_kernel<<<grid_q, kMmaThreads, kDqSmem, stream>>>(
+      q_, k_, v_, static_cast<const bf16*>(out), do_, lse_, dsum_, pad_,
+      static_cast<bf16*>(dq), sq, sk, heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = cudaFuncSetAttribute(dkdv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDkdvSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_kv((sk + kMmaRows - 1) / kMmaRows, heads, batch);
+  dkdv_mma_kernel<<<grid_kv, kMmaThreads, kDkdvSmem, stream>>>(
+      q_, k_, v_, do_, lse_, dsum_, pad_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq,
+      sk, heads);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const void* lse, const void* pad, void* dsum, void* dq,
@@ -387,8 +675,13 @@ extern "C" int simvg_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64)
     return launch<float, 64>(q, k, v, out, dout, lse, pad, dsum, dq, dk, dv, batch, sq,
                              sk, heads, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, dout, lse, pad, dsum, dq, dk, dv,
-                                     batch, sq, sk, heads, s);
+  if (dtype == 1 && head_dim == 64) {
+    // 16-byte cp.async loads and stores
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)dout |
+         (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15)
+      return (int)cudaErrorMisalignedAddress;
+    return launch_mma(q, k, v, out, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk, heads,
+                      s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,15 @@
 // Shared by the attention kernels (attention_fwd.cu, attention_bwd.cu): the
-// tile shape, the element conversions and the row reductions.  Both kernels
-// compute the logits of a (64-query, 64-key) tile with the same thread layout
-// and the same summation order, so the backward recomputes bit for bit the
-// logits whose row statistics the forward stored.
+// tile shape of their CUDA-core (fp32) route, the element conversions and the
+// row reductions.  On that route both kernels compute the logits of a
+// (64-query, 64-key) tile with the same thread layout and the same summation
+// order, so the backward recomputes bit for bit the logits whose row
+// statistics the forward stored.  On the tensor-core (bf16) route
+// (attention_mma.cuh) the dK/dV kernel computes the transposed product
+// K Q^T, so its logits equal the forward's up to fp32 rounding only; the
+// error bounds are the same.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -22,17 +25,13 @@ constexpr int kKeysPerThread = kBlockK / kThreadsX;  // 4
 constexpr int kLdP = kBlockK + 1;  // padded row stride of a P / dS tile
 constexpr float kPadLogit = -1e30f;  // the TPU kernel's bias on padded keys
 
+// The CUDA-core kernels are templates on the element type T and are
+// instantiated for float only: bf16 takes the tensor-core route.
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // x rounded to the input type T and widened back: the cast the TPU kernel
 // makes before a product with T operands.

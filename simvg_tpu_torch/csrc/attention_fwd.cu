@@ -23,13 +23,25 @@
 // (FlashAttention-2 style: running row max m and row sum l in fp32, the
 // accumulator rescaled by exp(m_old - m_new) when the max grows).
 //
+// Two routes, chosen by dtype in the C entry point:
+//   bf16  attention_fwd_mma_kernel: the tensor cores.  4 warps of 16 query
+//         rows; S = Q K^T and O += round(P) V are mma.sync m16n8k16 products
+//         on bf16 fragments with fp32 sums, K/V tiles arrive through a
+//         2-stage cp.async ring, and P goes from the S accumulators to the A
+//         operand of P V in registers (attention_mma.cuh).
+//   fp32  attention_fwd_kernel: the CUDA cores in fp32 FMAs (16x16 threads, a
+//         4x4 register tile each), the parity route: tensor cores would take
+//         fp32 operands only as TF32, which keeps ~3 decimal digits.
+//
 // What bounds it.  At the flagship's S = 421, HD = 64 one layer's attention
-// is 4*B*H*S^2*HD = 4.4 GFLOP at B = 8 over ~13 MB of q/k/v in bf16: too small
-// to be bound by memory, and this first version runs its products on the CUDA
-// cores in fp32 FMAs (16x16 threads, a 4x4 register tile each), so FMA issue
-// and shared-memory reads bound it.  mma.sync / wgmma on the tensor cores and
-// TMA-fed K/V tiles are the next steps.  The encoder's parameter matmuls, not
-// this core, take ~92% of a layer's FLOPs at S = 421.
+// is 4*B*H*S^2*HD = 17.4 GFLOP at B = 32 over ~83 MB of q/k/v/out in bf16:
+// 0.018 ms of tensor-core work at 989 TFLOP/s against 0.025 ms of memory
+// traffic at 3.35 TB/s, so the card's bound is the bytes.  What bounds this
+// mma.sync design is instruction throughput: each warp reloads the K/V
+// fragments of every tile from shared memory (ldmatrix), and the softmax's
+// exp and max run on the CUDA cores between the two products.  Warpgroup
+// wgmma with TMA-fed tiles is the next step.  The encoder's parameter matmuls, not this core,
+// take ~92% of a layer's FLOPs at S = 421.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
@@ -37,6 +49,7 @@
 #include <math.h>
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -192,6 +205,138 @@ int launch(const void* q, const void* k, const void* v, const void* pad, void* o
   return (int)cudaGetLastError();
 }
 
+// The bf16 forward on the tensor cores (FlashAttention-2 on mma.sync).  One
+// block of 4 warps per (64-query tile, head, batch); warp w owns query rows
+// [16 w, 16 w + 16).  The Q tile stays in shared memory; K and V tiles of 64
+// keys stream through a 2-stage cp.async ring, the next tile in flight while
+// the current one is used.  Per key tile a warp computes S = Q K^T (32 mma),
+// takes the online softmax in registers (row max and sum across the 4 lanes
+// of a quad; every lane keeps a partial row sum), rounds P to bf16 in
+// registers as the A operand of O += P V (32 mma, V through ldmatrix.trans),
+// and never writes P to shared memory.  Logits, softmax and sums are fp32
+// (exp through the hardware's exp2, attention_mma.cuh); the roundings are
+// the CUDA-core kernel's: P before P V, O at the store.
+__global__ void __launch_bounds__(kMmaThreads)
+attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ pad,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
+                         int sk, int heads) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[kTileElems];
+  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTileElems];
+  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTileElems];
+
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const long long row = (long long)heads * kMmaHd;  // elements between tokens
+  const __nv_bfloat16* q_b = q + (long long)b * sq * row + (long long)head * kMmaHd;
+  const __nv_bfloat16* k_b = k + (long long)b * sk * row + (long long)head * kMmaHd;
+  const __nv_bfloat16* v_b = v + (long long)b * sk * row + (long long)head * kMmaHd;
+  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
+
+  load_tile_async(q_s, q_b, row, q0, sq, tid);
+  load_tile_async(k_s[0], k_b, row, 0, sk, tid);
+  load_tile_async(v_s[0], v_b, row, 0, sk, tid);
+  cp_async_commit();
+
+  // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile, g = lane / 4
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  const int n_tiles = (sk + kMmaRows - 1) / kMmaRows;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {  // the stage read in iteration j - 1; all reads are done
+      load_tile_async(k_s[st ^ 1], k_b, row, (j + 1) * kMmaRows, sk, tid);
+      load_tile_async(v_s[st ^ 1], v_b, row, (j + 1) * kMmaRows, sk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) have landed
+    __syncthreads();
+
+    float s[8][4];
+    tile_product_nk(s, q_s, r0, k_s[st], lane);
+
+    // Keys past Sk are left out (-inf); padded keys get the TPU kernel's
+    // -1e30.  Every tile starts with an in-range key, so each row's tile
+    // max is finite and exp() below never sees inf - inf.
+    const int k0 = j * kMmaRows;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + n * 8 + 2 * t + c;
+        if (key >= sk) {
+          s[n][c] = s[n][c + 2] = -INFINITY;
+        } else if (pad_b != nullptr && pad_b[key] != 0) {
+          s[n][c] = s[n][c + 2] = kPadLogit;
+        }
+      }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        tile_max = fmaxf(tile_max, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      const float m_new = fmaxf(m[h], tile_max);
+      const float m2 = exp_arg(m_new);
+      const float alpha = exp_sub(m[h], m2);  // 0 on the first tile
+      float tile_sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp_sub(s[n][2 * h + c], m2);
+          s[n][2 * h + c] = p;
+          tile_sum += p;
+          o[n][2 * h + c] *= alpha;
+        }
+      l[h] = l[h] * alpha + tile_sum;  // this lane's part of the row sum
+      m[h] = m_new;
+    }
+
+    tile_product_kn(o, s, v_s[st], lane);  // O += round(P) V
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  // q_s rows [r0, r0 + 16) were read by this warp alone
+  store_rows(o, 1.f / l[0], 1.f / l[1], q_s, r0,
+             out + (long long)b * sq * row + (long long)head * kMmaHd, row, q0, sq, lane);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = q0 + r0 + (lane >> 2) + 8 * h;
+      if (s < sq) lse[((long long)b * heads + head) * sq + s] = m[h] + logf(l[h]);
+    }
+  }
+}
+
+int launch_mma(const void* q, const void* k, const void* v, const void* pad, void* out,
+               void* lse, int batch, int sq, int sk, int heads, cudaStream_t stream) {
+  const dim3 grid((sq + kMmaRows - 1) / kMmaRows, heads, batch);
+  attention_fwd_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(pad),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sq, sk, heads);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  pad may be null (no padded keys); lse
@@ -207,7 +352,11 @@ extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
   // head_dim is a template parameter; 64 is every shipped config's
   if (dtype == 0 && head_dim == 64)
     return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+  if (dtype == 1 && head_dim == 64) {
+    // 16-byte cp.async loads and stores
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15)
+      return (int)cudaErrorMisalignedAddress;
+    return launch_mma(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

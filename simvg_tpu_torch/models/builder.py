@@ -29,8 +29,10 @@ _NOT_PORTED = {"quant": "none", "token_prune_keep": None,
 def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
                 dtype: torch.dtype = torch.float32,
                 device=None) -> Tuple[SimVGModel, Dict[str, Any]]:
-    """Returns (model, loss_cfg).  ``device="meta"`` builds the module
-    tree without allocating its parameters."""
+    """Returns (model, loss_cfg), built on the card unless ``device``
+    names another (``"cpu"``, or ``"meta"`` for the module tree without
+    its parameters).  With no device given and no card present it
+    raises."""
     if model_cfg.get("type", "MIXDETRMB") != "MIXDETRMB":
         raise NotImplementedError(
             f"model type {model_cfg.get('type')!r} is not ported")
@@ -77,7 +79,12 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
         dtype=dtype,
     )
 
-    with torch.device(device or "cpu"):
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_model: no CUDA device; pass "
+                               "device='cpu' to build on the CPU")
+        device = "cuda"
+    with torch.device(device):
         model = SimVGModel(SimVGConfig(beit3=beit3, head=head_cfg))
 
     loss_cfg = {

@@ -9,6 +9,11 @@ called at :131) and ``_attn_bwd_kernel`` (:66, called at :165 by
 K/V through shared memory with an online softmax, and how K2 replaces the
 TPU kernel's sequential dK/dV accumulation with two passes and no atomics.
 
+Each kernel has two routes, chosen by dtype inside its C entry point:
+bf16 runs on the tensor cores (``mma.sync`` on bf16 fragments fed by
+``cp.async``, building blocks in ``csrc/attention_mma.cuh``), float32 on
+the CUDA cores in fp32 FMAs, the parity route.
+
 ``fused_attention`` is one ``torch.autograd.Function`` around the two.  For
 CUDA tensors it launches K1 (and, for the gradient, K2) or raises on
 anything the kernels do not take; only tensors on the CPU go to the plain
@@ -111,6 +116,14 @@ def _check(q, k, v, key_padding_mask):
                          f"{(b, k.shape[1])}")
 
 
+def _check_aligned(tensors):
+    """The bf16 route moves 16-byte chunks: its tensors must start on a
+    16-byte boundary (every fresh allocation does)."""
+    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_attention: bf16 tensors must be 16-byte "
+                         "aligned")
+
+
 def _check_grad(q, dout):
     """Raises on a cotangent the backward kernel does not take."""
     if dout.shape != q.shape or dout.dtype != q.dtype:
@@ -137,6 +150,7 @@ def attention_fwd(q, k, v, key_padding_mask=None, with_lse=False):
     and, with ``with_lse``, the fp32 row log-sum-exp [B, H, Sq]."""
     _check_device([q, k, v, key_padding_mask])
     _check(q, k, v, key_padding_mask)
+    _check_aligned([q, k, v])
     fn = _library("attention_fwd", 6, 6)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
@@ -167,6 +181,7 @@ def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
             or lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError("attention_bwd: out/lse do not match q")
     dout = dout.contiguous()
+    _check_aligned([q, k, v, out, dout])
     fn = _library("attention_bwd", 11, 6)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -7,7 +7,10 @@ port does not need, so it is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The cases reach what chip_smoke.py's flagship shapes do not: Sq != Sk,
-fewer keys than one tile, a row with one live key.  Forward bounds:
+fewer keys than one tile, a row with one live key, S = 100 (not a
+multiple of the 16-row mma fragments), S = 64 (exactly one tile), the
+train step's shape, and logits scaled x8 so that later key tiles raise the
+row max and the bf16 forward's online softmax rescales its sums.  Forward bounds:
 float32 2e-5 (tests/test_pallas_attention.py); bf16 2e-2, one bf16 step
 for |out| < 4, since the kernel rounds P before normalising and the plain
 version after.  Backward (K2) bounds: float32 3e-4 absolute / 1e-3
@@ -40,6 +43,10 @@ CASES = [
     (3, 13, 70, 3, 64, [70, 1, 33]),  # Sq != Sk, one live key
     (1, 200, 5, 2, 64, None),  # fewer keys than one 64-key tile
     (1, 1, 1, 1, 64, None),
+    (2, 100, 100, 4, 64, [100, 61]),  # S not a multiple of 16
+    (2, 64, 64, 4, 64, [64, 47]),  # exactly one 64-row tile
+    # the train step's call: batch 32, padded text as the encoder sees it
+    (32, 421, 421, 12, 64, [404 + (i * 5) % 18 for i in range(32)]),
 ]
 
 
@@ -87,7 +94,11 @@ def test_attention_bwd_matches_plain_version(gen, dtype, b, sq, sk, h, hd,
     grads = attention_bwd(q, k, v, out, dout, lse, pad)
     torch.cuda.synchronize()
     assert attention_bwd.launches == before + 1
-    refs = fused_attention_bwd_reference(q, k, v, dout, pad)
+    _assert_grads_close(grads, fused_attention_bwd_reference(
+        q, k, v, dout, pad), dtype, pad)
+
+
+def _assert_grads_close(grads, refs, dtype, pad):
     for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
         assert g.dtype == dtype and g.shape == ref.shape, name
         if dtype == torch.float32:
@@ -99,6 +110,22 @@ def test_attention_bwd_matches_plain_version(gen, dtype, b, sq, sk, h, hd,
     if pad is not None:  # padded keys get exactly zero dk and dv
         for g in grads[1:]:
             assert not g[pad].any()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", [CASES[0], CASES[4]])
+def test_attention_bf16_sharp_logits(gen, b, sq, sk, h, hd, lengths):
+    """Logits of std ~8: the row max grows across key tiles, so K1 rescales
+    its running sums, and P is far from uniform in K1 and K2."""
+    q, k, v, dout, pad = _inputs(gen, torch.bfloat16, b, sq, sk, h, hd,
+                                 lengths)
+    q = (q.float() * 8).to(torch.bfloat16)
+    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    grads = attention_bwd(q, k, v, out, dout, lse, pad)
+    torch.cuda.synchronize()
+    ref = fused_attention_reference(q, k, v, pad)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    _assert_grads_close(grads, fused_attention_bwd_reference(
+        q, k, v, dout, pad), torch.bfloat16, pad)
 
 
 def test_attention_bwd_is_deterministic(gen):

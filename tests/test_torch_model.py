@@ -223,6 +223,34 @@ def test_flagship_config_builds_on_meta():
     assert all(p.is_meta for p in model.parameters())
 
 
+TINY_MODEL_CFG = dict(
+    type="MIXDETRMB",
+    vis_enc=dict(img_size=64, patch_size=16, embed_dim=32, num_heads=4,
+                 ffn_dim=64, num_layers=2, vocab_size=80),
+    head=dict(num_queries=2, in_channels=32, embed_dim=32,
+              num_decoder_layers=2, num_tgqg_layers=1))
+
+
+def test_build_model_builds_on_the_cpu_when_asked():
+    from simvg_tpu_torch.models import build_model
+
+    model, _ = build_model(TINY_MODEL_CFG, img_size=64, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_build_model_defaults_to_the_card():
+    """No device given: the model is built on the card, and where there is
+    none the build raises instead of falling back to the CPU."""
+    from simvg_tpu_torch.models import build_model
+
+    if torch.cuda.is_available():
+        model, _ = build_model(TINY_MODEL_CFG, img_size=64)
+        assert {p.device.type for p in model.parameters()} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(TINY_MODEL_CFG, img_size=64)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, simvg_tpu_torch, simvg_tpu_torch.models, "
