@@ -40,8 +40,10 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -600,8 +602,9 @@ def train_flagship(card):
     plain_step, plain_state = make_train_step_for(cfg, plain, loss_cfg, norm)
     timing = time_train({"xla": (plain_step, plain_state),
                          "pallas": (step, state)}, batches)
+    step_ms = {}
     for impl, (ts, peak) in timing.items():
-        ms = ts[len(ts) // 2]
+        ms = step_ms[impl] = ts[len(ts) // 2]
         log(f"train step, batch {TRAIN_BATCH}, bf16, attn_impl={impl}: "
             f"median {ms:.3f} ms/step ({TRAIN_BATCH / ms * 1e3:.1f} images/s), "
             f"min {ts[0]:.3f}, max {ts[-1]:.3f}, {len(ts)} steps; "
@@ -626,7 +629,7 @@ def train_flagship(card):
             not gdiff <= GRAD_REL_BOUND * gscale:
         raise AssertionError("the train step with K1/K2 differs from plain "
                              "attention beyond the bounds")
-    return k1, k2
+    return k1, k2, step_ms["pallas"]
 
 
 def time_train(steps, batches):
@@ -652,6 +655,243 @@ def time_train(steps, batches):
     return {n: (sorted(lat[n]), peak[n]) for n in names}
 
 
+JPEG_HW = (480, 640)  # COCO-sized images
+JPEG_QUALITY = 95
+# mean |difference| of an encode -> decode round trip at quality 95 on
+# smooth images (tests/test_torch_data.py holds cv2's to the same bound)
+JPEG_MEAN_BOUND = 2.0
+N_SYNTH_TRAIN, N_SYNTH_VAL = 64, 16
+STD = (58.395, 57.12, 57.375)  # the flagship's img_norm_cfg std
+
+
+def check_jpeg(card):
+    """The nvJPEG codec on the card: encode -> decode round trips at
+    480x640 (shape exact, mean |difference| <= JPEG_MEAN_BOUND levels), a
+    grayscale file (three equal channels), every EXIF orientation; the
+    decode's and the header parse's time per image."""
+    import torch
+    from simvg_tpu_torch.data.jpeg import decode, encode, jpeg_geometry, orient
+    from simvg_tpu_torch.tools.make_synth_data import smooth_image, with_exif
+
+    files, errs = [], []
+    for i in range(8):
+        img = torch.from_numpy(smooth_image(*JPEG_HW, i)).cuda()
+        data = encode(img, JPEG_QUALITY)
+        got = decode(data, "cuda")
+        err = (got.int() - img.int()).abs().float().mean().item()
+        if tuple(got.shape) != tuple(img.shape) or not err <= JPEG_MEAN_BOUND:
+            raise AssertionError(f"nvJPEG round trip {i}: shape "
+                                 f"{tuple(got.shape)}, mean |diff| {err}")
+        files.append(data)
+        errs.append(err)
+    gray = torch.from_numpy(smooth_image(*JPEG_HW, 9)[..., 1].copy()).cuda()
+    got = decode(encode(gray, JPEG_QUALITY), "cuda")
+    gerr = (got[..., 0].int() - gray.int()).abs().float().mean().item()
+    if not (tuple(got.shape) == JPEG_HW + (3,)
+            and torch.equal(got[..., 0], got[..., 1])
+            and torch.equal(got[..., 0], got[..., 2])
+            and gerr <= JPEG_MEAN_BOUND):
+        raise AssertionError(f"nvJPEG grayscale: shape {tuple(got.shape)}, "
+                             f"mean |diff| {gerr}")
+    plain = decode(files[0], "cuda")
+    for o in range(1, 9):
+        got = decode(with_exif(files[0], o), "cuda")
+        if not torch.equal(got, orient(plain, o)):
+            raise AssertionError(f"EXIF orientation {o} not applied")
+    decode_ms = cuda_ms(lambda: [decode(d, "cuda") for d in files], 8) \
+        / len(files)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        for d in files:
+            jpeg_geometry(d)
+    header_ms = (time.perf_counter() - t0) * 1e3 / (100 * len(files))
+    log(f"jpeg: nvJPEG round trips at {JPEG_HW} q{JPEG_QUALITY}: mean |diff| "
+        f"{errs} (bound {JPEG_MEAN_BOUND}), grayscale {gerr}, EXIF "
+        f"orientations 1-8 applied; decode {decode_ms:.3f} ms/image, header "
+        f"parse {header_ms:.4f} ms/image [{card}]")
+
+
+def synth_options(imgdir, ann):
+    """--cfg-options pointing every split of the flagship at the synthetic
+    data; testA and testB read its val split."""
+    opts = []
+    for split in ("train", "val", "testA", "testB"):
+        opts += [f"data.{split}.annsfile={ann}",
+                 f"data.{split}.imgsfile={imgdir}"]
+    return opts + ["data.testA.which_set=val", "data.testB.which_set=val"]
+
+
+def data_phase(card, root, step_ms):
+    """N_SYNTH_TRAIN + N_SYNTH_VAL synthetic 480x640 JPEGs written with
+    nvJPEG; the flagship's loaders on the card, their batches held against
+    the CPU route on the same decoded pixels (1 level per resampling, over
+    std after Normalize); host geometry, decode, device transform and
+    loader times.  Returns --cfg-options for the synthetic data."""
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                              build_loader_from_cfg)
+    from simvg_tpu_torch.data.image_ops import collate_images
+    from simvg_tpu_torch.data.jpeg import decode
+    from simvg_tpu_torch.tools.make_synth_data import make_refcoco_style
+
+    t0 = time.perf_counter()
+    imgdir, ann = make_refcoco_style(os.path.join(root, "synth"),
+                                     N_SYNTH_TRAIN, N_SYNTH_VAL,
+                                     img_hw=JPEG_HW, device="cuda")
+    log(f"data: wrote {N_SYNTH_TRAIN}+{N_SYNTH_VAL} synthetic {JPEG_HW} "
+        f"JPEGs with nvJPEG in {time.perf_counter() - t0:.2f} s")
+    opts = synth_options(imgdir, ann)
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict(parse_cfg_options(opts))
+    canvas = cfg.img_size
+    for split, train in (("train", True), ("val", False)):
+        ds = build_dataset_from_cfg(cfg.data[split], dataset_type=cfg.dataset,
+                                    seed=cfg.seed)
+        loader = build_loader_from_cfg(ds, cfg, train=train, canvas=canvas,
+                                       seed=cfg.seed, device="cuda")
+        idx, _ = loader._index_batches()[0]
+        idx = (idx * loader.bs)[:loader.bs]  # the loader's wrap-padding
+        batch = next(iter(loader))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in idx]
+        geo_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
+        decoded = [decode(s["img_bytes"], "cuda") for s in samples]
+        cpu = collate_images(samples, canvas, "cpu",
+                             [d.cpu() for d in decoded])
+        levels = torch.tensor([[sum(op == "resize" for op, _ in s["pixel_ops"])]
+                               for s in samples], dtype=torch.float32)
+        bound = levels[:, :, None, None] / torch.tensor(STD) + 1e-6
+        diff = (batch["image"].cpu() - cpu).abs()
+        if batch["image"].shape != cpu.shape or not (diff <= bound).all():
+            raise AssertionError(f"{split} loader batch differs from the CPU "
+                                 f"route: max {diff.max().item()}")
+        decode_ms = cuda_ms(lambda: [decode(s["img_bytes"], "cuda")
+                                     for s in samples], 3)
+        transform_ms = cuda_ms(lambda: collate_images(samples, canvas, "cuda",
+                                                      decoded), 5)
+        waits = []
+        for epoch in range(2):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            for b in loader:
+                b["image"].sum().item()  # the batch is on the card
+                waits.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+        log(f"data[{split}]: batch of {len(idx)} vs the CPU route on the same "
+            f"decoded pixels: max |diff| x std {diff.max().item() * max(STD):.3f}"
+            f" levels (resamplings {sorted(set(levels.flatten().tolist()))}); "
+            f"host geometry {geo_ms:.3f} ms/sample; decode {decode_ms:.2f} "
+            f"ms/batch; device transforms {transform_ms:.2f} ms/batch; loader "
+            f"{waits} ms/batch with nothing consuming, against the train "
+            f"step's median {step_ms:.1f} ms [{card}]")
+    return opts
+
+
+def _dir_gib(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)) / 2 ** 30
+
+
+def cli_phase(card, root, opts):
+    """The CLIs on the flagship at full width from the synthetic JPEGs:
+    train 1 epoch (2 steps of 32, eval of val/testA/testB, det_best and
+    latest), test on det_best (the same det_acc), resume from latest to
+    epoch 2; K1/K2 launches counted from 0 around each.  Returns the K1 and
+    K2 launches of the three runs."""
+    import torch
+    from simvg_tpu_torch.ops.fused_attention import (attention_bwd,
+                                                     fused_attention)
+    from simvg_tpu_torch.tools import test as test_cli
+    from simvg_tpu_torch.tools import train as train_cli
+    from simvg_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+
+    wd = os.path.join(root, "work")
+    steps = N_SYNTH_TRAIN // TRAIN_BATCH
+    evals = 3  # val, testA, testB: one batch each
+    launches = []
+
+    def run(name, fn, want_k1, want_k2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_attention.launches = attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k2 = fused_attention.launches, attention_bwd.launches
+        if (k1, k2) != (want_k1, want_k2):
+            raise AssertionError(f"{name}: K1 {k1} and K2 {k2} launches, "
+                                 f"expected {want_k1} and {want_k2}")
+        launches.append((k1, k2))
+        log(f"cli[{name}]: {secs:.1f} s, K1 launches {k1}, K2 launches {k2}, "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+        return out
+
+    k1_step = 12  # encoder layers
+    res = run("train", lambda: train_cli.main(
+        [FLAGSHIP, "--work-dir", wd, "--cfg-options", *opts,
+         "scheduler_config.max_epoch=1"]),
+        k1_step * (steps + evals), k1_step * steps)
+    if not (res["step"] == steps and os.path.isdir(os.path.join(wd, "det_best"))
+            and os.path.isdir(os.path.join(wd, "latest"))):
+        raise AssertionError(f"train CLI: step {res['step']}, files "
+                             f"{sorted(os.listdir(wd))}")
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss_total"] for line in f
+                  if '"train"' in line]
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"train CLI losses {losses}")
+    ep = res["epochs"][0]
+    log(f"cli[train]: {steps} steps of {TRAIN_BATCH}, loss_total {losses}, "
+        f"epoch {ep['seconds']:.2f} s ({ep['images_per_s']:.1f} images/s), "
+        f"eval {res['eval']['val']}; det_best {_dir_gib(wd + '/det_best'):.3f}"
+        f" GiB, latest {_dir_gib(wd + '/latest'):.3f} GiB [{card}]")
+
+    got = run("test", lambda: test_cli.main(
+        [FLAGSHIP, os.path.join(wd, "det_best"), "--cfg-options", *opts]),
+        k1_step * evals, 0)
+    if got["val"]["det_acc"] != res["eval"]["val"]["det_acc"]:
+        raise AssertionError(f"test CLI det_acc {got['val']} differs from the "
+                             f"train CLI's {res['eval']['val']}")
+    log(f"cli[test]: det_best val {got['val']} (train CLI's eval: the same "
+        f"det_acc {res['eval']['val']['det_acc']})")
+
+    res2 = run("resume", lambda: train_cli.main(
+        [FLAGSHIP, "--work-dir", wd, "--resume-from",
+         os.path.join(wd, "latest"), "--cfg-options", *opts,
+         "scheduler_config.max_epoch=2", "save_interval=2"]),
+        k1_step * (steps + evals), k1_step * steps)
+    with open(os.path.join(wd, "latest", "meta.json")) as f:
+        meta = json.load(f)
+    if not (res2["start_epoch"] == 1 and res2["step"] == 2 * steps
+            and meta["epoch"] == 2 and meta["step"] == 2 * steps
+            and os.path.isdir(os.path.join(wd, "epoch_2"))):
+        raise AssertionError(f"resume: {res2}, latest {meta}")
+    log(f"cli[resume]: from epoch 1 / step {steps} to epoch 2 / step "
+        f"{res2['step']}; epoch_2 written; eval {res2['eval']['val']}")
+
+    t0 = time.perf_counter()
+    ck = load_checkpoint(os.path.join(wd, "latest"), with_opt=True)
+    load_s = time.perf_counter() - t0
+    params = {k: v.cuda() for k, v in ck["params"].items()}
+    opt = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict)
+               else v) for k, v in ck["opt_state"].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(root, "resave", params=params, opt_state=opt, epoch=2,
+                    block=True)
+    save_s = time.perf_counter() - t0
+    log(f"checkpoint latest ({_dir_gib(os.path.join(root, 'resave')):.3f} "
+        f"GiB, params + amsgrad's three moments): load {load_s:.2f} s to the "
+        f"host, save {save_s:.2f} s from the card (copy to the host + write)"
+        f" [{card}]")
+    return (sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches))
+
+
 def main() -> int:
     import torch
 
@@ -670,7 +910,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all(KERNELS)
+    libs = _build.build_all(KERNELS + ("jpeg",))
     log(f"built {[os.path.relpath(p, REPO) for p in libs.values()]} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for name, lib in libs.items():
@@ -682,7 +922,14 @@ def main() -> int:
     k1_rows = check_k1(gen, card)
     k2_rows = check_k2(gen, card)
     serve_k1 = serve_flagship(card)
-    train_k1, train_k2 = train_flagship(card)
+    train_k1, train_k2, step_ms = train_flagship(card)
+    check_jpeg(card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        synth = data_phase(card, root, step_ms)
+        cli_k1, cli_k2 = cli_phase(card, root, synth)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # every number on this line is measured in this run, at the train
     # step's shape (batch 32, S=421, bf16; the first row of each check);
@@ -703,9 +950,9 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
-              k1_rows, serve_k1 + train_k1),
+              k1_rows, serve_k1 + train_k1 + cli_k1),
         entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
-              k2_rows, train_k2),
+              k2_rows, train_k2 + cli_k2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

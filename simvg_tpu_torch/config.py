@@ -5,10 +5,12 @@ The port reads the unchanged files under ``configs/``: a config file is
 executable Python whose module-level, non-underscore variables become the
 config dict, and ``_base_ = [relative paths]`` merges the parents first
 (the child overrides recursively; ``_delete_=True`` replaces a parent
-dict).  It is a copy of the JAX package's ``Config.fromfile`` so that the
-port, and a run of it on a machine without JAX, loads nothing of
-``simvg_tpu``; ``tests/test_torch_model.py`` holds the two to the same
-result on every file under ``configs/``.
+dict).  ``merge_from_dict``, ``dump`` and ``parse_cfg_options`` give the
+CLIs their ``--cfg-options`` surface.  It is a copy of the JAX package's
+``simvg_tpu/config/config.py`` so that the port, and a run of it on a
+machine without JAX, loads nothing of ``simvg_tpu``;
+``tests/test_torch_model.py`` holds the two to the same result on every
+file under ``configs/``.
 """
 
 from __future__ import annotations
@@ -84,3 +86,36 @@ class Config(dict):
             merged = cls._merge(merged,
                                 cls.fromfile(osp.join(osp.dirname(path), b)))
         return cls._wrap(cls._merge(merged, raw))
+
+    def merge_from_dict(self, options: Dict[str, Any]):
+        """Dotted-key overrides: {"model.head.num_queries": 10}."""
+        for key, val in options.items():
+            parts = key.split(".")
+            node = self
+            for p in parts[:-1]:
+                if p not in node or not isinstance(node[p], dict):
+                    node[p] = Config()
+                node = node[p]
+            node[parts[-1]] = Config._wrap(val)
+
+    def dump(self, path: str):
+        import pprint
+
+        with open(path, "w") as f:
+            f.write(pprint.pformat(dict(self), width=88))
+
+
+def parse_cfg_options(pairs):
+    """Parse CLI ``--cfg-options key=value`` pairs into a dotted-key
+    dict for ``Config.merge_from_dict``.  Values are python literals
+    where possible, else strings."""
+    import ast
+
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            out[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            out[k] = v
+    return out

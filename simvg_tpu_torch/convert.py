@@ -1,4 +1,5 @@
-"""Weight carry-over from the JAX package.
+"""Weight carry-over: from the JAX package, and from reference ``.pth``
+checkpoints (M7, pretrained load).
 
 The port's modules keep the reference's torch state-dict names, so a
 ``simvg_tpu`` parameter tree maps onto the port by the JAX package's own
@@ -7,14 +8,133 @@ exporter.  This module keeps a numpy-only copy of that exporter
 ``_export_beit3_key``, ``_export_head_entry``), held to the original by
 tests/test_torch_convert.py, so the port imports nothing of the JAX side.
 The same mapping names a gradient tree, which has the parameters' shape.
+
+``load_pretrained_into_model`` is the port's counterpart of
+``tools/convert_checkpoint.py::load_pretrained_into_params``: a full SimVG
+state dict (``vis_enc.*``, ``head.*``) or a BEiT-3 pretrain one
+(``beit3.*``) goes into the model under the port's names, with the vision
+position table and the patch projection interpolated to the model's grid
+and patch size (``interpolate_pos_embed``, ``interpolate_patch_proj``, the
+same bicubic resize).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import logging
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+_BEIT3 = "vis_enc.beit3."
+_VIS_POS = _BEIT3 + "encoder.embed_positions.A.weight"
+_TEXT_POS = _BEIT3 + "encoder.embed_positions.B.weight"
+_PATCH_PROJ = _BEIT3 + "vision_embed.proj.weight"
+
+
+def interpolate_pos_embed(weight: torch.Tensor, target_len: int,
+                          num_extra: int = 3) -> torch.Tensor:
+    """Bicubic grid interpolation of the vision position table; the first
+    ``num_extra`` rows (pad offset x2, CLS) are kept as they are."""
+    if weight.shape[0] == target_len:
+        return weight
+    extra, pos = weight[:num_extra], weight[num_extra:]
+    orig = int(round(len(pos) ** 0.5))
+    new = int(round((target_len - num_extra) ** 0.5))
+    if orig * orig != len(pos) or new * new != target_len - num_extra:
+        raise ValueError(f"position tables of {weight.shape[0]} and "
+                         f"{target_len} rows are not square grids")
+    t = pos.float().reshape(1, orig, orig, -1).permute(0, 3, 1, 2)
+    t = F.interpolate(t, size=(new, new), mode="bicubic",
+                      align_corners=False)
+    return torch.cat([extra.float(), t.permute(0, 2, 3, 1).reshape(
+        new * new, -1)], dim=0)
+
+
+def interpolate_patch_proj(weight: torch.Tensor, target_hw) -> torch.Tensor:
+    """Bicubic resize of the patchify conv kernel [out, in, kh, kw]."""
+    if tuple(weight.shape[-2:]) == tuple(target_hw):
+        return weight
+    return F.interpolate(weight.float(), size=tuple(target_hw),
+                         mode="bicubic", align_corners=False)
+
+
+def _torch_load(path: str) -> Dict[str, torch.Tensor]:
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("model", "module", "state_dict"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    return {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+            else v for k, v in ckpt.items()}
+
+
+def pretrained_state_dict(sd: Dict[str, torch.Tensor],
+                          target: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Maps a checkpoint's state dict onto ``target``'s names and shapes:
+    returns (the tensors to load, the checkpoint keys left unused).
+    Dispatches by key inventory: ``vis_enc.*`` is a full SimVG state dict
+    under the port's own names, ``beit3.*`` a BEiT-3 pretrain one."""
+    if any(k.startswith("vis_enc.") for k in sd):
+        named = dict(sd)
+    elif any(k.startswith("beit3.") for k in sd):
+        named = {"vis_enc." + k: v for k, v in sd.items()
+                 if k.startswith("beit3.")}
+    elif any("embeddings.word_embeddings.weight" in k for k in sd):
+        raise NotImplementedError("HF BERT checkpoints feed the legacy "
+                                  "language encoders, not ported yet "
+                                  "(ROADMAP: M20)")
+    else:
+        raise ValueError("unknown checkpoint layout: neither vis_enc.* nor "
+                         "beit3.* keys")
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for key, value in named.items():
+        if key not in target:
+            unused.append(key)
+            continue
+        want = target[key]
+        if key == _VIS_POS:
+            value = interpolate_pos_embed(value, want.shape[0])
+        elif key == _TEXT_POS and value.shape[0] != want.shape[0]:
+            # learned text positions: keep every row the checkpoint has
+            # that the model has too
+            merged = want.detach().cpu().clone()
+            n = min(value.shape[0], want.shape[0])
+            merged[:n] = value[:n]
+            value = merged
+        elif key == _PATCH_PROJ:
+            value = interpolate_patch_proj(value, want.shape[-2:])
+        if tuple(value.shape) != tuple(want.shape):
+            raise ValueError(f"shape mismatch at {key}: checkpoint "
+                             f"{tuple(value.shape)}, model "
+                             f"{tuple(want.shape)}")
+        out[key] = value.to(want.dtype)
+    return out, unused
+
+
+@torch.no_grad()
+def load_pretrained_into_model(model: torch.nn.Module, path: str,
+                               logger: Optional[logging.Logger] = None
+                               ) -> List[str]:
+    """Loads a reference ``.pth`` (full SimVG or BEiT-3 pretrain) into
+    ``model`` in place; logs the keys it loaded, the model keys it left as
+    they were and the checkpoint keys it did not use.  Returns the loaded
+    keys."""
+    target = model.state_dict()
+    mapped, unused = pretrained_state_dict(_torch_load(path), target)
+    for key, value in mapped.items():
+        target[key].copy_(value)
+    missing = sorted(set(target) - set(mapped))
+    if logger is not None:
+        logger.info(f"pretrained {path}: loaded {len(mapped)} tensors; "
+                    f"{len(missing)} model keys kept their values "
+                    f"{missing[:8]}{' ...' if len(missing) > 8 else ''}; "
+                    f"{len(unused)} checkpoint keys unused {unused[:8]}"
+                    f"{' ...' if len(unused) > 8 else ''}")
+    return sorted(mapped)
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict) -> torch.nn.Module:

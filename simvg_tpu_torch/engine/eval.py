@@ -62,6 +62,7 @@ def make_eval_step(model: torch.nn.Module,
 
     @torch.inference_mode()
     def eval_step(batch):
+        model.eval()  # a train step in between leaves the model in train
         out = model(_images(batch), batch["text_ids"],
                     batch["text_padding_mask"], img_shape=batch["img_shape"])
         return {name: decode_predictions(out[ck][-1], out[bk][-1],

@@ -3,7 +3,9 @@ the detection path in one process).
 
 Per batch: the eval step runs on the model's device; Prec@0.5 and mIoU
 accumulate on the host over the ``batch_valid`` rows, so the duplicates
-that wrap-pad the last batch are not counted.
+that wrap-pad the last batch are not counted.  Batches may come from the
+port's loader, with the image already on the device.  GRec F1/N-acc and
+mask mIoU wait for M15 and the mask path.
 """
 
 from __future__ import annotations
@@ -25,20 +27,30 @@ def evaluate(
     loader,
     *,
     eval_step: Optional[Callable] = None,
+    log_fn: Optional[Callable[[str], None]] = None,
+    log_interval: int = 50,
+    max_batches: Optional[int] = None,
 ) -> Dict[str, float]:
     """Returns per-branch ``{branch}_det_acc`` / ``{branch}_miou``, their
     mean ``det_acc``, ``n_samples`` and ``miou`` (the mask mIoU, 0.0 for
     the box-only SimVG heads, as in the JAX package).
 
-    ``loader``: an iterable of batch dicts (numpy arrays or tensors)
-    with the eval step's keys plus gt_boxes [B, M, 4] xyxy and
-    batch_valid [B]."""
+    ``loader``: an iterable of batch dicts (numpy arrays or tensors, on the
+    host or the model's device) with the eval step's keys plus gt_boxes
+    [B, M, 4] xyxy and batch_valid [B].  ``log_fn`` gets a progress line
+    every ``log_interval`` batches; ``max_batches`` stops early (the
+    metrics then cover a subset)."""
     step = eval_step or make_eval_step(model)
     device = next(model.parameters()).device
     branches = [name for name, _, _ in BRANCH_KEYS]
     acc = {b: {"iou_hits": 0.0, "iou_sum": 0.0, "n": 0} for b in branches}
+    n_batches = len(loader) if hasattr(loader, "__len__") else None
+    if max_batches is not None and n_batches is not None:
+        n_batches = min(n_batches, max_batches)
 
-    for batch in loader:
+    for bi, batch in enumerate(loader):
+        if max_batches is not None and bi >= max_batches:
+            break
         device_batch = {k: torch.as_tensor(batch[k]).to(device)
                         for k in DEVICE_KEYS if k in batch}
         preds = step(device_batch)
@@ -51,6 +63,8 @@ def evaluate(
             a["iou_hits"] += m["det_acc"] / 100.0 * m["n"]
             a["iou_sum"] += m["miou"] / 100.0 * m["n"]
             a["n"] += m["n"]
+        if log_fn is not None and (bi + 1) % max(log_interval, 1) == 0:
+            log_fn(f"eval [{bi + 1}/{n_batches}]")
 
     out: Dict[str, float] = {}
     for b in branches:

@@ -20,6 +20,7 @@ so a step launches a bounded number of kernels:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
@@ -273,3 +274,19 @@ def ema_update(ema_params: List[torch.Tensor], params: Sequence[torch.Tensor],
     torch._foreach_mul_(ema_params, decay)
     torch._foreach_add_(ema_params, list(params), alpha=1.0 - decay)
     return ema_step + 1
+
+
+@contextlib.contextmanager
+def swapped_params(model: torch.nn.Module, tensors: Sequence[torch.Tensor]):
+    """Runs the body with ``tensors`` (in ``model.parameters()`` order, e.g.
+    the EMA shadow) in the model's parameters, and puts the model's own
+    back after it."""
+    params = list(model.parameters())
+    with torch.no_grad():
+        saved = [p.detach().clone() for p in params]
+        torch._foreach_copy_(params, list(tensors))
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            torch._foreach_copy_(params, saved)

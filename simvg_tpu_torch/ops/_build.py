@@ -1,6 +1,8 @@
 """Builds the port's CUDA sources into shared libraries at first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
+Each ``csrc/<name>.cu`` has a plain C interface.  ``jpeg.cu`` also links
+the toolkit's nvJPEG, found beside ``nvcc`` (``<toolkit>/lib64``, recorded
+as the library's run path).  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``simvg_tpu_torch/_build/`` and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds.  The library's
 file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
@@ -29,6 +31,9 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills go to the log
 )
 
+# extra nvcc arguments of one source: the libraries it links
+LINK_LIBS = {"jpeg": ("-lnvjpeg",)}
+
 _lock = threading.Lock()
 _loaded: dict = {}
 
@@ -51,15 +56,22 @@ def build(name: str) -> Path:
     flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    nvcc = _nvcc()
+    flags = list(NVCC_FLAGS)
+    if name in LINK_LIBS:
+        libdir = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.realpath(nvcc))), "lib64")
+        flags += [f"-L{libdir}", "-Xlinker", f"-rpath={libdir}",
+                  *LINK_LIBS[name]]
     key = hashlib.sha256(src + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                         + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{key[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *flags, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)

@@ -1,0 +1,439 @@
+"""Training CLI of the port (counterpart of ``tools/train.py``).
+
+    python -m simvg_tpu_torch.tools.train CONFIG [--work-dir W]
+        [--resume-from CKPT | --load-from CKPT | --finetune-from CKPT]
+        [--auto-resume] [--seed N] [--device cuda|cpu]
+        [--cfg-options key=value ...]
+
+The JAX CLI's order: datasets and loaders, the model, the ``pretrain``
+load when the file exists, the optimizer and schedule, the three load modes
+and auto-resume, then the epoch loop (log lines, ``metrics.jsonl``), an
+evaluation of each split after each epoch and the checkpoints ``det_best``
+(from the ``val`` split), ``latest`` and ``epoch_N``, with EMA when the
+config has it.  It runs on the card unless ``--device cpu`` is given, and
+raises where there is no card.  ``main(argv)`` runs it in-process and
+returns its results.
+
+Not ported yet, each raising with its ROADMAP item: ``--distributed``,
+``fsdp``, ``model_parallel`` > 1 and ``seq_parallel`` (M16), GRefCOCO and
+Mixed (M15), ``with_mask`` (masks).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import os.path as osp
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from simvg_tpu_torch.config import Config, parse_cfg_options
+from simvg_tpu_torch.convert import load_pretrained_into_model
+from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                          build_loader_from_cfg)
+from simvg_tpu_torch.engine import (create_optimizer, create_train_state,
+                                    evaluate, make_eval_step,
+                                    make_train_step)
+from simvg_tpu_torch.engine.train_state import (make_lr_schedule,
+                                                swapped_params)
+from simvg_tpu_torch.models import build_model, init_random_weights
+from simvg_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                              load_checkpoint,
+                                              load_opt_state,
+                                              opt_state_to_dict,
+                                              save_checkpoint,
+                                              wait_for_checkpoints)
+from simvg_tpu_torch.utils.logger import get_root_logger
+
+# the keys the train step reads; batch_valid and meta stay on the host
+STEP_KEYS = ("image", "text_ids", "text_padding_mask", "img_shape",
+             "gt_boxes", "gt_labels", "gt_valid", "gt_count")
+_LOADER_KEYS = ("train", "samples_per_gpu", "workers_per_gpu")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="simvg_tpu_torch train")
+    p.add_argument("config")
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--resume-from", default=None)
+    p.add_argument("--load-from", default=None)
+    p.add_argument("--finetune-from", default=None)
+    p.add_argument("--auto-resume", action="store_true",
+                   help="resume from <work_dir>/latest if present")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process training (not ported yet: M16)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--cfg-options", nargs="*", default=[],
+                   help="dotted overrides key=value")
+    return p.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The CLIs' device: ``cuda`` needs a card (no fallback), ``cpu`` is
+    for the tests."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the "
+                           "CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return device
+
+
+def check_ported(cfg, distributed: bool = False) -> None:
+    """Raises NotImplementedError, naming the ROADMAP item, for a setting
+    the port does not have yet."""
+    ve = cfg.model.get("vis_enc") or {}
+    if distributed:
+        raise NotImplementedError("--distributed is not ported yet "
+                                  "(ROADMAP: M16)")
+    if cfg.get("fsdp", False):
+        raise NotImplementedError("fsdp is not ported yet (ROADMAP: M16)")
+    if cfg.get("model_parallel", 1) > 1:
+        raise NotImplementedError("model_parallel > 1 is not ported yet "
+                                  "(ROADMAP: M16)")
+    if ve.get("seq_parallel"):
+        raise NotImplementedError("seq_parallel is not ported yet "
+                                  "(ROADMAP: M16)")
+
+
+def eval_splits(cfg) -> List[str]:
+    return [k for k in cfg.data if k not in _LOADER_KEYS]
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.get("use_bf16", True) else torch.float32
+
+
+def device_norm_of(cfg) -> Optional[Dict]:
+    """The step's on-device normalisation when the pipeline leaves it to
+    the step (``normalize_on_device``)."""
+    if not cfg.get("normalize_on_device", False):
+        return None
+    return dict(cfg.get("img_norm_cfg", {})) or None
+
+
+def to_device(batch: Dict, device: torch.device, keys=STEP_KEYS) -> Dict:
+    return {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
+            for k in keys if k in batch}
+
+
+def fmt_metrics(metrics: Dict[str, float]) -> str:
+    return ", ".join(f"{k}: {v:.2f}" for k, v in metrics.items())
+
+
+def main(argv=None) -> Dict:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
+    check_ported(cfg, args.distributed)
+    seed = args.seed if args.seed is not None else cfg.get("seed", 6666)
+    if cfg.get("debug_nans", False):
+        torch.autograd.set_detect_anomaly(True)
+
+    work_dir = args.work_dir or cfg.get("work_dir") or osp.join(
+        "work_dir", osp.splitext(osp.basename(args.config))[0])
+    os.makedirs(work_dir, exist_ok=True)
+    timestamp = time.strftime("%Y%m%d_%H%M%S")
+    logger = get_root_logger(osp.join(work_dir,
+                                      f"{timestamp}_train_log.txt"))
+    cfg.dump(osp.join(work_dir, "config.py"))
+    logger.info(f"work_dir: {work_dir}; device: {device}"
+                + (f" ({torch.cuda.get_device_name(device)})"
+                   if device.type == "cuda" else ""))
+
+    # ---- data
+    img_size = cfg.get("img_size", 640)
+    nq = cfg.model.get("head", {}).get("num_queries", 1)
+    max_gt = min(cfg.get("max_gt", 1), nq)
+    norm_on_device = cfg.get("normalize_on_device", False)
+    train_ds = build_dataset_from_cfg(cfg.data.train,
+                                      dataset_type=cfg.get("dataset"),
+                                      seed=seed,
+                                      normalize_on_device=norm_on_device)
+    train_loader = build_loader_from_cfg(train_ds, cfg, train=True,
+                                         canvas=img_size, max_gt=max_gt,
+                                         seed=seed, device=device)
+    logger.info(f"train: {len(train_ds)} samples, "
+                f"{len(train_loader)} steps/epoch")
+    val_loaders = {}
+    splits = eval_splits(cfg)
+    for split in splits:
+        ds = build_dataset_from_cfg(cfg.data[split],
+                                    dataset_type=cfg.get("dataset"),
+                                    tokenizer=train_ds.tokenizer, seed=seed,
+                                    normalize_on_device=norm_on_device)
+        val_loaders[split] = build_loader_from_cfg(
+            ds, cfg, train=False, canvas=img_size, max_gt=max_gt, seed=seed,
+            device=device)
+        logger.info(f"{split}: {len(ds)} samples")
+    if len(train_loader) == 0:
+        raise ValueError(
+            f"train loader is empty: batch {cfg.data.get('samples_per_gpu')}"
+            f" exceeds the {len(train_ds)}-sample dataset (drop_last). "
+            "Reduce data.samples_per_gpu.")
+
+    # ---- model: random weights from the seed, then the pretrain file
+    model, loss_cfg = build_model(cfg.model, img_size=img_size,
+                                  dtype=model_dtype(cfg), device=device)
+    init_random_weights(model, torch.Generator(device=device)
+                        .manual_seed(seed))
+    names = [n for n, _ in model.named_parameters()]
+    logger.info(f"model params: "
+                f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    if loss_cfg.get("pretrain"):
+        if osp.exists(loss_cfg["pretrain"]):
+            load_pretrained_into_model(model, loss_cfg["pretrain"], logger)
+        else:
+            logger.warning(f"pretrain checkpoint {loss_cfg['pretrain']} not "
+                           "found; training from random init")
+
+    # ---- optimizer / scheduler (reference keys)
+    opt_cfg = cfg.get("optimizer_config", {})
+    sch_cfg = cfg.get("scheduler_config", {})
+    steps_per_epoch = max(len(train_loader), 1)
+    max_epoch = sch_cfg.get("max_epoch", 30)
+    lr = opt_cfg.get("lr", 5e-4)
+    optimizer = create_optimizer(
+        lr, steps_per_epoch,
+        lr_vis_enc=opt_cfg.get("lr_vis_enc", lr / 10.0),
+        lr_lan_enc=opt_cfg.get("lr_lan_enc", lr),
+        betas=tuple(opt_cfg.get("betas", (0.9, 0.98))),
+        eps=opt_cfg.get("eps", 1e-9),
+        grad_norm_clip=cfg.get("grad_norm_clip", 0.15),
+        warmup_epochs=sch_cfg.get("warmup_epochs", 3),
+        decay_steps=tuple(sch_cfg.get("decay_steps", (25,))),
+        decay_ratio=sch_cfg.get("decay_ratio", 0.1),
+        freeze_layer=loss_cfg.get("freeze_layer", -1),
+        optimizer_type=opt_cfg.get("type", "Adam"),
+        scheduler_type=sch_cfg.get("type", "MultiStepLRWarmUp"),
+        scheduler_kw=dict(sch_cfg),
+        amsgrad=opt_cfg.get("amsgrad", True),
+        mu_dtype=opt_cfg.get("mu_dtype"),
+    )
+    use_ema = bool(cfg.get("ema", False))
+    state = create_train_state(model, optimizer, ema=use_ema)
+
+    # ---- load modes: CLI flags first, config keys as the fallback
+    resume_from = args.resume_from or cfg.get("resume_from")
+    load_from = args.load_from or cfg.get("load_from")
+    finetune_from = args.finetune_from or cfg.get("finetune_from")
+    if load_from and not osp.exists(load_from):
+        logger.warning(f"load_from={load_from!r} does not exist; ignoring "
+                       "(placeholder path in config?)")
+        load_from = None
+    if finetune_from and not osp.exists(finetune_from):
+        logger.warning(f"finetune_from={finetune_from!r} does not exist; "
+                       "ignoring (placeholder path in config?)")
+        finetune_from = None
+    if args.auto_resume and not resume_from:
+        resume_from = latest_checkpoint(work_dir)
+        if resume_from:
+            logger.info(f"auto-resume: found {resume_from}")
+
+    start_epoch, best_acc = restore(
+        model, state, resume_from=resume_from, load_from=load_from,
+        finetune_from=finetune_from, steps_per_epoch=steps_per_epoch,
+        logger=logger)
+
+    device_norm = device_norm_of(cfg)
+    train_step = make_train_step(
+        model, optimizer,
+        branch_loss_weight=loss_cfg["branch_loss_weight"],
+        prepare_target_mode=loss_cfg["prepare_target_mode"],
+        distill_type=loss_cfg["distill_type"],
+        mlp_aux_loss=loss_cfg.get("mlp_aux_loss", False),
+        ema_alpha=cfg.get("ema_factor", 0.999) if use_ema else None,
+        device_norm=device_norm)
+    eval_step = make_eval_step(model, device_norm=device_norm)
+    log_interval = cfg.get("log_interval", 50)
+    evaluate_interval = cfg.get("evaluate_interval", 1)
+    start_eval = cfg.get("start_evaluate_epoch", 0)
+    step_seed = seed + 1
+    lr_sched = make_lr_schedule(
+        lr, steps_per_epoch,
+        scheduler_type=sch_cfg.get("type", "MultiStepLRWarmUp"),
+        warmup_epochs=sch_cfg.get("warmup_epochs", 3),
+        decay_steps=tuple(sch_cfg.get("decay_steps", (25,))),
+        decay_ratio=sch_cfg.get("decay_ratio", 0.1),
+        scheduler_kw={k: v for k, v in sch_cfg.items()
+                      if k in ("T_max", "eta_min", "T_0", "T_mult")})
+    metrics_path = osp.join(work_dir, "metrics.jsonl")
+
+    def emit_metrics(kind, payload):
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps({"kind": kind, **payload}) + "\n")
+
+    def ema_named():
+        return (dict(zip(names, state.ema_params))
+                if state.ema_params is not None else None)
+
+    results: Dict = {"work_dir": work_dir, "eval": {}, "epochs": []}
+    for epoch in range(start_epoch, max_epoch):
+        train_loader.set_epoch(epoch)
+        t_ep = t_data = time.time()
+        for it, batch in enumerate(train_loader):
+            data_time = time.time() - t_data
+            state, scalars = train_step(state, to_device(batch, device),
+                                        step_seed)
+            if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:
+                s = {k: float(v) for k, v in scalars.items()}
+                msg = ", ".join(f"{k}: {v:.4f}" for k, v in s.items()
+                                if k.startswith("loss")
+                                or k.endswith("det_acc"))
+                cur_lr = lr_sched(epoch * steps_per_epoch + it)
+                logger.info(f"train - epoch [{epoch + 1}]"
+                            f"[{it + 1}/{steps_per_epoch}] "
+                            f"data_time: {data_time:.3f}, lr: {cur_lr:.6f}, "
+                            f"{msg}")
+                emit_metrics("train", {"epoch": epoch + 1, "iter": it + 1,
+                                       "data_time": data_time, **s})
+            t_data = time.time()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ep_time = time.time() - t_ep
+        bs = cfg.data.get("samples_per_gpu", 32)
+        img_s = steps_per_epoch * bs / max(ep_time, 1e-9)
+        logger.info(f"epoch {epoch + 1} done in {ep_time:.1f}s "
+                    f"({img_s:.1f} img/s)")
+        results["epochs"].append({"epoch": epoch + 1, "seconds": ep_time,
+                                  "images_per_s": img_s,
+                                  "step": state.step})
+
+        if (epoch + 1) % evaluate_interval == 0 and epoch >= start_eval:
+            for split, loader in val_loaders.items():
+                metrics = evaluate(model, loader, eval_step=eval_step,
+                                   log_fn=logger.info,
+                                   log_interval=log_interval)
+                logger.info(f"eval[{split}] epoch {epoch + 1}: "
+                            + fmt_metrics(metrics))
+                emit_metrics("eval", {"epoch": epoch + 1, "split": split,
+                                      **metrics})
+                results["eval"][split] = metrics
+                if state.ema_params is not None:
+                    with swapped_params(model, state.ema_params):
+                        m_ema = evaluate(model, loader, eval_step=eval_step)
+                    logger.info(f"eval[{split}][EMA] epoch {epoch + 1}: "
+                                + fmt_metrics(m_ema))
+                    results["eval"][f"{split}[EMA]"] = m_ema
+                best_split = "val" if "val" in val_loaders else (
+                    splits[0] if splits else None)
+                if split == best_split and metrics["det_acc"] > best_acc:
+                    best_acc = metrics["det_acc"]
+                    save_checkpoint(work_dir, "det_best",
+                                    params=model.state_dict(),
+                                    ema_params=ema_named(),
+                                    epoch=epoch + 1, step=state.step,
+                                    metrics=metrics,
+                                    ema_step=state.ema_step)
+
+        # "latest" (crash recovery) carries the optimizer state; the final
+        # epoch always saves it (the two-stage load_from contract)
+        latest_interval = cfg.get("latest_interval", 1)
+        if ((epoch + 1) % max(latest_interval, 1) == 0
+                or epoch + 1 == max_epoch):
+            save_checkpoint(work_dir, "latest", params=model.state_dict(),
+                            opt_state=opt_state_to_dict(names,
+                                                        state.opt_state),
+                            ema_params=ema_named(), epoch=epoch + 1,
+                            step=state.step,
+                            metrics={"best_det_acc": best_acc},
+                            ema_step=state.ema_step)
+        save_interval = cfg.get("save_interval", -1)
+        if save_interval and save_interval > 0 and (
+                epoch + 1) % save_interval == 0:
+            save_checkpoint(work_dir, f"epoch_{epoch + 1}",
+                            params=model.state_dict(),
+                            ema_params=ema_named(), epoch=epoch + 1,
+                            step=state.step, ema_step=state.ema_step)
+
+    wait_for_checkpoints()
+    logger.info(f"training done; best val det_acc {best_acc:.2f}")
+    results.update(best_det_acc=best_acc, step=state.step,
+                   start_epoch=start_epoch)
+    return results
+
+
+def restore(model: torch.nn.Module, state, *, resume_from=None,
+            load_from=None, finetune_from=None, steps_per_epoch: int = 1,
+            logger=None):
+    """The three load modes, the first given taking precedence:
+
+    - ``resume_from``: weights, optimizer state, EMA, the step and EMA
+      counters and the best det_acc so far; training continues after the
+      saved epoch;
+    - ``load_from``: the weights (and the EMA shadow, when both the run and
+      the checkpoint have one); the optimizer and the counters start anew;
+    - ``finetune_from``: the weights, non-strictly (``load_non_strict``).
+
+    Updates ``model`` and ``state`` in place; returns (start epoch, best
+    det_acc)."""
+    names = [n for n, _ in model.named_parameters()]
+    use_ema = state.ema_params is not None
+    if resume_from:
+        ck = load_checkpoint(resume_from, with_opt=True, with_ema=use_ema)
+        model.load_state_dict(ck["params"], strict=True)
+        if "opt_state" in ck:
+            load_opt_state(names, ck["opt_state"], state.opt_state)
+        if "ema_params" in ck:
+            _copy_named(state.ema_params, names, ck["ema_params"])
+        start_epoch = ck["epoch"]
+        state.step = (ck["step"] if ck["step"] is not None
+                      else start_epoch * steps_per_epoch)
+        if use_ema:
+            state.ema_step = (ck["ema_step"] if ck["ema_step"] is not None
+                              else state.step)
+        if logger:
+            logger.info(f"resumed from {resume_from} @ epoch {start_epoch}, "
+                        f"step {state.step}")
+        # the best-checkpoint tracker too, or a resumed run could replace
+        # det_best with a worse evaluation
+        return start_epoch, float(ck["metrics"].get("best_det_acc", -1.0))
+    if load_from:
+        ck = load_checkpoint(load_from, with_ema=use_ema)
+        model.load_state_dict(ck["params"], strict=True)
+        if "ema_params" in ck:
+            _copy_named(state.ema_params, names, ck["ema_params"])
+        if logger:
+            logger.info(f"loaded weights from {load_from}")
+    elif finetune_from:
+        load_non_strict(model, load_checkpoint(finetune_from)["params"],
+                        logger)
+        if logger:
+            logger.info(f"finetuned from {finetune_from}")
+    return 0, -1.0
+
+
+@torch.no_grad()
+def _copy_named(dst: List[torch.Tensor], names: List[str],
+                saved: Dict[str, torch.Tensor]) -> None:
+    for name, t in zip(names, dst):
+        t.copy_(saved[name])
+
+
+def load_non_strict(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                    logger) -> None:
+    """``--finetune-from``: loads the entries whose name and shape match;
+    logs the model keys left as they were, the checkpoint keys not used and
+    those whose shape differs."""
+    own = model.state_dict()
+    mismatched = sorted(k for k in sd if k in own
+                        and tuple(sd[k].shape) != tuple(own[k].shape))
+    usable = {k: v for k, v in sd.items() if k in own and k not in mismatched}
+    res = model.load_state_dict(usable, strict=False)
+    if logger:
+        logger.info(f"finetune load: missing keys "
+                    f"{sorted(res.missing_keys)}; unexpected keys "
+                    f"{sorted(set(sd) - set(own))}; shape mismatches "
+                    f"{mismatched}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,13 @@ port does not need, so it is left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The cases reach what chip_smoke.py's flagship shapes do not: Sq != Sk,
+The data pipeline's card route is held here too: nvJPEG's encode -> decode
+round trip (shape exact, mean |difference| <= 2 levels at quality 95, on
+smooth images), grayscale and EXIF-oriented files, and the pixel ops on the
+card against the same ops on the CPU, on the same decoded pixels (1 level
+per resampling; the geometry exact).
+
+The attention cases reach what chip_smoke.py's flagship shapes do not: Sq != Sk,
 fewer keys than one tile, a row with one live key, S = 100 (not a
 multiple of the 16-row mma fragments), S = 64 (exactly one tile), the
 train step's shape, and logits scaled x8 so that later key tiles raise the
@@ -20,8 +26,11 @@ output (rowsum(dO * out)) and its own P, so a rounding of P or dS may land
 one bf16 step away from the plain version's.
 """
 
+import numpy as np
 import pytest
 import torch
+
+from simvg_tpu_torch.tools.make_synth_data import smooth_image, with_exif
 
 from simvg_tpu_torch.ops.fused_attention import (
     attention_bwd, attention_fwd, fused_attention, fused_attention_bwd_reference,
@@ -149,3 +158,83 @@ def test_autograd_function_launches_k1_once_and_k2_once(gen):
     refs = fused_attention_bwd_reference(q, k, v, dout, pad)
     for t, ref in zip(leaves, refs):
         torch.testing.assert_close(t.grad, ref, atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (427, 640), (120, 160)])
+def test_nvjpeg_round_trip(gen, hw):
+    from simvg_tpu_torch.data.jpeg import decode, encode, jpeg_geometry
+
+    img = torch.from_numpy(smooth_image(*hw)).cuda()
+    before = (encode.launches, decode.launches)
+    data = encode(img, 95)
+    assert jpeg_geometry(data)[:2] == hw
+    got = decode(data, "cuda")
+    torch.cuda.synchronize()
+    assert (encode.launches, decode.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert got.shape == img.shape and got.dtype == torch.uint8
+    assert got.is_cuda
+    assert (got.int() - img.int()).abs().float().mean().item() <= 2
+
+
+def test_nvjpeg_grayscale_gives_three_equal_channels(gen):
+    from simvg_tpu_torch.data.jpeg import decode, encode, jpeg_geometry
+
+    gray = torch.from_numpy(smooth_image(120, 160)[..., 1].copy()).cuda()
+    data = encode(gray, 95)
+    assert jpeg_geometry(data).components == 1
+    got = decode(data, "cuda")
+    torch.cuda.synchronize()
+    assert got.shape == (120, 160, 3)
+    assert torch.equal(got[..., 0], got[..., 1])
+    assert torch.equal(got[..., 0], got[..., 2])
+    assert (got[..., 0].int() - gray.int()).abs().float().mean().item() <= 2
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_nvjpeg_applies_exif_orientation(gen, orientation):
+    from simvg_tpu_torch.data.jpeg import decode, encode, orient
+
+    img = torch.from_numpy(smooth_image(48, 80, orientation)).cuda()
+    data = encode(img, 95)
+    plain = decode(data, "cuda")
+    got = decode(with_exif(data, orientation), "cuda")
+    torch.cuda.synchronize()
+    want = (80, 48, 3) if orientation >= 5 else (48, 80, 3)
+    assert got.shape == want
+    assert torch.equal(got, orient(plain, orientation))
+
+
+def test_pixel_ops_on_the_card_match_the_cpu(gen):
+    import random
+
+    from simvg_tpu_torch.data import transforms as T
+    from simvg_tpu_torch.data.image_ops import collate_images
+    from simvg_tpu_torch.data.jpeg import decode, encode
+
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375])
+    pipe = T.Compose([T.LargeScaleJitter(out_max_size=640),
+                      T.Resize((640, 640), keep_ratio=False),
+                      T.Normalize(**norm), T.Pad(size_divisor=32)])
+    samples, decoded = [], []
+    for i in range(8):
+        h, w = (480, 640) if i % 2 else (427, 640)
+        data = encode(torch.from_numpy(smooth_image(h, w, i)).cuda(), 95)
+        s = pipe(dict(img_bytes=data, pixel_ops=[], img_shape=(h, w, 3),
+                      ori_shape=(h, w, 3), with_bbox=True,
+                      gt_bbox=np.asarray([40.0, 30.0, 300.0, 200.0]),
+                      aug_rng=random.Random(f"{i}/aug")))
+        samples.append(s)
+        decoded.append(decode(data, "cuda"))
+    card = collate_images(samples, 640, "cuda", decoded)
+    cpu = collate_images(samples, 640, "cpu", [d.cpu() for d in decoded])
+    torch.cuda.synchronize()
+    assert card.shape == cpu.shape == (8, 640, 640, 3)
+    levels = torch.tensor([sum(op == "resize" for op, _ in s["pixel_ops"])
+                           for s in samples], dtype=torch.float32)
+    bound = (levels[:, None, None, None]
+             / torch.tensor(norm["std"])[None, None, None, :] + 1e-6)
+    assert ((card.cpu() - cpu).abs() <= bound).all()
+    for i, s in enumerate(samples):  # the pad region stays 0
+        h, w = s["img_shape"][:2]
+        assert not card[i, h:].any() and not card[i, :, w:].any()

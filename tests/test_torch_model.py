@@ -164,6 +164,22 @@ def test_eval_step_and_prec_match_jax(jax_pair, torch_model):
         assert detection_accuracy(box, gt, valid) == jax_acc(box, gt, valid)
 
 
+def test_eval_step_runs_in_eval_mode_after_training(torch_model):
+    """An eval step made before training still evaluates in eval mode
+    after a train-mode forward (the train CLI evaluates between epochs)."""
+    from simvg_tpu_torch.engine import make_eval_step
+
+    step = make_eval_step(torch_model)
+    batch = to_torch(np_batch())
+    first = step(batch)
+    torch_model.train()
+    second = step(batch)
+    assert not torch_model.training
+    for branch in first:
+        for k in first[branch]:
+            assert torch.equal(first[branch][k], second[branch][k])
+
+
 def test_evaluate_counts_valid_rows(torch_model):
     from simvg_tpu_torch.engine import evaluate, make_eval_step
 
@@ -176,6 +192,12 @@ def test_evaluate_counts_valid_rows(torch_model):
     assert out["n_samples"] == 3.0
     assert out["decoder_det_acc"] == pytest.approx(100.0)
     assert out["decoder_miou"] == pytest.approx(100.0)
+    # max_batches stops early; log_fn hears every log_interval batches
+    lines = []
+    out = evaluate(torch_model, loader * 3, max_batches=2, log_interval=1,
+                   log_fn=lines.append)
+    assert out["n_samples"] == 6.0
+    assert lines == ["eval [1/2]", "eval [2/2]"]
 
 
 def test_device_normalization_matches_jax():
@@ -204,6 +226,26 @@ def test_config_loader_matches_jax_package_on_every_config():
         assert Config.fromfile(path) == JaxConfig.fromfile(path), path
     flagship = Config.fromfile(osp.join(REPO, FLAGSHIP))
     assert flagship.model.vis_enc.attn_impl == "pallas"
+
+
+def test_cfg_options_merge_and_dump_match_jax_package(tmp_path):
+    from simvg_tpu.config import Config as JaxConfig
+    from simvg_tpu.config import parse_cfg_options as jax_parse
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+
+    pairs = ["model.head.num_queries=10", "data.samples_per_gpu=4",
+             "data.train.annsfile=/data/x.json", "new.key.deep=[1, 2]",
+             "lr=1e-4", "ema=True", "work_dir=runs/a=b"]
+    assert parse_cfg_options(pairs) == jax_parse(pairs)
+    a = Config.fromfile(osp.join(REPO, FLAGSHIP))
+    b = JaxConfig.fromfile(osp.join(REPO, FLAGSHIP))
+    a.merge_from_dict(parse_cfg_options(pairs))
+    b.merge_from_dict(jax_parse(pairs))
+    assert a == b
+    assert a.model.head.num_queries == 10 and a.new.key.deep == [1, 2]
+    a.dump(str(tmp_path / "a.py"))
+    b.dump(str(tmp_path / "b.py"))
+    assert (tmp_path / "a.py").read_text() == (tmp_path / "b.py").read_text()
 
 
 def test_flagship_config_builds_on_meta():
@@ -258,7 +300,14 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.config, simvg_tpu_torch.ops.boxes, "
         "simvg_tpu_torch.ops.sine_embed, simvg_tpu_torch.losses, "
         "simvg_tpu_torch.engine.train, simvg_tpu_torch.engine.train_state, "
-        "simvg_tpu_torch.ops.hungarian\n"
+        "simvg_tpu_torch.ops.hungarian, simvg_tpu_torch.data.builder, "
+        "simvg_tpu_torch.data.datasets, simvg_tpu_torch.data.image_ops, "
+        "simvg_tpu_torch.data.jpeg, simvg_tpu_torch.data.loader, "
+        "simvg_tpu_torch.data.spm, simvg_tpu_torch.data.tokenization, "
+        "simvg_tpu_torch.data.transforms, simvg_tpu_torch.utils.checkpoint, "
+        "simvg_tpu_torch.utils.logger, simvg_tpu_torch.tools.train, "
+        "simvg_tpu_torch.tools.test, simvg_tpu_torch.tools.make_synth_data, "
+        "simvg_tpu_torch.tools.jpeg_divergence\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")

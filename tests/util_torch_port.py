@@ -60,3 +60,20 @@ def to_jax(batch):
     import jax.numpy as jnp
 
     return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def jax_params_from_port(jax_model, batch, state_dict):
+    """A JAX param tree holding a port state dict's weights, through
+    ``tools.convert_checkpoint.convert_simvg_full`` into a template of the
+    JAX model's shapes (``jax.eval_shape``: no JAX init runs)."""
+    import jax
+
+    from tools.convert_checkpoint import convert_simvg_full
+
+    shapes = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0),
+                            **to_jax(batch))
+    template = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    sd = {k: v.detach().numpy() for k, v in state_dict.items()}
+    report = convert_simvg_full(sd, template)
+    assert len(report) == len(jax.tree.leaves(template))
+    return template
