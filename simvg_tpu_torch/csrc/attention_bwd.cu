@@ -8,13 +8,16 @@
 //     P  = exp(q k^T + pad_bias - lse)              fp32, recomputed
 //     dV = round(P)^T dO
 //     dP = dO V^T
-//     dS = P * (dP - D),  D = rowsum(dO * out)       fp32
+//     dS = P * (dP - D),  D = rowsum(dP * P)         fp32
 //     dQ = round(dS) K,   dK = round(dS)^T q
 // with every sum in fp32, round() the cast to the input type at the places the
 // TPU kernel casts (its p_c and dl_c), and dq/dk/dv stored in the input type.
-// D equals the TPU kernel's rowsum(dP * P) in exact arithmetic (sum_j P_j dO.v_j
-// = dO.out); in fp32 the two differ by summation order, in bf16 by the rounding
-// of out.  Padded keys get the logit -1e30 as in the forward, so their P is 0
+// The fp32 route takes D as rowsum(dO * out), equal in exact arithmetic
+// (sum_j P_j dO.v_j = dO.out) and within fp32 summation order of it.  The
+// bf16 route takes the TPU kernel's rowsum(dP * P): rowsum(dO * out) from the
+// bf16-rounded out is off by that rounding, which dS = P (dP - D) does not
+// cancel (its rows sum to 0), and put dQ up to 8.8x further from float32 than
+// this formula on the flagship's trained weights.  Padded keys get the logit -1e30 as in the forward, so their P is 0
 // and their dK/dV rows are exactly 0.  A batch row whose keys are all padded is
 // outside the contract (its lse cannot tell -1e30 + log(Sk) from -1e30); the
 // encoder never pads the CLS and image keys.
@@ -25,7 +28,7 @@
 // Design.  The TPU kernel runs the query blocks of a head in order on one core
 // and carries dK/dV across them in its output block.  Hopper blocks run in
 // parallel in no order, so this is a deterministic two-pass shape, no atomics:
-//   (a) dsum_kernel: D for every query row (one warp a row);
+//   (a) dsum_kernel: D for every query row (one warp a row; fp32 route);
 //   (b) dkdv_kernel: one block per (64-key tile, head, batch) holds K_j, V_j in
 //       shared memory, walks the 64-query tiles, recomputes P and dS and
 //       accumulates dV_j and dK_j in fp32 registers;
@@ -41,15 +44,15 @@
 // 4x4-register tiling: the parity route (TF32 would break the fp32 bounds).
 // bf16 runs on the tensor cores (dq_mma_kernel, dkdv_mma_kernel): every
 // product an mma.sync on bf16 fragments fed by cp.async, P and dS kept in
-// registers (see below).  There (a) folds into (c), which runs first and
-// writes D for (b): one launch and one read of dO fewer.
+// registers (see below).  There (a) folds into (c), which runs first, takes
+// D = rowsum(dP * P) in a first pass over the key tiles and writes it for (b).
 //
 // What bounds it.  At the flagship's S = 421, HD = 64, the backward is
 // ~10*B*H*S^2*HD FLOP (the TPU kernel's cost estimate; 43.6 GFLOP at B = 32)
 // over ~8 [B,S,H,HD] tensors read or written once (~166 MB in bf16): 0.044 ms
 // of tensor-core work against 0.050 ms of memory traffic, so the card's
-// bound is the bytes.  The mma.sync route does seven tile products where five
-// would do, reloads every B fragment from shared memory for each warp (16
+// bound is the bytes.  The mma.sync route does nine tile products where five
+// would do (D's pass recomputes S and dP), reloads every B fragment from shared memory for each warp (16
 // rows of A to 64 columns of B: shared-memory reads, not the tensor cores,
 // set its pace), and spends a multi-function-unit exp2 on every score.
 //
@@ -359,17 +362,19 @@ constexpr size_t kDqSmem = 6 * (size_t)kTileBytes;
 constexpr size_t kDkdvSmem = 6 * (size_t)kTileBytes + 2 * 2 * kMmaRows * sizeof(float);
 
 // (a) and (c) on the tensor cores: D_i and dQ_i for one 64-query tile of
-// one head.  The block first takes D = rowsum(dO * out) of its rows from the
-// dO and out tiles in shared memory and writes it for the dK/dV kernel, which
-// runs next.  Then per key tile a warp computes S = Q K^T and dP = dO V^T (32
-// mma each), P = exp(S - lse) and dS = P (dP - D) in registers, and dQ +=
-// round(dS) K (32 mma, K through ldmatrix.trans).
+// one head, in two passes over the key tiles.  Per key tile a warp computes
+// S = Q K^T and dP = dO V^T (32 mma each) and P = exp(S - lse) in registers.
+// The first pass sums D = rowsum(P * dP) in fp32, the TPU kernel's row term,
+// and writes it for the dK/dV kernel, which runs next; the second takes
+// dS = P (dP - D) and dQ += round(dS) K (32 mma, K through ldmatrix.trans).
+// The K/V pipeline runs on across the two passes: step it loads tile
+// (it + 1) mod n_tiles into stage (it + 1) & 1.
 __global__ void __launch_bounds__(kMmaThreads)
 dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ out,
-              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-              float* __restrict__ dsum, const uint8_t* __restrict__ pad,
-              __nv_bfloat16* __restrict__ dq, int sq, int sk, int heads) {
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, float* __restrict__ dsum,
+              const uint8_t* __restrict__ pad, __nv_bfloat16* __restrict__ dq, int sq,
+              int sk, int heads) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   __nv_bfloat16* do_s = q_s + kTileElems;
@@ -388,49 +393,21 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const float* lse_b = lse + ((long long)b * heads + head) * sq;
   float* d_b = dsum + ((long long)b * heads + head) * sq;
   const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
-  const __nv_bfloat16* out_s = v_s + kTileElems;  // stage 1 of V, free until tile 1
 
   load_tile_async(q_s, q + q_off, row, q0, sq, tid);
   load_tile_async(do_s, dout + q_off, row, q0, sq, tid);
-  load_tile_async(v_s + kTileElems, out + q_off, row, q0, sq, tid);
   load_tile_async(k_s, k + k_off, row, 0, sk, tid);
   load_tile_async(v_s, v + k_off, row, 0, sk, tid);
   cp_async_commit();
 
   // exp_arg(lse) and D of rows r0 + g (index 0) and r0 + g + 8 (index 1);
   // 0 past Sq
-  float lse_r[2], d_r[2];
+  float lse_r[2], d_r[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int s = q0 + r0 + (lane >> 2) + 8 * h;
     lse_r[h] = exp_arg(s < sq ? lse_b[s] : 0.f);
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  {
-    // D of row r0 + lane / 2: each lane of a pair sums 32 of its 64 columns
-    const int r = r0 + (lane >> 1), c0 = 32 * (lane & 1);
-    float d = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      const uint4 o8 = *reinterpret_cast<const uint4*>(out_s + r * kPitch + c0 + c);
-      const uint4 g8 = *reinterpret_cast<const uint4*>(do_s + r * kPitch + c0 + c);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o8);
-      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g8);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 of = __bfloat1622float2(o2[e]), gf = __bfloat1622float2(g2[e]);
-        d = fmaf(gf.x, of.x, d);
-        d = fmaf(gf.y, of.y, d);
-      }
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if ((lane & 1) == 0 && q0 + r < sq) d_b[q0 + r] = d;
-    // rows r0 + g and r0 + g + 8 are held by lanes 2 g and 2 g + 16
-    d_r[0] = __shfl_sync(0xffffffffu, d, 2 * (lane >> 2));
-    d_r[1] = __shfl_sync(0xffffffffu, d, 2 * (lane >> 2) + 16);
-  }
-  __syncthreads();  // out_s is read before tile 1 lands on it
 
   float acc[8][4];
 #pragma unroll
@@ -439,11 +416,13 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   const int n_tiles = (sk + kMmaRows - 1) / kMmaRows;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile_async(k_s + (st ^ 1) * kTileElems, k + k_off, row, (j + 1) * kMmaRows, sk, tid);
-      load_tile_async(v_s + (st ^ 1) * kTileElems, v + k_off, row, (j + 1) * kMmaRows, sk, tid);
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const int st = it & 1;
+    const bool first_pass = it < n_tiles;
+    if (it + 1 < 2 * n_tiles) {
+      const int next = (it + 1 < n_tiles ? it + 1 : it + 1 - n_tiles) * kMmaRows;
+      load_tile_async(k_s + (st ^ 1) * kTileElems, k + k_off, row, next, sk, tid);
+      load_tile_async(v_s + (st ^ 1) * kTileElems, v + k_off, row, next, sk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -453,7 +432,7 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     float p[8][4], ds[8][4];
     tile_product_nk(p, q_s, r0, kt, lane);                   // S
     tile_product_nk(ds, do_s, r0, v_s + st * kTileElems, lane);  // dP
-    const int k0 = j * kMmaRows;
+    const int k0 = (first_pass ? it : it - n_tiles) * kMmaRows;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -465,10 +444,26 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
         for (int h = 0; h < 2; ++h) {
           const int e = 2 * h + c;
           const float pe = outside ? 0.f : exp_sub(padded ? kPadLogit : p[n][e], lse_r[h]);
-          ds[n][e] = pe * (ds[n][e] - d_r[h]);
+          if (first_pass)
+            d_r[h] = fmaf(pe, ds[n][e], d_r[h]);
+          else
+            ds[n][e] = pe * (ds[n][e] - d_r[h]);
         }
       }
-    tile_product_kn(acc, ds, kt, lane);  // dQ += round(dS) K
+    if (first_pass) {
+      if (it == n_tiles - 1) {
+        // a row's columns are spread over the 4 lanes of its quad
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          d_r[h] += __shfl_xor_sync(0xffffffffu, d_r[h], 1);
+          d_r[h] += __shfl_xor_sync(0xffffffffu, d_r[h], 2);
+          const int s = q0 + r0 + (lane >> 2) + 8 * h;
+          if (t == 0 && s < sq) d_b[s] = d_r[h];
+        }
+      }
+    } else {
+      tile_product_kn(acc, ds, kt, lane);  // dQ += round(dS) K
+    }
     __syncthreads();
   }
   store_rows(acc, 1.f, 1.f, q_s, r0, dq + q_off, row, q0, sq, lane);
@@ -582,10 +577,9 @@ dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   store_rows(acc_dv, 1.f, 1.f, v_s, r0, dv + k_off, row, k0, sk, lane);
 }
 
-int launch_mma(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const void* lse, const void* pad, void* dsum, void* dq,
-               void* dk, void* dv, int batch, int sq, int sk, int heads,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* pad, void* dsum, void* dq, void* dk, void* dv,
+               int batch, int sq, int sk, int heads, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const bf16* q_ = static_cast<const bf16*>(q);
   const bf16* k_ = static_cast<const bf16*>(k);
@@ -601,8 +595,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((sq + kMmaRows - 1) / kMmaRows, heads, batch);
   dq_mma_kernel<<<grid_q, kMmaThreads, kDqSmem, stream>>>(
-      q_, k_, v_, static_cast<const bf16*>(out), do_, lse_, dsum_, pad_,
-      static_cast<bf16*>(dq), sq, sk, heads);
+      q_, k_, v_, do_, lse_, dsum_, pad_, static_cast<bf16*>(dq), sq, sk, heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -680,8 +673,7 @@ extern "C" int simvg_attention_bwd(const void* q, const void* k, const void* v,
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)dout |
          (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15)
       return (int)cudaErrorMisalignedAddress;
-    return launch_mma(q, k, v, out, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk, heads,
-                      s);
+    return launch_mma(q, k, v, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk, heads, s);
   }
   return (int)cudaErrorInvalidValue;
 }

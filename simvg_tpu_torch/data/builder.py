@@ -71,7 +71,6 @@ def build_dataset_from_cfg(split_cfg: Dict[str, Any], *,
     tfs, load_cfg = build_pipeline(split_cfg.pop("pipeline", []),
                                    normalize_on_device)
     split_cfg.pop("word_emb_cfg", None)  # legacy GloVe path
-    split_cfg.pop("img_source", None)  # filters Mixed's sources (M15)
     expr_sampling = split_cfg.pop(
         "expr_sampling", load_cfg.get("expr_sampling", "deterministic"))
     if expr_sampling != "deterministic":
@@ -83,6 +82,7 @@ def build_dataset_from_cfg(split_cfg: Dict[str, Any], *,
         imgsfile=split_cfg.pop("imgsfile"),
         annsfile=split_cfg.pop("annsfile"),
         which_set=split_cfg.pop("which_set", "train"),
+        img_source=split_cfg.pop("img_source", ("coco",)),
         tokenizer=tokenizer,
         max_token=load_cfg.get("max_token", 20),
         transforms=tfs,

@@ -1,12 +1,18 @@
 """Dataset readers for the shared ``instances.json`` annotation schema (port
-of ``simvg_tpu/data/datasets.py``, its single-source readers).
+of ``simvg_tpu/data/datasets.py``).
 
 As in the JAX module:
 
 - annotation file: ``{split: [ann, ...]}`` where ann has ``image_id``,
-  ``expressions`` (list[str]), ``bbox`` (xywh) and ``height``/``width``;
+  ``expressions`` (list[str]), ``bbox`` (xywh; for GRefCOCO a list per
+  expression of multi-target xywh boxes), ``height``/``width``, optional
+  ``data_source`` (Mixed), and for GRefCOCO ``annotations`` (a list per
+  expression of target dicts, ``category_id == -1`` marking no target);
 - per-dataset image filename schemes: ReferIt/Flickr ``{image_id}.jpg``,
-  RefCOCO* ``COCO_train2014_%012d.jpg``;
+  RefCOCO* and GRefCOCO ``COCO_train2014_%012d.jpg``, Mixed one root per
+  ``data_source`` (the COCO scheme for the coco sources);
+- Mixed's ``img_source`` filter of the train split, applied before any
+  image is read;
 - the expression draw is a pure function of (seed, epoch, index), and the
   per-sample ``aug_rng`` string seeds the augmentation;
 - the aspect-ratio group flag for the group sampler, and the bbox clip.
@@ -14,8 +20,7 @@ As in the JAX module:
 What differs: ``_load_image`` returns the file's bytes and the image's
 (h, w) from the JPEG header (EXIF orientation applied), not decoded pixels;
 the loader decodes on its device (``data/jpeg.py``, ``data/image_ops.py``).
-GRefCOCO and Mixed (the multi-target and multi-source readers) and masks
-are not ported yet (ROADMAP: M15, masks) and raise.
+Masks are not ported yet (ROADMAP: masks) and raise.
 """
 
 from __future__ import annotations
@@ -37,15 +42,18 @@ VALID_SETS = (
     "val_refcoco_unc", "val_refcocoplus_unc", "val_refcocog_umd",
     "val_flickr30k", "val_referitgame_berkeley",
 )
-NOT_PORTED = {"GRefCOCO": "M15", "Mixed": "M15"}
 
 
 def _filename_for(dataset: str, ann: dict, imgsfile) -> str:
     if "ReferItGame" in dataset or "Flickr30k" in dataset:
         return osp.join(imgsfile, "%d.jpg" % ann["image_id"])
-    if "RefCOCO" in dataset:
+    if "RefCOCO" in dataset:  # RefCOCO* and GRefCOCO
         return osp.join(imgsfile,
                         "COCO_train2014_%012d.jpg" % ann["image_id"])
+    if dataset == "Mixed":
+        src = ann["data_source"]
+        name = "COCO_train2014_%012d.jpg" if "coco" in src else "%d.jpg"
+        return osp.join(imgsfile[src], name % ann["image_id"])
     raise ValueError(dataset)
 
 
@@ -59,6 +67,7 @@ class BaseDataset:
         imgsfile,
         annsfile: str,
         which_set: str = "train",
+        img_source: Sequence[str] = ("coco",),
         tokenizer=None,
         max_token: int = 20,
         transforms: Optional[Sequence] = None,
@@ -82,6 +91,12 @@ class BaseDataset:
         self.with_mask = with_mask
         with open(annsfile) as f:
             self.anns_all = json.load(f)
+        # Mixed pretraining: keep the train records of the configured
+        # sources only, before any of their images is read
+        train = self.anns_all.get("train")
+        if train and train[0].get("data_source"):
+            self.anns_all["train"] = [a for a in train
+                                      if a["data_source"] in img_source]
 
         if tokenizer is None:
             if use_token_type == "default":
@@ -171,6 +186,27 @@ class BaseDataset:
         s["gt_bbox"] = bbox
 
 
+class GRefCOCO(BaseDataset):
+    """Generalized REC: multi-target and no-target expressions."""
+
+    dataset_name = "GRefCOCO"
+
+    def _load_bbox(self, s: dict, ann: dict, expr_idx: int):
+        """The expression's boxes, each xywh -> xyxy and clipped, and its
+        target dicts."""
+        h, w = s["ori_shape"][:2]
+        boxes = []
+        for bb in ann["bbox"][expr_idx]:
+            bb = np.asarray(bb, np.float64)
+            bb[2] += bb[0]
+            bb[3] += bb[1]
+            bb[0::2] = np.clip(bb[0::2], 0, w - 1)
+            bb[1::2] = np.clip(bb[1::2], 0, h - 1)
+            boxes.append(bb)
+        s["gt_bbox"] = boxes
+        s["target"] = copy.deepcopy(ann["annotations"][expr_idx])
+
+
 class RefCOCOUNC(BaseDataset):
     dataset_name = "RefCOCOUNC"
 
@@ -199,14 +235,15 @@ class Flickr30k(BaseDataset):
     dataset_name = "Flickr30k"
 
 
+class Mixed(BaseDataset):
+    dataset_name = "Mixed"
+
+
 _REGISTRY = {c.__name__: c for c in (
-    RefCOCOUNC, RefCOCOGoogle, RefCOCOgUMD, RefCOCOgGoogle,
-    RefCOCOPlusUNC, ReferItGameBerkeley, Flickr30k,
+    GRefCOCO, RefCOCOUNC, RefCOCOGoogle, RefCOCOgUMD, RefCOCOgGoogle,
+    RefCOCOPlusUNC, ReferItGameBerkeley, Flickr30k, Mixed,
 )}
 
 
 def build_dataset(dataset: str, **kw) -> BaseDataset:
-    if dataset in NOT_PORTED:
-        raise NotImplementedError(f"dataset {dataset!r} is not ported yet "
-                                  f"(ROADMAP: {NOT_PORTED[dataset]})")
     return _REGISTRY[dataset](**kw)

@@ -68,12 +68,21 @@ def collate(samples: List[dict], canvas: int, max_gt: int = 1,
         gb = s.get("gt_bbox")
         if gb is not None:
             boxes = gb if isinstance(gb, list) else [gb]
-            # the untruncated GT count feeds the loss normalisation; the
-            # arrays stay truncated to max_gt for the matcher's shapes
-            gt_count[i] = len(boxes)
+            target = s.get("target")
+            # the untruncated count of object targets (GRefCOCO's no-target
+            # rows left out) feeds the loss normalisation; the arrays stay
+            # truncated to max_gt for the matcher's shapes
+            if target is not None:
+                gt_count[i] = sum(1 for tt in target
+                                  if tt.get("category_id") != -1)
+            else:
+                gt_count[i] = len(boxes)
             for j, bb in enumerate(boxes[:max_gt]):
                 gt_boxes[i, j] = bb
                 gt_valid[i, j] = True
+                if target is not None:  # a no-target row has label 1
+                    gt_labels[i, j] = int(
+                        target[j].get("category_id") == -1)
         meta.append({
             "filename": s.get("filename"),
             "expression": s.get("expression"),

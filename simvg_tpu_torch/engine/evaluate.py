@@ -1,11 +1,12 @@
 """Evaluation loop (port of ``simvg_tpu/engine/evaluate.py::evaluate``,
-the detection path in one process).
+the box paths in one process).
 
 Per batch: the eval step runs on the model's device; Prec@0.5 and mIoU
+(or, for GRefCOCO, the per-image boxes and scores that F1/N-acc need)
 accumulate on the host over the ``batch_valid`` rows, so the duplicates
 that wrap-pad the last batch are not counted.  Batches may come from the
-port's loader, with the image already on the device.  GRec F1/N-acc and
-mask mIoU wait for M15 and the mask path.
+port's loader, with the image already on the device.  Mask mIoU waits for
+the mask path (ROADMAP: masks).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from .eval import BRANCH_KEYS, make_eval_step
-from .metrics import detection_accuracy
+from .metrics import detection_accuracy, grec_f1_nacc
 
 # the keys the eval step consumes; gt boxes and batch_valid stay on host
 DEVICE_KEYS = ("image", "text_ids", "text_padding_mask", "img_shape")
@@ -26,6 +27,7 @@ def evaluate(
     model: torch.nn.Module,
     loader,
     *,
+    is_grec: bool = False,
     eval_step: Optional[Callable] = None,
     log_fn: Optional[Callable[[str], None]] = None,
     log_interval: int = 50,
@@ -33,7 +35,10 @@ def evaluate(
 ) -> Dict[str, float]:
     """Returns per-branch ``{branch}_det_acc`` / ``{branch}_miou``, their
     mean ``det_acc``, ``n_samples`` and ``miou`` (the mask mIoU, 0.0 for
-    the box-only SimVG heads, as in the JAX package).
+    the box-only SimVG heads, as in the JAX package).  With ``is_grec``:
+    per-branch ``{branch}_F1_score`` / ``{branch}_N_acc`` over the full
+    target lists of ``meta["gt_bbox_all"]`` and ``meta["target"]``, their
+    means as ``det_acc`` and ``miou``, and ``n_samples``.
 
     ``loader``: an iterable of batch dicts (numpy arrays or tensors, on the
     host or the model's device) with the eval step's keys plus gt_boxes
@@ -44,6 +49,7 @@ def evaluate(
     device = next(model.parameters()).device
     branches = [name for name, _, _ in BRANCH_KEYS]
     acc = {b: {"iou_hits": 0.0, "iou_sum": 0.0, "n": 0} for b in branches}
+    grec = {b: new_grec_lists() for b in branches}
     n_batches = len(loader) if hasattr(loader, "__len__") else None
     if max_batches is not None and n_batches is not None:
         n_batches = min(n_batches, max_batches)
@@ -55,18 +61,33 @@ def evaluate(
                         for k in DEVICE_KEYS if k in batch}
         preds = step(device_batch)
         valid = np.asarray(batch["batch_valid"])
-        gt = np.asarray(batch["gt_boxes"])[:, 0, :]
-        for b in branches:
-            m = detection_accuracy(preds[b]["best_box"].cpu().numpy(), gt,
-                                   valid)
-            a = acc[b]
-            a["iou_hits"] += m["det_acc"] / 100.0 * m["n"]
-            a["iou_sum"] += m["miou"] / 100.0 * m["n"]
-            a["n"] += m["n"]
+        if is_grec:
+            for b in branches:
+                grec_rows(grec[b], preds[b], batch, valid)
+        else:
+            gt = np.asarray(batch["gt_boxes"])[:, 0, :]
+            for b in branches:
+                m = detection_accuracy(preds[b]["best_box"].cpu().numpy(),
+                                       gt, valid)
+                a = acc[b]
+                a["iou_hits"] += m["det_acc"] / 100.0 * m["n"]
+                a["iou_sum"] += m["miou"] / 100.0 * m["n"]
+                a["n"] += m["n"]
         if log_fn is not None and (bi + 1) % max(log_interval, 1) == 0:
             log_fn(f"eval [{bi + 1}/{n_batches}]")
 
     out: Dict[str, float] = {}
+    if is_grec:
+        for b in branches:
+            m = grec_f1_nacc(**grec[b])
+            out["n_samples"] = float(m["n"])
+            out[f"{b}_F1_score"] = m["F1_score"]
+            out[f"{b}_N_acc"] = m["N_acc"]
+        # the reference reports (mean F1, mean N-acc) as (det_acc, miou)
+        out["det_acc"] = float(np.mean([out[f"{b}_F1_score"]
+                                        for b in branches]))
+        out["miou"] = float(np.mean([out[f"{b}_N_acc"] for b in branches]))
+        return out
     for b in branches:
         n = acc[b]["n"]
         # both branches see every sample; count before the zero clamp
@@ -76,3 +97,26 @@ def evaluate(
     out["det_acc"] = (out["decoder_det_acc"] + out["token_det_acc"]) / 2.0
     out["miou"] = 0.0
     return out
+
+
+def new_grec_lists() -> Dict[str, list]:
+    """Empty per-image lists, keyed as ``grec_f1_nacc``'s arguments."""
+    return {"pred_boxes": [], "pred_scores": [], "gt_boxes": [],
+            "targets": []}
+
+
+def grec_rows(acc: Dict, preds: Dict, batch: Dict,
+              valid: Optional[np.ndarray] = None) -> None:
+    """Appends the ``valid`` rows of one branch's decoded predictions to
+    ``acc`` (``new_grec_lists``): boxes, scores, the full target boxes
+    (``meta["gt_bbox_all"]``, untruncated by ``max_gt``) and the target
+    dicts."""
+    boxes = preds["boxes"].float().cpu().numpy()
+    scores = preds["scores"].float().cpu().numpy()
+    for i, m in enumerate(batch["meta"]):
+        if valid is not None and not valid[i]:
+            continue
+        acc["pred_boxes"].append(boxes[i])
+        acc["pred_scores"].append(scores[i])
+        acc["gt_boxes"].append(np.asarray(m["gt_bbox_all"]))
+        acc["targets"].append(m["target"])

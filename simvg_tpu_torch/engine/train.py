@@ -67,6 +67,7 @@ def make_train_step(
     ema_alpha: Optional[float] = None,
     dp_size: int = 1,
     with_metrics: bool = True,
+    return_predictions: bool = False,
     device_norm: Optional[Dict] = None,
 ) -> Callable:
     """Returns ``train_step(state, batch, seed) -> (state, scalars)``.
@@ -76,7 +77,11 @@ def make_train_step(
     gt_labels [B, T], gt_valid [B, T] and optionally gt_count [B].  With
     ``device_norm`` ({mean, std, to_rgb}) the image is a uint8 BGR canvas
     normalised on the device.  The model's parameters and the state are
-    updated in place."""
+    updated in place.  With ``return_predictions`` the scalars also hold,
+    under ``"predictions"``, the last layer's (class logits, boxes) of both
+    branches as device tensors, undecoded: the caller decodes them with
+    ``decode_predictions`` on the steps it reads (GRefCOCO's train
+    F1/N-acc at the CLI's log lines)."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     generator = torch.Generator(device=params[0].device)
@@ -111,9 +116,13 @@ def make_train_step(
             state.ema_step = ema_update(state.ema_params, params,
                                         state.ema_step, ema_alpha)
         state.step += 1
-        if with_metrics:
-            with torch.no_grad():
+        with torch.no_grad():
+            if with_metrics:
                 scalars.update(_train_metrics(out, batch))
+            if return_predictions:
+                scalars["predictions"] = {
+                    name: (out[ck][-1].detach(), out[bk][-1].detach())
+                    for name, ck, bk in BRANCH_KEYS}
         return state, scalars
 
     return train_step

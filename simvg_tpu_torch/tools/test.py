@@ -7,7 +7,8 @@ weights.
 
 It runs on the card unless ``--device cpu`` is given, and raises where
 there is no card.  ``main(argv)`` runs it in-process and returns
-``{split: metrics}`` (EMA results under ``"<split>[EMA]"``).
+``{split: metrics}`` (EMA results under ``"<split>[EMA]"``); a GRefCOCO
+config's metrics are the per-branch F1/N-acc.
 ``--distributed`` (M16) and ``--quant-collection`` (M17) are not ported
 yet and raise.
 """
@@ -27,7 +28,7 @@ from simvg_tpu_torch.utils.checkpoint import load_checkpoint
 from simvg_tpu_torch.utils.logger import get_root_logger
 
 from .train import (check_ported, device_norm_of, eval_splits, fmt_metrics,
-                    model_dtype, resolve_device)
+                    gt_settings, model_dtype, resolve_device)
 
 
 def parse_args(argv=None):
@@ -59,8 +60,7 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
 
     seed = cfg.get("seed", 6666)
     img_size = cfg.get("img_size", 640)
-    nq = cfg.model.get("head", {}).get("num_queries", 1)
-    max_gt = min(cfg.get("max_gt", 1), nq)
+    is_grec, max_gt = gt_settings(cfg)
     model, _ = build_model(cfg.model, img_size=img_size,
                            dtype=model_dtype(cfg), device=device)
 
@@ -88,13 +88,15 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
     eval_step = make_eval_step(model, device_norm=device_norm_of(cfg))
     results: Dict[str, Dict[str, float]] = {}
     for split, loader in loaders.items():
-        m = evaluate(model, loader, eval_step=eval_step, log_fn=logger.info,
+        m = evaluate(model, loader, is_grec=is_grec, eval_step=eval_step,
+                     log_fn=logger.info,
                      log_interval=cfg.get("log_interval", 50))
         logger.info(f"[{split}] " + fmt_metrics(m))
         results[split] = m
         if ema is not None:
             with swapped_params(model, ema):
-                m = evaluate(model, loader, eval_step=eval_step)
+                m = evaluate(model, loader, is_grec=is_grec,
+                             eval_step=eval_step)
             logger.info(f"[{split}][EMA] " + fmt_metrics(m))
             results[f"{split}[EMA]"] = m
     return results

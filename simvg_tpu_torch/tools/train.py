@@ -14,9 +14,14 @@ config has it.  It runs on the card unless ``--device cpu`` is given, and
 raises where there is no card.  ``main(argv)`` runs it in-process and
 returns its results.
 
+GRefCOCO configs (``dataset = "GRefCOCO"``) log the train F1/N-acc of each
+branch at the log lines (``{branch}_F1``, ``{branch}_Nacc`` in
+``metrics.jsonl``) and evaluate F1/N-acc; ``det_best`` keys on ``det_acc``
+(for GRefCOCO the mean F1), as in the JAX CLI.
+
 Not ported yet, each raising with its ROADMAP item: ``--distributed``,
-``fsdp``, ``model_parallel`` > 1 and ``seq_parallel`` (M16), GRefCOCO and
-Mixed (M15), ``with_mask`` (masks).
+``fsdp``, ``model_parallel`` > 1 and ``seq_parallel`` (M16), ``with_mask``
+(masks).
 """
 
 from __future__ import annotations
@@ -37,9 +42,12 @@ from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
 from simvg_tpu_torch.engine import (create_optimizer, create_train_state,
                                     evaluate, make_eval_step,
                                     make_train_step)
+from simvg_tpu_torch.engine.evaluate import grec_rows, new_grec_lists
+from simvg_tpu_torch.engine.metrics import grec_f1_nacc
 from simvg_tpu_torch.engine.train_state import (make_lr_schedule,
                                                 swapped_params)
-from simvg_tpu_torch.models import build_model, init_random_weights
+from simvg_tpu_torch.models import (build_model, decode_predictions,
+                                    init_random_weights)
 from simvg_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                               load_checkpoint,
                                               load_opt_state,
@@ -75,7 +83,9 @@ def parse_args(argv=None):
 
 def resolve_device(name: str) -> torch.device:
     """The CLIs' device: ``cuda`` needs a card (no fallback), ``cpu`` is
-    for the tests."""
+    for the tests.  TF32 is turned off for every device (float32 configs
+    must run float32 matmuls and convolutions on the card)."""
+    disable_tf32()
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on the "
@@ -83,6 +93,14 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return device
+
+
+def disable_tf32() -> None:
+    """float32 matmuls and cuDNN convolutions in full float32: torch's
+    default runs cuDNN's (the patch embedding, the head's 1x1 input_proj)
+    on TF32, which breaks float32 parity with the reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def check_ported(cfg, distributed: bool = False) -> None:
@@ -100,6 +118,29 @@ def check_ported(cfg, distributed: bool = False) -> None:
     if ve.get("seq_parallel"):
         raise NotImplementedError("seq_parallel is not ported yet "
                                   "(ROADMAP: M16)")
+
+
+def gt_settings(cfg):
+    """(is_grec, max_gt): GRefCOCO keeps up to 12 targets a sample by
+    default, every other dataset 1; never more than the head's queries
+    (a target beyond them cannot be matched)."""
+    is_grec = cfg.get("dataset") == "GRefCOCO"
+    nq = cfg.model.get("head", {}).get("num_queries", 1)
+    return is_grec, min(cfg.get("max_gt", 12 if is_grec else 1), nq)
+
+
+def grec_train_metrics(preds: Dict, batch: Dict,
+                       img_shape: torch.Tensor) -> Dict[str, float]:
+    """The train batch's F1 and N-acc of each branch, on the host, from the
+    step's last-layer (class logits, boxes), decoded here."""
+    out = {}
+    for name, (logits, boxes) in preds.items():
+        acc = new_grec_lists()
+        grec_rows(acc, decode_predictions(logits, boxes, img_shape), batch)
+        m = grec_f1_nacc(**acc)
+        out[f"{name}_F1"] = m["F1_score"]
+        out[f"{name}_Nacc"] = m["N_acc"]
+    return out
 
 
 def eval_splits(cfg) -> List[str]:
@@ -150,8 +191,7 @@ def main(argv=None) -> Dict:
 
     # ---- data
     img_size = cfg.get("img_size", 640)
-    nq = cfg.model.get("head", {}).get("num_queries", 1)
-    max_gt = min(cfg.get("max_gt", 1), nq)
+    is_grec, max_gt = gt_settings(cfg)
     norm_on_device = cfg.get("normalize_on_device", False)
     train_ds = build_dataset_from_cfg(cfg.data.train,
                                       dataset_type=cfg.get("dataset"),
@@ -182,8 +222,7 @@ def main(argv=None) -> Dict:
     # ---- model: random weights from the seed, then the pretrain file
     model, loss_cfg = build_model(cfg.model, img_size=img_size,
                                   dtype=model_dtype(cfg), device=device)
-    init_random_weights(model, torch.Generator(device=device)
-                        .manual_seed(seed))
+    init_random_weights(model, seed)
     names = [n for n, _ in model.named_parameters()]
     logger.info(f"model params: "
                 f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
@@ -250,6 +289,7 @@ def main(argv=None) -> Dict:
         distill_type=loss_cfg["distill_type"],
         mlp_aux_loss=loss_cfg.get("mlp_aux_loss", False),
         ema_alpha=cfg.get("ema_factor", 0.999) if use_ema else None,
+        with_metrics=not is_grec, return_predictions=is_grec,
         device_norm=device_norm)
     eval_step = make_eval_step(model, device_norm=device_norm)
     log_interval = cfg.get("log_interval", 50)
@@ -280,13 +320,17 @@ def main(argv=None) -> Dict:
         t_ep = t_data = time.time()
         for it, batch in enumerate(train_loader):
             data_time = time.time() - t_data
-            state, scalars = train_step(state, to_device(batch, device),
-                                        step_seed)
+            dev_batch = to_device(batch, device)
+            state, scalars = train_step(state, dev_batch, step_seed)
             if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:
+                preds = scalars.pop("predictions", None)
                 s = {k: float(v) for k, v in scalars.items()}
+                if preds is not None:
+                    s.update(grec_train_metrics(preds, batch,
+                                                dev_batch["img_shape"]))
                 msg = ", ".join(f"{k}: {v:.4f}" for k, v in s.items()
                                 if k.startswith("loss")
-                                or k.endswith("det_acc"))
+                                or k.endswith(("det_acc", "_F1", "_Nacc")))
                 cur_lr = lr_sched(epoch * steps_per_epoch + it)
                 logger.info(f"train - epoch [{epoch + 1}]"
                             f"[{it + 1}/{steps_per_epoch}] "
@@ -308,8 +352,8 @@ def main(argv=None) -> Dict:
 
         if (epoch + 1) % evaluate_interval == 0 and epoch >= start_eval:
             for split, loader in val_loaders.items():
-                metrics = evaluate(model, loader, eval_step=eval_step,
-                                   log_fn=logger.info,
+                metrics = evaluate(model, loader, is_grec=is_grec,
+                                   eval_step=eval_step, log_fn=logger.info,
                                    log_interval=log_interval)
                 logger.info(f"eval[{split}] epoch {epoch + 1}: "
                             + fmt_metrics(metrics))
@@ -318,7 +362,8 @@ def main(argv=None) -> Dict:
                 results["eval"][split] = metrics
                 if state.ema_params is not None:
                     with swapped_params(model, state.ema_params):
-                        m_ema = evaluate(model, loader, eval_step=eval_step)
+                        m_ema = evaluate(model, loader, is_grec=is_grec,
+                                         eval_step=eval_step)
                     logger.info(f"eval[{split}][EMA] epoch {epoch + 1}: "
                                 + fmt_metrics(m_ema))
                     results["eval"][f"{split}[EMA]"] = m_ema

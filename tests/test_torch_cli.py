@@ -6,7 +6,9 @@ the CPU with ``configs/smoke/tiny_synth.py`` and synthetic data.
   det_acc that the train CLI's evaluation saved with it;
 - the test CLI on weights exported from a JAX param tree gives the same
   Prec@0.5, per branch, as JAX ``evaluate`` on the same split (M8's done
-  condition);
+  condition), and on a GRefCOCO config the same F1/N-acc;
+- the port's gates accept every top-level config under ``configs/`` but
+  the two whose features are not ported yet;
 - both default to the card and raise without one; the options that are not
   ported yet raise NotImplementedError naming their ROADMAP item.
 """
@@ -21,13 +23,14 @@ import numpy as np
 import pytest
 import torch
 
-from util_synth import make_refcoco_style
+from util_synth import make_grefcoco_style, make_refcoco_style
 
 from simvg_tpu_torch.tools import test as test_cli
 from simvg_tpu_torch.tools import train as train_cli
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
+GREC = osp.join(REPO, "configs", "smoke", "tiny_synth_grec.py")
 
 
 @pytest.fixture(scope="module")
@@ -97,8 +100,7 @@ def test_clis_default_to_the_card(tmp_path, synth):
     (["--cfg-options", "fsdp=True"], "M16"),
     (["--cfg-options", "model_parallel=2"], "M16"),
     (["--cfg-options", "model.vis_enc.seq_parallel=True"], "M16"),
-    (["--cfg-options", "dataset=GRefCOCO", "data.train.type=GRefCOCO"],
-     "M15"),
+    (["--cfg-options", "model.type=OneStageModel"], "M20"),
     (["--cfg-options", "data.train.pipeline=[{'type': "
       "'LoadImageAnnotationsFromFile', 'with_bbox': True, "
       "'with_mask': True}]"], "masks"),
@@ -128,7 +130,6 @@ def test_test_cli_on_jax_weights_matches_jax_evaluate(tmp_path, synth):
     from simvg_tpu.models.builder import build_model
     from simvg_tpu_torch.convert import export_simvg_full
     from simvg_tpu_torch.models import build_model as port_build
-    from simvg_tpu_torch.models import init_random_weights
     from simvg_tpu_torch.utils.checkpoint import save_checkpoint
     from util_torch_port import jax_params_from_port
 
@@ -140,9 +141,23 @@ def test_test_cli_on_jax_weights_matches_jax_evaluate(tmp_path, synth):
                                    seed=cfg.seed)
     model, _ = build_model(cfg.model, img_size=64, dtype=jnp.float32)
     # a JAX param tree (random weights, made through the port so that no
-    # JAX init has to run), exported to the port's names and saved
+    # JAX init has to run), exported to the port's names and saved.  The
+    # weights are those of the former N(0, 0.02) fill: the two loaders'
+    # images differ by up to a level (cv2's fixed-point resize against
+    # F.interpolate), which at these weights moves mIoU by less than 1e-3;
+    # the next test holds flax-init weights on the JAX loader's batches
     port, _ = port_build(cfg.model, img_size=64, device="cpu")
-    init_random_weights(port, torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for module in port.modules():
+            for name, p in module.named_parameters(recurse=False):
+                if isinstance(module, torch.nn.LayerNorm) and \
+                        name == "weight":
+                    p.fill_(1.0)
+                elif name.endswith("bias"):
+                    p.zero_()
+                else:
+                    p.normal_(0.0, 0.02, generator=gen)
     batch = next(iter(loader))
     params = jax_params_from_port(
         model, {k: batch[k] for k in ("image", "text_ids",
@@ -159,3 +174,118 @@ def test_test_cli_on_jax_weights_matches_jax_evaluate(tmp_path, synth):
         assert got[k] == want[k], (k, got[k], want[k])
     for k in ("decoder_miou", "token_miou"):
         assert abs(got[k] - want[k]) < 1e-3, (k, got[k], want[k])
+
+
+def test_evaluate_on_jax_init_weights_and_batches_matches_jax(synth):
+    """JAX ``model.init`` weights exported to the port, and the JAX
+    loader's batches fed to both sides: the port's ``evaluate`` gives JAX
+    ``evaluate``'s Prec@0.5 and mIoU per branch, so a gap between the test
+    CLI and JAX on such weights comes from the loaders' images alone."""
+    from simvg_tpu.config import Config as JaxConfig
+    from simvg_tpu.config import parse_cfg_options
+    from simvg_tpu.data.builder import (build_dataset_from_cfg,
+                                        build_loader_from_cfg)
+    from simvg_tpu.engine.evaluate import evaluate
+    from simvg_tpu.models.builder import build_model
+    from simvg_tpu_torch.convert import export_simvg_full
+    from simvg_tpu_torch.engine import evaluate as port_evaluate
+    from simvg_tpu_torch.models import build_model as port_build
+
+    cfg = JaxConfig.fromfile(TINY)
+    cfg.merge_from_dict(parse_cfg_options(synth))
+    ds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset,
+                                seed=cfg.seed)
+    loader = build_loader_from_cfg(ds, cfg, train=False, canvas=64,
+                                   seed=cfg.seed)
+    batches = list(loader)
+    model, _ = build_model(cfg.model, img_size=64, dtype=jnp.float32)
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(3), **{k: jnp.asarray(batches[0][k]) for k in (
+            "image", "text_ids", "text_padding_mask", "img_shape")})
+    want = evaluate(model, params, batches)
+    port, _ = port_build(cfg.model, img_size=64, device="cpu")
+    port.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in
+                          export_simvg_full(jax.tree.map(np.asarray,
+                                                         params)).items()})
+    got = port_evaluate(port, batches)
+    assert got["n_samples"] == want["n_samples"] == 8
+    for k in ("det_acc", "decoder_det_acc", "token_det_acc"):
+        assert got[k] == want[k], (k, got[k], want[k])
+    for k in ("decoder_miou", "token_miou"):
+        assert abs(got[k] - want[k]) < 1e-3, (k, got[k], want[k])
+
+
+def test_test_cli_on_jax_weights_matches_jax_evaluate_grec(tmp_path):
+    """GRefCOCO: JAX ``model.init`` weights exported to the port; the test
+    CLI's per-branch F1/N-acc equal JAX ``evaluate(is_grec=True)``'s."""
+    from simvg_tpu.config import Config as JaxConfig
+    from simvg_tpu.config import parse_cfg_options
+    from simvg_tpu.data.builder import (build_dataset_from_cfg,
+                                        build_loader_from_cfg)
+    from simvg_tpu.engine.evaluate import evaluate
+    from simvg_tpu.models.builder import build_model
+    from simvg_tpu_torch.convert import export_simvg_full
+    from simvg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    imgdir, ann = make_grefcoco_style(str(tmp_path / "grec"), n=6)
+    opts = [f"data.{s}.{k}={v}" for s in ("train", "val")
+            for k, v in (("annsfile", ann), ("imgsfile", imgdir))]
+    cfg = JaxConfig.fromfile(GREC)
+    cfg.merge_from_dict(parse_cfg_options(opts))
+    ds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset,
+                                seed=cfg.seed)
+    loader = build_loader_from_cfg(ds, cfg, train=False, canvas=64,
+                                   max_gt=cfg.max_gt, seed=cfg.seed)
+    model, _ = build_model(cfg.model, img_size=64, dtype=jnp.float32)
+    batch = next(iter(loader))
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(5), **{k: jnp.asarray(batch[k]) for k in (
+            "image", "text_ids", "text_padding_mask", "img_shape")})
+    want = evaluate(model, params, loader, is_grec=True)
+    sd = {k: torch.from_numpy(v.copy()) for k, v in
+          export_simvg_full(jax.tree.map(np.asarray, params)).items()}
+    save_checkpoint(str(tmp_path), "from_jax", params=sd, block=True)
+
+    got = test_cli.main([GREC, str(tmp_path / "from_jax"), "--device", "cpu",
+                         "--cfg-options", *opts])["val"]
+    assert got["n_samples"] == len(ds) == 6
+    for k in ("decoder_F1_score", "decoder_N_acc", "token_F1_score",
+              "token_N_acc", "det_acc", "miou"):
+        assert got[k] == want[k], (k, got[k], want[k])
+
+
+def test_port_gates_accept_the_shipped_configs():
+    """Config.fromfile, check_ported, build_model on the meta device, every
+    split's pipeline and dataset class, over every top-level config: all
+    pass but fsdp (M16) and the OneStageModel family (M20)."""
+    import glob
+
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.data.builder import build_pipeline
+    from simvg_tpu_torch.data.datasets import build_dataset
+    from simvg_tpu_torch.models import build_model
+
+    files = sorted(f for f in glob.glob(osp.join(REPO, "configs", "**",
+                                                 "*.py"), recursive=True)
+                   if "_base_" not in f)
+    refused = {}
+    for path in files:
+        try:
+            cfg = Config.fromfile(path)
+            train_cli.check_ported(cfg)
+            build_model(cfg.model, img_size=cfg.get("img_size", 640),
+                        device="meta")
+            for split in ["train"] + train_cli.eval_splits(cfg):
+                split_cfg = cfg.data[split]
+                build_pipeline(split_cfg.get("pipeline"))
+                with pytest.raises(FileNotFoundError):  # class found first
+                    build_dataset(split_cfg.get("type", cfg.get("dataset")),
+                                  imgsfile="", annsfile=osp.join(
+                                      REPO, "no_such_dir", "a.json"))
+        except NotImplementedError as e:
+            refused[osp.basename(path)] = str(e)
+    assert len(files) == 73
+    assert set(refused) == {"refcoco_onestage_fsdp8.py",
+                            "tiny_synth_onestage.py"}, refused
+    assert "M16" in refused["refcoco_onestage_fsdp8.py"]
+    assert "M20" in refused["tiny_synth_onestage.py"]

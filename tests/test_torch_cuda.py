@@ -21,9 +21,9 @@ float32 2e-5 (tests/test_pallas_attention.py); bf16 2e-2, one bf16 step
 for |out| < 4, since the kernel rounds P before normalising and the plain
 version after.  Backward (K2) bounds: float32 3e-4 absolute / 1e-3
 relative (tests/test_pallas_attention.py); bf16 2e-2 of each gradient's
-max |value|: five bf16 steps, since K2 takes the row term from the rounded
-output (rowsum(dO * out)) and its own P, so a rounding of P or dS may land
-one bf16 step away from the plain version's.
+max |value|: five bf16 steps, since K2 sums its P and dP in another order,
+so a rounding of P or dS may land one bf16 step away from the plain
+version's.
 """
 
 import numpy as np
@@ -119,6 +119,34 @@ def _assert_grads_close(grads, refs, dtype, pad):
     if pad is not None:  # padded keys get exactly zero dk and dv
         for g in grads[1:]:
             assert not g[pad].any()
+
+
+# the sequences the accepted configs launch beyond the flagship's:
+# (dtype, batch, S, heads, text tokens), the text padded as the encoder
+# pads it
+CONFIG_SHAPES = [
+    (torch.bfloat16, 32, 277, 12, 20),  # mix/ViT-base/pretrain-cocoall.py
+    (torch.bfloat16, 8, 462, 12, 20),  # refcoco_onestage_672.py
+    (torch.bfloat16, 4, 421, 16, 20),  # ViT-large at 640 px
+    (torch.bfloat16, 4, 165, 16, 20),  # ViT-large at 384 px, 20 tokens
+    (torch.bfloat16, 4, 185, 16, 40),  # refcocog_umd_384.py, 40 tokens
+    (torch.float32, 4, 27, 4, 10),  # smoke/tiny_synth.py
+    (torch.float32, 4, 411, 4, 10),  # smoke/converge_synth_prune_deep.py
+]
+
+
+@pytest.mark.parametrize("dtype,b,s,h,text", CONFIG_SHAPES)
+def test_attention_at_the_config_shapes(gen, dtype, b, s, h, text):
+    lengths = [s - text + 3 + (i * 5) % (text - 2) for i in range(b)]
+    q, k, v, dout, pad = _inputs(gen, dtype, b, s, s, h, 64, lengths)
+    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    grads = attention_bwd(q, k, v, out, dout, lse, pad)
+    torch.cuda.synchronize()
+    ref = fused_attention_reference(q, k, v, pad)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    _assert_grads_close(grads, fused_attention_bwd_reference(
+        q, k, v, dout, pad), dtype, pad)
 
 
 @pytest.mark.parametrize("b,sq,sk,h,hd,lengths", [CASES[0], CASES[4]])

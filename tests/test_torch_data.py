@@ -227,8 +227,11 @@ def test_tokenizer_copy_matches_jax(spm_file, kind):
 def test_unported_datasets_and_ops_raise(synth):
     cfg = Config.fromfile(TINY)
     cfg.merge_from_dict(_opts(synth))
-    with pytest.raises(NotImplementedError, match="M15"):
-        build_dataset_from_cfg(dict(cfg.data.val, type="GRefCOCO"))
+    vgtr = [dict(type="LoadImageAnnotationsFromFile", with_bbox=True),
+            dict(type="VGTRAugment")]
+    with pytest.raises(NotImplementedError, match="M20"):
+        build_dataset_from_cfg(dict(cfg.data.val, pipeline=vgtr),
+                               dataset_type=cfg.dataset)
     pipe = [dict(type="LoadImageAnnotationsFromFile", with_bbox=True,
                  with_mask=True)]
     with pytest.raises(NotImplementedError, match="masks"):

@@ -307,7 +307,8 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.data.transforms, simvg_tpu_torch.utils.checkpoint, "
         "simvg_tpu_torch.utils.logger, simvg_tpu_torch.tools.train, "
         "simvg_tpu_torch.tools.test, simvg_tpu_torch.tools.make_synth_data, "
-        "simvg_tpu_torch.tools.jpeg_divergence\n"
+        "simvg_tpu_torch.tools.jpeg_divergence, "
+        "simvg_tpu_torch.tools.distill_proof_big\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")

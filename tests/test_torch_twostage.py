@@ -1,0 +1,87 @@
+"""The two-stage regime through the port's train CLI, in-process on the CPU:
+the flow and the assertions of ``tests/test_twostage_cli.py::test_twostage_flow``.
+
+Stage 1 trains ``configs/smoke/tiny_synth_stage1.py`` (decoder-only loss,
+EMA) for 1 epoch; stage 2 trains ``tiny_synth_stage2.py`` (balanced
+distillation) from ``load_from=<stage 1>/latest`` for 4 epochs.  Stage 1
+logs no token loss; in stage 2 the distillation loss of the last epoch is
+below 0.8x the first epoch's and the token loss below 0.95x (the JAX
+trajectory at seed 6666: kd 1.06 -> 0.54, tgt 10.3 -> 8.1).  The int8
+serving half of the JAX test waits for the port's quantisation (M17).
+"""
+
+import json
+import os.path as osp
+
+import numpy as np
+
+from util_synth import make_refcoco_style
+
+from simvg_tpu_torch.tools import train as train_cli
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+SMOKE = osp.join(REPO, "configs", "smoke")
+
+
+def _train(config, work, root, extra=()):
+    res = train_cli.main([
+        osp.join(SMOKE, config), "--work-dir", str(work), "--device", "cpu",
+        "--cfg-options", "scheduler_config.max_epoch=1",
+        "evaluate_interval=5", "data.samples_per_gpu=2",
+        f"data.train.annsfile={root}/instances.json",
+        f"data.train.imgsfile={root}/images",
+        f"data.val.annsfile={root}/instances.json",
+        f"data.val.imgsfile={root}/images", *extra])
+    with open(osp.join(work, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return res, [m for m in lines if m["kind"] == "train"]
+
+
+def test_twostage_flow(tmp_path):
+    root = tmp_path / "synth"
+    make_refcoco_style(str(root), n_train=32, n_val=8)
+    s1, s2 = tmp_path / "s1", tmp_path / "s2"
+
+    _, train1 = _train("tiny_synth_stage1.py", s1, root)
+    assert (s1 / "latest").exists()
+    assert train1 and all("loss_tgt" not in m for m in train1), train1[-1]
+
+    _, train2 = _train("tiny_synth_stage2.py", s2, root,
+                       (f"load_from={s1}/latest",
+                        "scheduler_config.max_epoch=4"))
+    last = train2[-1]
+    assert "loss_tgt" in last and np.isfinite(last["loss_tgt"]), last
+    assert "loss_kd" in last and np.isfinite(last["loss_kd"]), last
+
+    def ep_mean(key, ep):
+        vals = [m[key] for m in train2 if m["epoch"] == ep]
+        assert vals, (key, ep)
+        return float(np.mean(vals))
+
+    first, final = train2[0]["epoch"], train2[-1]["epoch"]
+    assert final >= first + 3, (first, final)
+    kd0, kd1 = ep_mean("loss_kd", first), ep_mean("loss_kd", final)
+    tgt0, tgt1 = ep_mean("loss_tgt", first), ep_mean("loss_tgt", final)
+    assert kd1 < 0.8 * kd0, (kd0, kd1)
+    assert tgt1 < 0.95 * tgt0, (tgt0, tgt1)
+
+
+def test_distill_proof_big_chain_runs(tmp_path):
+    """The big tier's four-run chain (``tools/distill_proof_big.py``) cut to
+    one epoch of one step each: every run evaluates and stage 2 loads stage
+    1's latest."""
+    from simvg_tpu_torch.tools import distill_proof_big
+
+    summary = distill_proof_big.main([
+        "--out", str(tmp_path), "--device", "cpu", "--n-train", "8",
+        "--n-val", "4", "--cfg-options", "scheduler_config.max_epoch=1",
+        "evaluate_interval=1", "data.samples_per_gpu=8"])
+    assert [name for name, _, _ in distill_proof_big.RUNS] == list(summary)
+    for run in summary.values():
+        assert run["epochs"] == run["last_eval_epoch"] == 1
+        for key in ("decoder_prec50_last", "token_prec50_best"):
+            assert 0.0 <= run[key] <= 100.0
+    with open(tmp_path / "converge_big_s2" / "metrics.jsonl") as f:
+        assert '"loss_kd"' in f.read()
+    with open(tmp_path / "summary.json") as f:
+        assert json.load(f) == summary
