@@ -38,8 +38,16 @@ and the CLIs run on synthetic JPEGs: the flagship's train CLI, test CLI and
 a resume; the GRefCOCO config (grefcoco_onestage.py, 10 queries, F1/N-acc)
 through both CLIs, with a GRefCOCO batch held against plain attention and
 the step's host Hungarian time; the Mixed pretraining config
-(pretrain-cocoall.py, 512 px, S=277) through the train CLI.  K1/K2
-launches are counted from 0 around each path.
+(pretrain-cocoall.py, 512 px, S=277) through the train CLI.  Then the
+serving entry points: the flagship pruned to keep 300 patches after layer
+4 (K1 at S=321 after the prune point; held to float32 on the float32
+model's kept indices; keep=400 against the unpruned model; latency pruned
+and unpruned at batch 8 and 32), its serving forward through torch.export
+(12 K1 nodes in the graph, outputs bit for bit those of eager, timed
+against eager), the HTTP server on the CLI phase's det_best (a burst of
+24 JPEG requests from 8 clients, each held to a direct eval step, then 23 s
+of load from 8 closed-loop clients for latency and images/s), and the demo
+and inference CLIs.  K1/K2 launches are counted from 0 around each path.
 
 Every phase raises on failure; there is no CPU path.
 
@@ -90,6 +98,9 @@ K1_CHECKS = [  # (batch, seq, heads, head_dim, dtype name, bound)
     (8, 421, 12, 64, "float32", 2e-5),
     (2, 1621, 16, 64, "bfloat16", 2e-2),  # patch-16 sequence, large heads
     (TRAIN_BATCH, 277, 12, 64, "bfloat16", 2e-2),  # Mixed at 512 px
+    # token pruning at keep=300 after layer 4: 1 + 300 patches + 20 text
+    (8, 321, 12, 64, "bfloat16", 2e-2),
+    (TRAIN_BATCH, 321, 12, 64, "bfloat16", 2e-2),
 ]
 # K2 vs its plain version.  float32: the gradient bounds of
 # tests/test_pallas_attention.py.  bf16: 2e-2 of each gradient's max |value|,
@@ -223,17 +234,23 @@ def check_k1(gen, card):
             raise AssertionError(
                 f"K1 disagrees with its plain version at {(b, s, h, hd)} "
                 f"{dname}: max_abs_err {err} > {bound}")
+        # the entry point the model calls, operator dispatch included, in
+        # inference mode as the serving paths call it
         kern = lambda: fused_attention(q, k, v, pad)  # noqa: E731
         plain = lambda: fused_attention_reference(q, k, v, pad)  # noqa: E731
         (qt, kt, vt), keep = sdpa_args(q, k, v, pad)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=keep, scale=1.0)
-        for fn in (kern, plain, library):
-            fn()  # warm-up
-        # in turns: plain, kernel, kernel, plain
-        p1, k1, k2, p2 = (cuda_ms(fn, 20) for fn in (plain, kern, kern, plain))
-        lib_ms = cuda_ms(library, 20)
-        nbytes = 4 * q.numel() * q.element_size() + pad.numel()
+        with torch.inference_mode():
+            for fn in (kern, plain, library):
+                fn()  # warm-up
+            # in turns: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = (cuda_ms(fn, 20)
+                              for fn in (plain, kern, kern, plain))
+            lib_ms = cuda_ms(library, 20)
+        # q, k, v read, out and the fp32 row LSE written, the mask read
+        nbytes = 4 * q.numel() * q.element_size() + 4 * b * h * s \
+            + pad.numel()
         flops = 4 * b * h * s * s * hd
         bms, by = bound_ms(nbytes, flops, dname)
         row = rates(dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=err,
@@ -258,7 +275,7 @@ def check_k2(gen, card):
         dtype = getattr(torch, dname)
         q, k, v, pad = text_padded_qkv(b, s, h, hd, dtype, gen)
         dout = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
-        out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+        out, lse = attention_fwd(q, k, v, pad)
         grads = attention_bwd(q, k, v, out, dout, lse, pad)
         torch.cuda.synchronize()
         refs = fused_attention_bwd_reference(q, k, v, dout, pad)
@@ -284,7 +301,7 @@ def check_k2(gen, card):
         kern = lambda: attention_bwd(q, k, v, out, dout, lse, pad)  # noqa: E731
         plain = lambda: fused_attention_bwd_reference(  # noqa: E731
             q, k, v, dout, pad)
-        fwd = lambda: attention_fwd(q, k, v, pad, with_lse=True)  # noqa: E731
+        fwd = lambda: attention_fwd(q, k, v, pad)  # noqa: E731
         (qt, kt, vt), keep = sdpa_args(q, k, v, pad)
         leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
         dout_t = dout.transpose(1, 2)
@@ -352,14 +369,15 @@ def make_requests(rng, n_batches, batch, vocab, max_token, img_size):
     return batches
 
 
-def build_flagship(cfg, attn_impl, dtype, state_dict=None):
+def build_flagship(cfg, attn_impl, dtype, state_dict=None, **vis):
     """The flagship at full width on the card: random weights from SEED,
-    or ``state_dict``."""
+    or ``state_dict``; ``vis``: more vis_enc settings (token pruning)."""
     import torch
     from simvg_tpu_torch.models import build_model, init_random_weights
 
     model_cfg = copy.deepcopy(dict(cfg.model))
-    model_cfg["vis_enc"] = dict(model_cfg["vis_enc"], attn_impl=attn_impl)
+    model_cfg["vis_enc"] = dict(model_cfg["vis_enc"], attn_impl=attn_impl,
+                                **vis)
     model, loss_cfg = build_model(model_cfg, img_size=cfg.img_size,
                                   dtype=dtype, device="meta")
     model = model.to_empty(device="cuda")
@@ -1313,6 +1331,547 @@ def mixed_phase(card, root):
     return launches[0]
 
 
+# token pruning's in-envelope point on the flagship: keep 300 of the 400
+# patches after layer 4 (the default), so K1 runs at S = 1 + 300 + 20 = 321
+# after the prune point
+PRUNE_KEEP = 300
+SERVE_REQUESTS, SERVE_CLIENTS = 24, 8
+# the timed load on the server: SERVE_CLIENTS closed-loop clients, in a
+# process of their own, send the SERVE_REQUESTS requests over and over; the
+# first SERVE_WARM_S seconds are dropped, and request latency and images/s
+# are read over the SERVE_WINDOW_S seconds after them
+SERVE_WARM_S, SERVE_WINDOW_S = 3.0, 20.0
+# served boxes and scores, every query ("all": true), against a direct eval
+# step of the same request at batch 1: the server's batch of 8 runs the
+# bf16 GEMMs at another M.  Boxes in canvas pixels over the canvas side: a
+# coordinate in [0.5, 1) of the canvas has a bf16 step of 2^-8 = 3.9e-3,
+# the reading on the H100 is 4.58e-3 (PERF.md), the bound 2.5 steps.
+# Scores, absolute: the softmax of bf16 logits, read 2.35e-5, bound ~40x
+SERVE_BOX_TOL = 1e-2
+SERVE_SCORE_TOL = 1e-3
+
+@contextlib.contextmanager
+def fixed_pruning(kept):
+    """With an empty list ``kept``, records the kept patch indices of every
+    pruning of the encoder into it; else replays them, call for call.
+    Yields [indices that the model's own choice moves, indices] of a
+    replay."""
+    import torch
+    from simvg_tpu_torch.models import beit3
+
+    top_k = beit3.stable_top_k
+    record, replay = not kept, iter(list(kept))
+    moved = [0, 0]
+
+    def fixed(scores, k):
+        idx = top_k(scores, k)
+        if record:
+            kept.append(idx)
+            return idx
+        ref = next(replay)
+        moved[0] += sum(int((~torch.isin(a, b)).sum())
+                        for a, b in zip(idx, ref))
+        moved[1] += ref.numel()
+        return ref
+
+    beit3.stable_top_k = fixed
+    try:
+        yield moved
+    finally:
+        beit3.stable_top_k = top_k
+
+
+TOKEN_KEYS = ("class_token", "bbox_token")
+
+
+def prune_phase(card, cfg, loader, norm, launches):
+    """The flagship pruned to keep=300 after layer 4, bf16, batch 8: the
+    requests through make_eval_step with 12 K1 launches a forward (S=421 up
+    to the prune point, S=321 after it); its token outputs held to the
+    float32 pruned model with plain attention (every model on the float32
+    model's kept indices), at most BF16_REF_FACTOR x the bf16 plain model's
+    distance, and every K1 call on its own inputs; keep=400 against the
+    unpruned token branch; eval latency pruned and unpruned at batch 8 and
+    32.  Returns the medians."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.engine import (make_eval_step,
+                                        normalize_images_on_device)
+
+    base, _ = build_flagship(cfg, "pallas", torch.bfloat16)
+    state = base.state_dict()
+    model, _ = build_flagship(cfg, "pallas", torch.bfloat16, state,
+                              token_prune_keep=PRUNE_KEEP)
+    enc = model.vis_enc["beit3"]
+    if enc.prune_layer != 4:
+        raise AssertionError(f"prune layer {enc.prune_layer}, expected 4")
+    step = make_eval_step(model, device_norm=norm)
+    step(to_device(loader[0]))  # warm-up
+    preds = counted_run("prune[serve]",
+                        lambda: [step(to_device(b)) for b in loader],
+                        K1_STEP * len(loader), 0, card, launches)
+    if not all(torch.isfinite(p["token"][k]).all() for p in preds
+               for k in ("best_box", "best_score")):
+        raise AssertionError("non-finite pruned predictions")
+
+    ref32, _ = build_flagship(cfg, "xla", torch.float32, state,
+                              token_prune_keep=PRUNE_KEEP)
+    plain, _ = build_flagship(cfg, "xla", torch.bfloat16, state,
+                              token_prune_keep=PRUNE_KEEP)
+    full_keep, _ = build_flagship(cfg, "pallas", torch.bfloat16, state,
+                                  token_prune_keep=400)
+    err = {"K1": {}, "plain": {}}
+    moved = {"K1": [0, 0], "plain": [0, 0]}
+    keep_all_err, calls = 0.0, []
+    for batch in loader:
+        dev = to_device(batch)
+        image = normalize_images_on_device(dev["image"], norm["mean"],
+                                           norm["std"], True,
+                                           dev["img_shape"])
+        args = (image, dev["text_ids"], dev["text_padding_mask"])
+        kept = []
+        with fixed_pruning(kept):
+            ref = outputs(ref32, args, dev["img_shape"])
+        for name, m in (("K1", model), ("plain", plain)):
+            with fixed_pruning(kept) as mv, recorded_attention() as new:
+                out = outputs(m, args, dev["img_shape"])
+            if name == "K1":
+                calls += new
+            moved[name] = [a + b for a, b in zip(moved[name], mv)]
+            for k in TOKEN_KEYS:
+                d = (out[k] - ref[k]).abs().max().item()
+                err[name][k] = max(err[name].get(k, 0.0), d)
+        a = outputs(full_keep, args, dev["img_shape"])
+        b = outputs(base, args, dev["img_shape"])
+        keep_all_err = max([keep_all_err] + [(a[k] - b[k]).abs().max().item()
+                                             for k in TOKEN_KEYS])
+    log(f"prune: bf16 token outputs of the pruned flagship (keep "
+        f"{PRUNE_KEEP}, layer 4, S=421 -> {1 + PRUNE_KEEP + cfg.max_token}), "
+        f"{len(loader)} batches, max abs distance from the float32 pruned "
+        f"plain model on its kept indices: with K1 {err['K1']}, with plain "
+        f"attention {err['plain']} (bound {BF16_REF_FACTOR} x plain + "
+        f"{OUT_FLOOR}); kept indices each bf16 model's own top-K moves "
+        f"[moved, kept]: {moved}")
+    bad = [k for k in TOKEN_KEYS
+           if not err["K1"][k] <= BF16_REF_FACTOR * err["plain"][k]
+           + OUT_FLOOR]
+    if bad:
+        raise AssertionError(f"pruned bf16 outputs {bad} with K1 are further "
+                             "from float32 than the bound")
+    hold_calls_against_fp32("prune", calls)
+    log(f"prune: keep=400 (every patch) against the unpruned model, token "
+        f"outputs max abs diff {keep_all_err} (bound {OUT_FLOOR})")
+    if not keep_all_err <= OUT_FLOOR:
+        raise AssertionError("keep=400 differs from the unpruned model")
+    del ref32, plain, full_keep
+
+    unpruned = make_eval_step(base, device_norm=norm)
+    medians = {}
+    rng = np.random.default_rng(SEED + 2)
+    for b, reqs in ((BATCH, loader), (TRAIN_BATCH, make_requests(
+            rng, 1, TRAIN_BATCH, enc.cfg.vocab_size, cfg.max_token,
+            cfg.img_size))):
+        steps = {"unpruned": unpruned, "pruned": step}
+        lat = time_eval(steps, reqs)
+        dev = to_device(reqs[0])
+        for name, ts in lat.items():
+            ms = medians[(name, b)] = ts[len(ts) // 2]
+            n_kernels, busy = device_kernels(lambda: steps[name](dev))
+            log(f"prune: eval forward, batch {b}, bf16, {name}: median "
+                f"{ms:.3f} ms/batch ({b / ms * 1e3:.1f} images/s), min "
+                f"{ts[0]:.3f}, max {ts[-1]:.3f}, {len(ts)} batches; one call "
+                f"under the profiler: {n_kernels} kernels, device busy "
+                f"{busy:.3f} ms [{card}]")
+    return base, medians
+
+
+def device_kernels(fn):
+    """(CUDA kernels, device busy ms) of one call of ``fn`` under
+    torch.profiler, busy time as the union of the kernels' intervals."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(spans), busy / 1e3
+
+
+def export_phase(card, model, loader, norm, root, launches):
+    """torch.export of the flagship's serving forward (K1 model, bf16,
+    uint8 images normalised inside) with a polymorphic batch, saved and
+    loaded: 12 K1 nodes in the graph, 12 launches a call, the outputs
+    those of the eager eval step on the same batch bit for bit, batch 3
+    served, and the exported program timed against eager at batch 8."""
+    import torch
+    from simvg_tpu_torch.engine import make_eval_step
+    from simvg_tpu_torch.export import (attention_op_count, export_serving,
+                                        load_exported, save_exported)
+
+    batch = to_device(loader[0])
+    t0 = time.perf_counter()
+    prog = export_serving(model, batch, polymorphic_batch=True,
+                          device_norm=norm)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(root, "flagship.pt2")
+    t0 = time.perf_counter()
+    save_exported(path, prog)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = load_exported(path)
+    load_s = time.perf_counter() - t0
+    nodes = attention_op_count(prog)
+    if nodes != K1_STEP:
+        raise AssertionError(f"exported graph holds {nodes} K1 nodes, "
+                             f"expected {K1_STEP}")
+    eager = make_eval_step(model, device_norm=norm)
+    prog.call(batch)  # warm-up
+    out = counted_run("export[call]", lambda: prog.call(batch), K1_STEP, 0,
+                      card, launches)
+    ref = eager(batch)
+    diffs = {f"{br}/{k}": (out[br][k].float() - ref[br][k].float()).abs()
+             .max().item() for br in ref for k in ref[br]}
+    if any(diffs.values()):
+        raise AssertionError(f"exported outputs differ from eager: {diffs}")
+    small = prog.call({k: v[:3] for k, v in batch.items()})
+    if small["token"]["best_box"].shape != (3, 4):
+        raise AssertionError("the polymorphic program did not serve batch 3")
+    lat = time_eval({"eager": eager, "exported": prog.call}, loader)
+    medians = {}
+    nodes_all = sum(n.op == "call_function" for n in prog.program.graph.nodes)
+    for name, ts in lat.items():
+        ms = medians[name] = ts[len(ts) // 2]
+        n_kernels, busy = device_kernels(
+            lambda: (eager if name == "eager" else prog.call)(batch))
+        log(f"export: batch {BATCH}, bf16, {name}: median {ms:.3f} ms/batch "
+            f"({BATCH / ms * 1e3:.1f} images/s), min {ts[0]:.3f}, max "
+            f"{ts[-1]:.3f}, {len(ts)} batches; one call under the profiler: "
+            f"{n_kernels} kernels, device busy {busy:.3f} ms [{card}]")
+    log(f"export: the exported graph has {nodes_all} operator nodes")
+    log(f"export: {nodes} K1 nodes; export {export_s:.1f} s, save "
+        f"{save_s:.1f} s ({os.path.getsize(path) / 2 ** 30:.3f} GiB), load "
+        f"{load_s:.1f} s; outputs equal to eager bit for bit; batch 3 served")
+    os.remove(path)
+    return medians
+
+
+def _http(port, path, payload=None, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_load(port, bodies_path, clients, seconds):
+    """The timed load on the server, run in a process of its own: `clients`
+    closed-loop client threads send the request bodies in `bodies_path`
+    over and over for `seconds`; prints one JSON list of each request's
+    [start, end] in seconds from the load's start, HTTP status, and the
+    batch size and batch ms (forward and copy back) the server reports."""
+    import http.client
+    import threading
+
+    with open(bodies_path) as f:
+        bodies = [json.dumps(b).encode() for b in json.load(f)]
+    t0 = time.perf_counter()
+    records = []
+
+    def client(c):
+        i = c
+        while time.perf_counter() - t0 < seconds:
+            a = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conn.request("POST", "/predict", body=bodies[i % len(bodies)],
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            data = r.read()
+            conn.close()
+            out = json.loads(data) if r.status == 200 else {}
+            records.append([a - t0, time.perf_counter() - t0, r.status,
+                            out.get("batch_size", 0),
+                            out.get("latency_ms", 0.0)])
+            i += clients
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    print(json.dumps(records), flush=True)
+
+
+def serve_phase(card, root, imgdir, launches):
+    """The port's HTTP server in a thread on det_best (the CLI phase's
+    flagship checkpoint), --max-batch 8.  A burst of SERVE_REQUESTS JPEG
+    requests from SERVE_CLIENTS client threads is the correctness check:
+    at least one batch of more than one request, /healthz, 400 and 404,
+    and each response's boxes and scores (every query), back at the canvas
+    scale, against a direct eval step of its request (SERVE_BOX_TOL,
+    SERVE_SCORE_TOL).  Then the timed load (``serve_load``) gives request
+    latency p50/p90 and images/s in steady state.  12 K1 launches a device
+    batch over both, no K2."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.data.raw import RawPreprocessor
+    from simvg_tpu_torch.engine import make_eval_step
+    from simvg_tpu_torch.ops.fused_attention import (attention_bwd,
+                                                     fused_attention)
+    from simvg_tpu_torch.tools import serve as serve_cli
+    from simvg_tpu_torch.tools.test import serving_model
+
+    det_best = os.path.join(root, "work", "det_best")
+    server = serve_cli.build_server([FLAGSHIP, "--checkpoint", det_best,
+                                     "--port", "0", "--max-batch",
+                                     str(BATCH), "--batch-timeout-ms", "20"])
+    thread = threading.Thread(target=server.serve_forever)
+    thread.start()
+    port = server.server_port
+    files = sorted(os.listdir(imgdir))[:SERVE_REQUESTS]
+    reqs = []
+    for i, name in enumerate(files):
+        with open(os.path.join(imgdir, name), "rb") as f:
+            reqs.append({"image_b64": base64.b64encode(f.read()).decode(),
+                         "expression": f"the green box number {i}",
+                         "all": True})
+    results = [None] * len(reqs)
+    bodies_path = os.path.join(root, "serve_requests.json")
+    with open(bodies_path, "w") as f:
+        json.dump(reqs, f)
+    try:
+        status, health = _http(port, "/healthz")
+        if status != 200 or health["max_batch"] != BATCH:
+            raise AssertionError(f"/healthz: {status} {health}")
+        torch.cuda.synchronize()
+        fused_attention.launches = attention_bwd.launches = 0
+        server.batcher.batches = 0
+
+        def client(c):
+            for i in range(c, len(reqs), SERVE_CLIENTS):
+                results[i] = _http(port, "/predict", reqs[i])
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        burst_batches = server.batcher.batches
+        if any(t.is_alive() for t in clients) or any(
+                r is None or r[0] != 200 for r in results):
+            raise AssertionError(f"serve: failed requests {results}")
+        sizes = [out["batch_size"] for _, out in results]
+        if max(sizes) <= 1:
+            raise AssertionError(f"serve: batch sizes {sizes}")
+        errors = [_http(port, "/predict", {"expression": "no image"})[0],
+                  _http(port, "/predict", {"image_b64": base64.b64encode(
+                      b"\x89PNG\r\n\x1a\n0000").decode(),
+                      "expression": "png"})[0],
+                  _http(port, "/nothing")[0]]
+        if errors != [400, 400, 404]:
+            raise AssertionError(f"serve: error paths gave {errors}")
+
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+             f"chip_smoke.serve_load({port}, {bodies_path!r}, "
+             f"{SERVE_CLIENTS}, {SERVE_WARM_S + SERVE_WINDOW_S})"],
+            capture_output=True, text=True,
+            timeout=SERVE_WARM_S + SERVE_WINDOW_S + 300)
+        if proc.returncode != 0:
+            raise AssertionError(f"serve: the load's clients failed: "
+                                 f"{proc.stderr[-2000:]}")
+        load = json.loads(proc.stdout.strip().splitlines()[-1])
+        torch.cuda.synchronize()
+        k1, k2 = fused_attention.launches, attention_bwd.launches
+        batches = server.batcher.batches
+        if k1 != K1_STEP * batches or k2:
+            raise AssertionError(f"serve: K1 {k1}, K2 {k2} launches over "
+                                 f"{batches} batches")
+        launches.append((k1, k2))
+    finally:
+        server.close()
+        thread.join(timeout=60)
+
+    bad = [r for r in load if r[2] != 200]
+    if bad:
+        raise AssertionError(f"serve: {len(bad)} of {len(load)} requests of "
+                             f"the load failed, first {bad[0]}")
+    w0, w1 = SERVE_WARM_S, SERVE_WARM_S + SERVE_WINDOW_S
+    window = [r for r in load if w0 <= r[1] < w1]
+    lat = np.asarray([(r[1] - r[0]) * 1e3 for r in window])
+    p50, p90 = np.percentile(lat, 50), np.percentile(lat, 90)
+    mean_size = float(np.mean([r[3] for r in window]))
+    batch_ms = float(np.mean([r[4] for r in window]))
+
+    cfg = Config.fromfile(FLAGSHIP)
+    model = serving_model(cfg, det_best, torch.device("cuda"))
+    pre = RawPreprocessor(cfg, "cuda")
+    step = make_eval_step(model, device_norm=pre.device_norm)
+    direct, sfs = [], []  # each request's boxes (canvas scale) and scores
+    for req in reqs:
+        batch = pre.collate([pre(base64.b64decode(req["image_b64"]),
+                                 req["expression"])])
+        preds = step(to_device(batch))
+        direct.append({br: (preds[br]["boxes"][0].float().cpu().numpy(),
+                            preds[br]["scores"][0].float().cpu().numpy())
+                       for br in ("token", "decoder")})
+        sfs.append(batch["scale_factor"][0])
+
+    def distance(out, sf, want):  # max |diff| of boxes (canvas px), scores
+        box = score = 0.0
+        for br, (boxes, scores) in want.items():
+            served = np.asarray(out[br]["boxes"]) * sf
+            box = max(box, float(np.abs(served - boxes).max()))
+            score = max(score, float(np.abs(np.asarray(out[br]["scores"])
+                                            - scores).max()))
+        return box, score
+
+    errs = [distance(out, sf, want)
+            for (_, out), sf, want in zip(results, sfs, direct)]
+    box_err = max(e[0] for e in errs) / cfg.img_size
+    score_err = max(e[1] for e in errs)
+    # the same responses held to the next request's direct step: what a
+    # slot mix-up in the batcher would show
+    swapped = min(distance(out, sf, want)[0] for (_, out), sf, want in
+                  zip(results, sfs, direct[1:] + direct[:1])) / cfg.img_size
+    log(f"serve: burst of {len(reqs)} JPEG requests from {SERVE_CLIENTS} "
+        f"clients in {burst_batches} device batches (sizes {sorted(sizes)})"
+        f"; against a direct eval step at batch 1, every query: boxes max "
+        f"|diff| / canvas {box_err:.2e} (bound {SERVE_BOX_TOL}), scores "
+        f"{score_err:.2e} (bound {SERVE_SCORE_TOL}); each response against "
+        f"the next request's direct step: boxes min {swapped:.2e}; 400, "
+        f"400, 404 on the error paths")
+    log(f"serve: load of {SERVE_CLIENTS} closed-loop clients in a process of"
+        f" their own, {len(load)} requests in {w1:.0f} s; over the "
+        f"{SERVE_WINDOW_S:.0f} s after a {SERVE_WARM_S:.0f} s warm-up: "
+        f"{len(window)} requests, {len(window) / SERVE_WINDOW_S:.1f} "
+        f"images/s, request latency p50 {p50:.1f} ms, p90 {p90:.1f} ms, "
+        f"mean batch size {mean_size:.2f}, mean batch ms (the batcher's "
+        f"forward and copy back) {batch_ms:.1f}; K1 launches {k1} over {batches} "
+        f"device batches (burst and load), K2 {k2} [{card}]")
+    if not (box_err <= SERVE_BOX_TOL and score_err <= SERVE_SCORE_TOL):
+        raise AssertionError("served predictions differ from the direct eval "
+                             "step beyond the bound")
+
+
+def demo_inference_phase(card, root, imgdir, opts, launches):
+    """The demo and inference CLIs on the flagship's det_best and the
+    synthetic JPEGs: 12 K1 launches each (one image; one val batch); every
+    written JPEG decodes with nvJPEG at its source's size; --with-attn
+    writes the overlays; the inference boxes equal the eval step's on the
+    same loader batch divided by scale_factor."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                              build_loader_from_cfg)
+    from simvg_tpu_torch.data.jpeg import decode
+    from simvg_tpu_torch.engine import make_eval_step
+    from simvg_tpu_torch.tools import demo as demo_cli
+    from simvg_tpu_torch.tools import inference as inference_cli
+    from simvg_tpu_torch.tools.test import serving_model
+
+    det_best = os.path.join(root, "work", "det_best")
+    img = os.path.join(imgdir, sorted(os.listdir(imgdir))[-1])
+    out = os.path.join(root, "demo_out")
+    res = counted_run("demo", lambda: demo_cli.main(
+        ["--config", FLAGSHIP, "--checkpoint", det_best, "--img", img,
+         "--expression", "the green box", "--output-dir", out]),
+        K1_STEP, 0, card, launches)
+
+    def source_hw(path):
+        with open(path, "rb") as f:
+            return tuple(decode(f.read(), "cuda").shape)
+
+    if source_hw(res["out_file"]) != source_hw(img):
+        raise AssertionError(f"demo wrote {source_hw(res['out_file'])}")
+    vis = os.path.join(root, "inference_out")
+    n_val = N_SYNTH_VAL
+    records = counted_run("inference", lambda: inference_cli.main(
+        [FLAGSHIP, det_best, "--output-dir", vis, "--with-attn",
+         "--max-images", str(n_val), "--cfg-options", *opts]),
+        K1_STEP, 0, card, launches)
+    written = sorted(f for f in os.listdir(vis) if f.endswith(".jpg"))
+    attn = [f for f in written if f.endswith("_attn.jpg")]
+    if not (len(records) == len(attn) == n_val
+            and len(written) == 2 * n_val):
+        raise AssertionError(f"inference wrote {written}")
+    shapes = {source_hw(os.path.join(vis, f)) for f in written}
+    if shapes != {JPEG_HW + (3,)}:
+        raise AssertionError(f"inference JPEGs decode to {shapes}")
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict(parse_cfg_options(opts))
+    ds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset)
+    batch = next(iter(build_loader_from_cfg(ds, cfg, train=False,
+                                            canvas=cfg.img_size,
+                                            device="cuda")))
+    model = serving_model(cfg, det_best, torch.device("cuda"))
+    preds = make_eval_step(model)(to_device(batch))["token"]
+    want = preds["best_box"].float().cpu().numpy() / batch["scale_factor"]
+    got = np.asarray([r["boxes"][0] for r in records], np.float32)
+    if not np.array_equal(got, want[:n_val]):
+        raise AssertionError(f"inference boxes differ from the eval step's: "
+                             f"max {np.abs(got - want[:n_val]).max()}")
+    log(f"demo: box {res['box']} score {res['score']:.3f}, "
+        f"{os.path.basename(res['out_file'])} decodes at {source_hw(img)}; "
+        f"inference: {n_val} images and {len(attn)} attention overlays, "
+        f"boxes equal to the eval step's / scale_factor [{card}]")
+
+
+def serving_phases(card, root, synth):
+    """The serving entry points: "prune", "export", "serve", "demo" and
+    "inference", each path's K1 launches counted from 0 around it.
+    Returns {path: K1 launches}."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+
+    cfg = Config.fromfile(FLAGSHIP)
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    loader = make_requests(np.random.default_rng(SEED), N_BATCHES, BATCH,
+                           cfg.model.vis_enc.vocab_size, cfg.max_token,
+                           cfg.img_size)
+    imgdir = os.path.join(root, "synth", "images")
+    launches = {}
+    for name, fn in (
+            ("prune", lambda ls: prune_phase(card, cfg, loader, norm, ls)),
+            ("export", lambda ls: export_phase(card, model, loader, norm,
+                                               root, ls)),
+            ("serve", lambda ls: serve_phase(card, root, imgdir, ls)),
+            ("demo+inference", lambda ls: demo_inference_phase(
+                card, root, imgdir, synth, ls))):
+        counts = []
+        result = fn(counts)
+        if name == "prune":
+            model, _ = result
+        launches[name] = sum(k1 for k1, _ in counts)
+        if any(k2 for _, k2 in counts):
+            raise AssertionError(f"{name}: K2 launched on a serving path")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1352,11 +1911,14 @@ def main() -> int:
         cli_k1, cli_k2 = cli_phase(card, root, synth)
         grec_k1, grec_k2 = grec_phase(card, root)
         mixed_k1, mixed_k2 = mixed_phase(card, root)
+        serving = serving_phases(card, root, synth)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"launches on the main paths: K1 serve {serve_k1}, train {train_k1}, "
-        f"cli {cli_k1}, grec {grec_k1}, mixed {mixed_k1}; K2 train "
-        f"{train_k2}, cli {cli_k2}, grec {grec_k2}, mixed {mixed_k2}")
+        f"cli {cli_k1}, grec {grec_k1}, mixed {mixed_k1}, "
+        + ", ".join(f"{k} {v}" for k, v in serving.items())
+        + f"; K2 train {train_k2}, cli {cli_k2}, grec {grec_k2}, mixed "
+        f"{mixed_k2}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
@@ -1378,7 +1940,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
-              k1_rows, serve_k1 + train_k1 + cli_k1 + grec_k1 + mixed_k1),
+              k1_rows, serve_k1 + train_k1 + cli_k1 + grec_k1 + mixed_k1
+              + sum(serving.values())),
         entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
               k2_rows, train_k2 + cli_k2 + grec_k2 + mixed_k2),
     ]}), flush=True)

@@ -41,6 +41,24 @@ def normalize_images_on_device(images_u8: torch.Tensor, mean, std,
     return x
 
 
+def eval_forward(model: torch.nn.Module, batch: Dict,
+                 device_norm: Optional[Dict] = None) -> Dict:
+    """The eval step's body, without its mode switches: the forward (with
+    the on-device normalisation of a uint8 image when ``device_norm`` is
+    given) and both branches decoded.  ``simvg_tpu_torch.export`` traces
+    it."""
+    image = batch["image"]
+    if device_norm is not None:
+        image = normalize_images_on_device(
+            image, device_norm["mean"], device_norm["std"],
+            device_norm.get("to_rgb", True), img_shape=batch.get("img_shape"))
+    out = model(image, batch["text_ids"], batch["text_padding_mask"],
+                img_shape=batch["img_shape"])
+    return {name: decode_predictions(out[ck][-1], out[bk][-1],
+                                     batch["img_shape"])
+            for name, ck, bk in BRANCH_KEYS}
+
+
 def make_eval_step(model: torch.nn.Module,
                    device_norm: Optional[Dict] = None) -> Callable:
     """Returns ``eval_step(batch) -> {"decoder": preds, "token": preds}``:
@@ -53,20 +71,9 @@ def make_eval_step(model: torch.nn.Module,
     to_rgb}) the image is a uint8 BGR canvas normalised on the device."""
     model.eval()
 
-    def _images(batch):
-        if device_norm is None:
-            return batch["image"]
-        return normalize_images_on_device(
-            batch["image"], device_norm["mean"], device_norm["std"],
-            device_norm.get("to_rgb", True), img_shape=batch.get("img_shape"))
-
     @torch.inference_mode()
     def eval_step(batch):
         model.eval()  # a train step in between leaves the model in train
-        out = model(_images(batch), batch["text_ids"],
-                    batch["text_padding_mask"], img_shape=batch["img_shape"])
-        return {name: decode_predictions(out[ck][-1], out[bk][-1],
-                                         batch["img_shape"])
-                for name, ck, bk in BRANCH_KEYS}
+        return eval_forward(model, batch, device_norm)
 
     return eval_step

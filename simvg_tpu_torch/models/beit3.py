@@ -10,21 +10,25 @@ Module and parameter names follow the reference's torchscale state dict
 ``encoder.layers.N.self_attn.q_proj.A``, ...), so a converted checkpoint
 loads with ``strict=True``.
 
-Ported: the main path of the flagship.  Left out: ``scan_layers`` and
-``remat`` (JAX compile devices), ``quant``, token pruning,
+Ported: the main path of the flagship, and vision-token pruning
+(``token_prune_keep``), the serving lever that keeps the top-K patch
+tokens by the CLS query's attention after one layer.  Left out:
+``scan_layers`` and ``remat`` (JAX compile devices), ``quant``,
 ``seq_parallel``, ``attn_bias`` and the single-modality modes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simvg_tpu_torch.ops.attention import multihead_attention
+from simvg_tpu_torch.ops.attention import cls_attention, multihead_attention
 from .layers import LayerNorm, Linear, Stochastic, keep_mask
 
 
@@ -44,6 +48,14 @@ class BEiT3Config:
     layernorm_eps: float = 1e-5
     dtype: torch.dtype = torch.float32  # compute dtype; params stay fp32
     attn_impl: str = "xla"  # "xla" (plain torch) | "pallas" (Hopper kernel)
+    # vision-token pruning for token-branch serving: after layer
+    # token_prune_layer keep the token_prune_keep patch tokens the CLS
+    # query attends to most (None: off).  Outside the measured envelope
+    # (layer >= round(L/3), keep >= 75% of the patches) it raises unless
+    # token_prune_force
+    token_prune_keep: Optional[int] = None
+    token_prune_layer: int = 4
+    token_prune_force: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -121,15 +133,20 @@ class MultiwayAttention(nn.Module):
         self.inner_attn_ln = _multiway(
             lambda: LayerNorm(d, eps=cfg.layernorm_eps))
 
-    def forward(self, xs, key_padding_mask):
+    def forward(self, xs, key_padding_mask, return_cls_attn: bool = False):
+        """With ``return_cls_attn`` also returns the CLS query's attention
+        over the joint sequence, float32 [B, S] averaged over heads (the
+        token-pruning score); the attention output still comes from
+        ``multihead_attention`` (K1 with ``attn_impl="pallas"``)."""
         cfg = self.cfg
         split = xs[0].shape[1]
 
         def proj(m):
             return torch.cat(m(xs), dim=1)
 
+        q, k = proj(self.q_proj), proj(self.k_proj)
         out = multihead_attention(
-            proj(self.q_proj), proj(self.k_proj), proj(self.v_proj),
+            q, k, proj(self.v_proj),
             num_heads=cfg.num_heads,
             key_padding_mask=key_padding_mask,
             dropout_rate=cfg.attention_dropout,
@@ -137,8 +154,13 @@ class MultiwayAttention(nn.Module):
             dtype=cfg.dtype,
             impl=cfg.attn_impl,
         )
-        return self.out_proj(
+        out = self.out_proj(
             self.inner_attn_ln((out[:, :split], out[:, split:])))
+        if not return_cls_attn:
+            return out
+        return out, cls_attention(q, k, num_heads=cfg.num_heads,
+                                  key_padding_mask=key_padding_mask,
+                                  dtype=cfg.dtype)
 
 
 class DropPath(Stochastic):
@@ -173,13 +195,17 @@ class EncoderLayer(nn.Module):
         self.ffn = MultiwayFFN(cfg)
         self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, xs, key_padding_mask):
-        hs = self.self_attn(self.self_attn_layer_norm(xs), key_padding_mask)
+    def forward(self, xs, key_padding_mask, return_cls_attn: bool = False):
+        hs = self.self_attn(self.self_attn_layer_norm(xs), key_padding_mask,
+                            return_cls_attn)
+        if return_cls_attn:
+            hs, cls_attn = hs
         hs = self.drop_path(hs)
         xs = (xs[0] + hs[0], xs[1] + hs[1])
 
         hs = self.drop_path(self.ffn(self.final_layer_norm(xs)))
-        return xs[0] + hs[0], xs[1] + hs[1]
+        out = xs[0] + hs[0], xs[1] + hs[1]
+        return (out, cls_attn) if return_cls_attn else out
 
 
 class VisionEmbedding(nn.Module):
@@ -222,22 +248,72 @@ class _EncoderStack(nn.Module):
             lambda: LayerNorm(d, eps=cfg.layernorm_eps))
 
 
+def prune_layer_of(cfg: BEiT3Config) -> Optional[int]:
+    """The layer after which token pruning runs, None when it is off;
+    raises on a configuration that the JAX encoder refuses
+    (``simvg_tpu/models/beit3.py:598-639``): keep outside (0, patches],
+    an explicit layer past L-2 (the default 4 clamps to L-2 on a shallow
+    model), or a point outside the measured envelope without
+    ``token_prune_force``."""
+    keep = cfg.token_prune_keep
+    if keep is None:
+        return None
+    split, layers = cfg.seq_vision, cfg.num_layers
+    if not 0 < keep < split:
+        raise ValueError(f"token_prune_keep={keep} must be in [1, "
+                         f"{split - 1}] (the patch tokens)")
+    layer = cfg.token_prune_layer
+    if layer > layers - 2:
+        if layer != 4:  # only the default moves on a shallow model
+            raise ValueError(
+                f"token_prune_layer={layer} out of range for num_layers="
+                f"{layers} (last prunable layer is {layers - 2})")
+        layer = layers - 2
+    if layer < 0:
+        raise ValueError(f"token_prune_layer={cfg.token_prune_layer} with "
+                         f"num_layers={layers}: no layer to prune after")
+    if not cfg.token_prune_force:
+        min_layer = max(1, round(layers / 3))
+        min_keep = int(math.ceil(0.75 * (split - 1)))
+        if layer < min_layer or keep < min_keep:
+            raise ValueError(
+                f"token_prune_keep={keep} at token_prune_layer={layer} is "
+                f"outside the measured-safe envelope (prune at layer >= "
+                f"{min_layer} = num_layers/3 and keep >= {min_keep} = 75% "
+                f"of {split - 1} patch tokens).  Set token_prune_force=True "
+                "to run anyway (validate accuracy on real weights first).")
+    return layer
+
+
+def stable_top_k(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices [B, k] of the k largest scores of each row, the lower index
+    first among equal scores (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none), then sorted ascending."""
+    order = torch.sort(-scores, dim=1, stable=True).indices[:, :k]
+    return torch.sort(order, dim=1).values
+
+
 class BEiT3Encoder(nn.Module):
     """The joint vision-language encoder.
 
     forward(images NHWC, text_ids [B, T], text_padding_mask [B, T] with
     1 = padded) -> (img_feat [B, P, D], text_feat [B, T, D], cls_feat
-    [B, D]), all float32 (the final LayerNorms compute in float32).
+    [B, D]), all float32 (the final LayerNorms compute in float32).  With
+    token pruning P is ``token_prune_keep``, and ``return_prune_idx`` adds
+    the kept patches' [B, K] indices in the original grid (None when
+    pruning is off).
     """
 
     def __init__(self, cfg: BEiT3Config):
         super().__init__()
         self.cfg = cfg
+        self.prune_layer = prune_layer_of(cfg)
         self.text_embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
         self.vision_embed = VisionEmbedding(cfg)
         self.encoder = _EncoderStack(cfg)
 
-    def forward(self, images, text_ids, text_padding_mask=None):
+    def forward(self, images, text_ids, text_padding_mask=None,
+                return_prune_idx: bool = False):
         cfg, dt = self.cfg, self.cfg.dtype
         pos = self.encoder.embed_positions
         x_vis = self.vision_embed(images)
@@ -262,8 +338,25 @@ class BEiT3Encoder(nn.Module):
         pad = torch.cat([torch.zeros(b, split, dtype=torch.bool, device=dev),
                          pad_txt], dim=1)
         xs = (x_vis.to(dt), x_txt.to(dt))
-        for layer in self.encoder.layers:
-            xs = layer(xs, pad)
+        prune_idx = None
+        for i, layer in enumerate(self.encoder.layers):
+            if i != self.prune_layer:
+                xs = layer(xs, pad)
+                continue
+            xs, cls_attn = layer(xs, pad, return_cls_attn=True)
+            # rank the patch tokens (positions 1..split-1) by the CLS
+            # query's attention and keep the top K in spatial order
+            keep = self.cfg.token_prune_keep
+            prune_idx = stable_top_k(cls_attn[:, 1:split], keep)
+            patches = torch.gather(
+                xs[0][:, 1:], 1,
+                prune_idx[..., None].expand(-1, -1, xs[0].shape[-1]))
+            xs = (torch.cat([xs[0][:, :1], patches], dim=1), xs[1])
+            split = 1 + keep
+            pad = torch.cat([torch.zeros(b, split, dtype=torch.bool,
+                                         device=dev), pad_txt], dim=1)
 
         x_vis, text_feat = self.encoder.layer_norm(xs)
+        if return_prune_idx:
+            return x_vis[:, 1:], text_feat, x_vis[:, 0], prune_idx
         return x_vis[:, 1:], text_feat, x_vis[:, 0]

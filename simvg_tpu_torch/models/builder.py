@@ -20,9 +20,9 @@ from .model import SimVGConfig, SimVGModel
 # vis_enc keys that change the forward and are not ported, with the value
 # that leaves them off.  scan_layers and remat only change how JAX
 # compiles the same forward, and gelu_impl only picks JAX's erf form:
-# the port reads none of them.
-_NOT_PORTED = {"quant": "none", "token_prune_keep": None,
-               "seq_parallel": False}
+# the port reads none of them (but refuses scan_layers with token pruning,
+# as the JAX encoder does).
+_NOT_PORTED = {"quant": "none", "seq_parallel": False}
 
 
 def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
@@ -42,6 +42,9 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
         if ve.get(key, off) != off:
             raise NotImplementedError(f"vis_enc.{key}={ve[key]!r} is not "
                                       "ported")
+    if ve.get("token_prune_keep") is not None and ve.get("scan_layers"):
+        raise ValueError("token_prune_keep requires scan_layers=False (the "
+                         "sequence length changes mid-stack)")
 
     common = dict(
         img_size=ve.get("img_size", img_size),
@@ -51,6 +54,9 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
         attention_dropout=ve.get("attention_dropout", 0.0),
         dtype=dtype,
         attn_impl=ve.get("attn_impl", "xla"),
+        token_prune_keep=ve.get("token_prune_keep", None),
+        token_prune_layer=ve.get("token_prune_layer", 4),
+        token_prune_force=ve.get("token_prune_force", False),
     )
     extra = {k: ve[k] for k in ("embed_dim", "num_heads", "ffn_dim",
                                 "num_layers") if k in ve}

@@ -13,12 +13,15 @@
 Parameter names follow the reference's detrex state dict
 (``layers.N.attentions.{0,1}.attn``, ``ffns.0.layers``, ``norms.N``).
 The head's attention returns its weights, so it always takes the plain
-path of ``multihead_attention``.  ``DetrEncoder`` is not on the flagship
+path of ``multihead_attention``; ``recorded_cross_attention`` hands the
+last decoder layer's cross-attention weights to the caller (the inference
+CLI's ``--with-attn``) without changing any output.  ``DetrEncoder`` is not on the flagship
 path (``only_decoder=True``) and is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -54,6 +57,7 @@ class DetrAttention(Stochastic):
         self.attn_dropout = attn_dropout
         self.dtype = dtype
         self.attn = _PackedProjections(embed_dim, dtype)
+        self.record: Optional[list] = None  # gets the weights when a list
 
     def forward(self, query, key, value, query_pos: Optional[torch.Tensor],
                 key_pos: Optional[torch.Tensor],
@@ -66,7 +70,7 @@ class DetrAttention(Stochastic):
         q = F.linear(q_in.to(dt), w[:d], b[:d])
         k = F.linear(k_in.to(dt), w[d:2 * d], b[d:2 * d])
         v = F.linear(value.to(dt), w[2 * d:], b[2 * d:])
-        out, _ = multihead_attention(
+        out, weights = multihead_attention(
             q, k, v,
             num_heads=self.num_heads,
             key_padding_mask=key_padding_mask,
@@ -76,6 +80,8 @@ class DetrAttention(Stochastic):
             return_weights=True,
             generator=self.generator,
         )
+        if self.record is not None:
+            self.record.append(weights)  # [B, H, Q, S_k]
         return query + self.attn.out_proj(out)
 
 
@@ -161,3 +167,17 @@ class DetrDecoder(nn.Module):
         if self.return_intermediate:
             return torch.stack(intermediate, dim=0)
         return self._post(x)[None]
+
+
+@contextlib.contextmanager
+def recorded_cross_attention(decoder: DetrDecoder):
+    """Yields a list that gets, for each forward of ``decoder`` inside the
+    block, its last layer's cross-attention probabilities [B, H, Q, S_k] in
+    the compute dtype (the JAX inference CLI's ``attn_weights``
+    intermediate)."""
+    attn = decoder.layers[-1].attentions[1]
+    attn.record = []
+    try:
+        yield attn.record
+    finally:
+        attn.record = None

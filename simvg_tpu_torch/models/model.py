@@ -2,6 +2,8 @@
 ``simvg_tpu/models/model.py``).
 
 State-dict names are the reference's: ``vis_enc.beit3.*`` and ``head.*``.
+Token pruning (``BEiT3Config.token_prune_keep``) is a serving flag with the
+same parameters: a pruned model serves the token branch only.
 """
 
 from __future__ import annotations
@@ -43,11 +45,37 @@ class SimVGModel(nn.Module):
         b, h_img, w_img, _ = image.shape
         ps = self.cfg.beit3.patch_size
         h, w = h_img // ps, w_img // ps
-        img_feat, text_feat, cls_feat = self.vis_enc["beit3"](
-            image, text_ids, text_padding_mask)
-        x_mm = img_feat.reshape(b, h, w, img_feat.shape[-1])
-        img_pad_mask = self._img_pad_mask(b, h_img, w_img, h, w, img_shape,
-                                          image.device)
+        if self.cfg.beit3.token_prune_keep is None:
+            img_feat, text_feat, cls_feat = self.vis_enc["beit3"](
+                image, text_ids, text_padding_mask)
+            x_mm = img_feat.reshape(b, h, w, img_feat.shape[-1])
+            img_pad_mask = self._img_pad_mask(b, h_img, w_img, h, w,
+                                              img_shape, image.device)
+            return self.head(x_mm, img_pad_mask, cls_feat, text_feat,
+                             text_padding_mask, branches=branches)
+
+        if self.training:
+            raise ValueError(
+                "token_prune_keep is a serving-only flag: the pruning top-k "
+                "would be driven by training-time attention with drop-path "
+                "active, and the decoder branch distils against dummies")
+        # the pruned tokens no longer form the decoder's spatial grid: the
+        # token branch alone is served, and "both" maps to it (the head
+        # then gives its dummy decoder outputs: zero logits, 0.5 boxes)
+        if branches == "both":
+            branches = "token"
+        if branches != "token":
+            raise ValueError("token_prune_keep serves the token branch only; "
+                             f"got branches={branches!r}")
+        img_feat, text_feat, cls_feat, kept = self.vis_enc["beit3"](
+            image, text_ids, text_padding_mask, return_prune_idx=True)
+        # a degenerate [B, K, 1, D] grid, and the kept patches' own rows of
+        # the spatial pad mask, so patches of a padded canvas stay masked
+        x_mm = img_feat[:, :, None, :]
+        full_mask = self._img_pad_mask(b, h_img, w_img, h, w, img_shape,
+                                       image.device)
+        img_pad_mask = torch.gather(full_mask.reshape(b, h * w), 1,
+                                    kept)[:, :, None]
         return self.head(x_mm, img_pad_mask, cls_feat, text_feat,
                          text_padding_mask, branches=branches)
 

@@ -5,12 +5,16 @@
     probs  <- softmax(logits) in float32, then cast to the compute dtype
     out    <- probs @ v, summed in float32
 
-``impl="pallas"`` (the config value the JAX package uses) selects the
-Hopper kernels (``fused_attention``: K1 forward, K2 backward) for CUDA
-tensors when there is no ``attn_bias``, no active dropout and no
-``return_weights``; every other call takes the plain path below.  The q
-scale is applied here, outside the kernels, so autograd carries its
-gradient as JAX does.
+``impl="pallas"`` (the config value the JAX package uses) selects
+``fused_attention`` (K1 forward, K2 backward: the Hopper kernels on CUDA
+tensors, their plain versions on CPU tensors) when there is no
+``attn_bias``, no active dropout and no ``return_weights``; every other
+call takes the plain path below.  The q scale is applied here, outside the
+kernels, so autograd carries its gradient as JAX does.
+
+``cls_attention`` gives the CLS query's attention row alone, the score
+that token pruning ranks patches by, with a [B, H, 1, S] product beside a
+kernel call that never materialises the probabilities.
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def multihead_attention(
     v = v.reshape(b, s_k, num_heads, head_dim).to(dtype)
 
     dropout_active = dropout_rate > 0.0 and not deterministic
-    if (impl == "pallas" and not return_weights and q.is_cuda
-            and attn_bias is None and not dropout_active):
+    if (impl == "pallas" and not return_weights and attn_bias is None
+            and not dropout_active):
         out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               key_padding_mask=key_padding_mask)
         return out.reshape(b, s_q, d)
@@ -90,3 +94,23 @@ def multihead_attention(
     if return_weights:
         return out, probs
     return out
+
+
+def cls_attention(q: torch.Tensor, k: torch.Tensor, *, num_heads: int,
+                  key_padding_mask: Optional[torch.Tensor] = None,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The first (CLS) query's attention probabilities averaged over heads,
+    float32 [B, S_k]: the plain path's row 0 for the same q, k (projected,
+    unscaled), probabilities rounded to ``dtype`` as the plain path rounds
+    them (``simvg_tpu/models/beit3.py`` takes them from there)."""
+    b, _, d = q.shape
+    s_k = k.shape[1]
+    head_dim = d // num_heads
+    q0 = (q[:, :1] * head_dim ** -0.5).reshape(b, 1, num_heads, head_dim)
+    k = k.reshape(b, s_k, num_heads, head_dim).to(dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q0.to(dtype).float(), k.float())
+    if key_padding_mask is not None:
+        pad = key_padding_mask.to(torch.bool)[:, None, None, :]
+        logits = logits.masked_fill(pad, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return probs[:, :, 0, :].float().mean(dim=1)

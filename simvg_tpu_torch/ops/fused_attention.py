@@ -14,11 +14,15 @@ bf16 runs on the tensor cores (``mma.sync`` on bf16 fragments fed by
 ``cp.async``, building blocks in ``csrc/attention_mma.cuh``), float32 on
 the CUDA cores in fp32 FMAs, the parity route.
 
-``fused_attention`` is one ``torch.autograd.Function`` around the two.  For
-CUDA tensors it launches K1 (and, for the gradient, K2) or raises on
-anything the kernels do not take; only tensors on the CPU go to the plain
-PyTorch versions, ``fused_attention_reference`` and
-``fused_attention_bwd_reference``, through the same Function.
+``fused_attention`` is the entry point.  It calls K1 as the operator
+``torch.ops.simvg.attention_fwd`` (``torch.library``), which returns the
+output and the row LSE, has K2 as its backward, and has a fake kernel that
+gives the outputs' shapes and dtypes, so that ``torch.export`` keeps K1 in
+the exported graph as one node a call (``simvg_tpu_torch/export.py``).
+For CUDA tensors the operator launches the kernels or raises on anything
+the kernels do not take; only tensors on the CPU go to the plain PyTorch
+versions, ``fused_attention_reference`` and
+``fused_attention_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -145,23 +149,22 @@ def _pad_u8(key_padding_mask):
     return key_padding_mask.to(torch.uint8).contiguous()
 
 
-def attention_fwd(q, k, v, key_padding_mask=None, with_lse=False):
+def attention_fwd(q, k, v, key_padding_mask=None):
     """Launches K1 on CUDA tensors: returns out [B, Sq, H, hd] in q's dtype
-    and, with ``with_lse``, the fp32 row log-sum-exp [B, H, Sq]."""
+    and the fp32 row log-sum-exp [B, H, Sq]."""
     _check_device([q, k, v, key_padding_mask])
     _check(q, k, v, key_padding_mask)
     _check_aligned([q, k, v])
     fn = _library("attention_fwd", 6, 6)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     pad = _pad_u8(key_padding_mask)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if pad is None else pad.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(),
+                lse.data_ptr(),
                 b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
@@ -172,7 +175,7 @@ def attention_fwd(q, k, v, key_padding_mask=None, with_lse=False):
 
 def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
     """Launches K2 on CUDA tensors: (dq, dk, dv) in q's dtype, from the
-    forward's out and lse (``attention_fwd(..., with_lse=True)``)."""
+    forward's out and lse (``attention_fwd``)."""
     _check_device([q, k, v, out, dout, lse, key_padding_mask])
     _check(q, k, v, key_padding_mask)
     _check_grad(q, dout)
@@ -202,28 +205,55 @@ def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
     return dq, dk, dv
 
 
-class _FusedAttention(torch.autograd.Function):
-    """K1 forward, K2 backward; on CPU tensors their plain versions."""
+# K1 as the operator simvg::attention_fwd -> (out, lse), with K2 as its
+# backward: a CPU kernel (the plain versions), a CUDA kernel (the launches)
+# and a fake kernel for tracing.  Every forward goes through it, with or
+# without a gradient, so eager, export and training share one route.
+# Registered with torch.library.Library, whose dispatch costs a few
+# microseconds on the host where torch.library.custom_op's Python wrapper
+# costs tens.
+_LIB = torch.library.Library("simvg", "DEF")
+_LIB.define("attention_fwd(Tensor q, Tensor k, Tensor v, "
+            "Tensor? key_padding_mask) -> (Tensor, Tensor)")
 
-    @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask):
-        if q.device.type == "cpu":
-            out, lse = fused_attention_reference(q, k, v, key_padding_mask), None
-        else:
-            out, lse = attention_fwd(q, k, v, key_padding_mask, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse, key_padding_mask)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse, key_padding_mask = ctx.saved_tensors
-        if q.device.type == "cpu":
-            _check_grad(q, dout)
-            grads = fused_attention_bwd_reference(q, k, v, dout,
-                                                  key_padding_mask)
-        else:
-            grads = attention_bwd(q, k, v, out, dout, lse, key_padding_mask)
-        return (*grads, None)
+def _attention_fwd_cpu(q, k, v, key_padding_mask):
+    lse = torch.logsumexp(_logits(q, k, key_padding_mask), dim=-1)
+    return fused_attention_reference(q, k, v, key_padding_mask), lse
+
+
+def _attention_fwd_cuda(q, k, v, key_padding_mask):
+    return attention_fwd(q, k, v, key_padding_mask)
+
+
+def _attention_fwd_fake(q, k, v, key_padding_mask):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _attention_fwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:3], output[0], output[1], inputs[3])
+    ctx.set_materialize_grads(False)  # no zeros filled for the LSE's gradient
+
+
+def _attention_fwd_backward(ctx, dout, _dlse):
+    q, k, v, out, lse, key_padding_mask = ctx.saved_tensors
+    if q.device.type == "cpu":
+        _check_grad(q, dout)
+        grads = fused_attention_bwd_reference(q, k, v, dout,
+                                              key_padding_mask)
+    else:
+        grads = attention_bwd(q, k, v, out, dout, lse, key_padding_mask)
+    return (*grads, None)
+
+
+_LIB.impl("attention_fwd", _attention_fwd_cpu, "CPU")
+_LIB.impl("attention_fwd", _attention_fwd_cuda, "CUDA")
+torch.library.register_fake("simvg::attention_fwd", _attention_fwd_fake,
+                            lib=_LIB)
+torch.library.register_autograd(
+    "simvg::attention_fwd", _attention_fwd_backward,
+    setup_context=_attention_fwd_setup, lib=_LIB)
 
 
 def fused_attention(
@@ -235,13 +265,9 @@ def fused_attention(
     """Returns [B, Sq, H, hd] in q.dtype; the contract of the JAX entry
     point (pallas_attention.py:207) without ``block_q``/``interpret``.
     Differentiable in q, k and v; the mask gets no gradient."""
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    if needs_grad:
-        return _FusedAttention.apply(q, k, v, key_padding_mask)
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, key_padding_mask)
-    return attention_fwd(q, k, v, key_padding_mask)[0]
+    if q.device.type != "cpu":  # the operator's fake kernel would not raise
+        _check_device([q, k, v, key_padding_mask])
+    return torch.ops.simvg.attention_fwd(q, k, v, key_padding_mask)[0]
 
 
 fused_attention.launches = 0  # K1 launches; chip_smoke.py reads it

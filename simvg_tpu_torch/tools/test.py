@@ -23,7 +23,7 @@ from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
                                           build_loader_from_cfg)
 from simvg_tpu_torch.engine import evaluate, make_eval_step
 from simvg_tpu_torch.engine.train_state import swapped_params
-from simvg_tpu_torch.models import build_model
+from simvg_tpu_torch.models import build_model, init_random_weights
 from simvg_tpu_torch.utils.checkpoint import load_checkpoint
 from simvg_tpu_torch.utils.logger import get_root_logger
 
@@ -47,12 +47,31 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def refuse_quant(quant_collection) -> None:
+    if quant_collection:
+        raise NotImplementedError("--quant-collection is not ported yet "
+                                  "(ROADMAP: M17)")
+
+
+def serving_model(cfg, checkpoint, device, seed: int = 0):
+    """The config's model on ``device`` in eval mode, with the params of
+    ``checkpoint`` (a checkpoint directory of the port), or random weights
+    from ``seed`` (``init_random_weights``) when it is None."""
+    model, _ = build_model(cfg.model, img_size=cfg.get("img_size", 640),
+                           dtype=model_dtype(cfg), device="meta")
+    model = model.to_empty(device=device)
+    if checkpoint:
+        model.load_state_dict(load_checkpoint(checkpoint)["params"],
+                              strict=True)
+    else:
+        init_random_weights(model, seed)
+    return model.eval()
+
+
 def main(argv=None) -> Dict[str, Dict[str, float]]:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if args.quant_collection:
-        raise NotImplementedError("--quant-collection is not ported yet "
-                                  "(ROADMAP: M17)")
+    refuse_quant(args.quant_collection)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg, args.distributed)

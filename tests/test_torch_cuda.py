@@ -98,7 +98,7 @@ def test_attention_fwd_raises_on_unsupported_head_dim(gen):
 def test_attention_bwd_matches_plain_version(gen, dtype, b, sq, sk, h, hd,
                                              lengths):
     q, k, v, dout, pad = _inputs(gen, dtype, b, sq, sk, h, hd, lengths)
-    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    out, lse = attention_fwd(q, k, v, pad)
     before = attention_bwd.launches
     grads = attention_bwd(q, k, v, out, dout, lse, pad)
     torch.cuda.synchronize()
@@ -139,7 +139,7 @@ CONFIG_SHAPES = [
 def test_attention_at_the_config_shapes(gen, dtype, b, s, h, text):
     lengths = [s - text + 3 + (i * 5) % (text - 2) for i in range(b)]
     q, k, v, dout, pad = _inputs(gen, dtype, b, s, s, h, 64, lengths)
-    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    out, lse = attention_fwd(q, k, v, pad)
     grads = attention_bwd(q, k, v, out, dout, lse, pad)
     torch.cuda.synchronize()
     ref = fused_attention_reference(q, k, v, pad)
@@ -156,7 +156,7 @@ def test_attention_bf16_sharp_logits(gen, b, sq, sk, h, hd, lengths):
     q, k, v, dout, pad = _inputs(gen, torch.bfloat16, b, sq, sk, h, hd,
                                  lengths)
     q = (q.float() * 8).to(torch.bfloat16)
-    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    out, lse = attention_fwd(q, k, v, pad)
     grads = attention_bwd(q, k, v, out, dout, lse, pad)
     torch.cuda.synchronize()
     ref = fused_attention_reference(q, k, v, pad)
@@ -168,7 +168,7 @@ def test_attention_bf16_sharp_logits(gen, b, sq, sk, h, hd, lengths):
 def test_attention_bwd_is_deterministic(gen):
     """Two runs give the same bits: no atomics, no order-dependent sums."""
     q, k, v, dout, pad = _inputs(gen, torch.bfloat16, *CASES[0])
-    out, lse = attention_fwd(q, k, v, pad, with_lse=True)
+    out, lse = attention_fwd(q, k, v, pad)
     first = attention_bwd(q, k, v, out, dout, lse, pad)
     second = attention_bwd(q, k, v, out, dout, lse, pad)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -266,3 +266,74 @@ def test_pixel_ops_on_the_card_match_the_cpu(gen):
     for i, s in enumerate(samples):  # the pad region stays 0
         h, w = s["img_shape"][:2]
         assert not card[i, h:].any() and not card[i, :, w:].any()
+
+
+# token pruning's sequences: keep=300 (the flagship's in-envelope point,
+# S = 1 + 300 + 20) and a forced keep=200 (S=221), text padded as the
+# encoder pads it
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s", [(8, 321), (32, 321), (8, 221)])
+def test_attention_fwd_at_the_pruned_lengths(gen, dtype, atol, b, s):
+    lengths = [s - 20 + 3 + (i * 5) % 18 for i in range(b)]
+    q, k, v, _, pad = _inputs(gen, dtype, b, s, s, 12, 64, lengths)
+    out = fused_attention(q, k, v, pad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), fused_attention_reference(
+        q, k, v, pad).float(), atol=atol, rtol=0)
+
+
+def test_attention_op_launches_k1_once_a_call(gen):
+    """The operator simvg::attention_fwd, which fused_attention calls,
+    launches K1 once a call and gives its output and row LSE."""
+    q, k, v, _, pad = _inputs(gen, torch.bfloat16, 2, 321, 321, 12, 64,
+                              [321, 304])
+    before = fused_attention.launches
+    with torch.no_grad():
+        out, lse = torch.ops.simvg.attention_fwd(q, k, v, pad)
+        out2 = fused_attention(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    assert torch.equal(out, out2)
+    want_lse = torch.logsumexp(torch.einsum(
+        "bqhd,bkhd->bhqk", q.float(), k.float()).masked_fill(
+            pad[:, None, None, :], -1e30), dim=-1)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(out.float(), fused_attention_reference(
+        q, k, v, pad).float(), atol=2e-2, rtol=0)
+
+
+def test_exported_encoder_layer_holds_and_launches_k1(gen):
+    """torch.export of a one-layer bf16 encoder with attn_impl="pallas": one
+    simvg::attention_fwd node in the graph, one K1 launch a call, and the
+    eager forward's output bit for bit."""
+    from simvg_tpu_torch.models import init_random_weights
+    from simvg_tpu_torch.models.beit3 import BEiT3Config, BEiT3Encoder
+
+    cfg = BEiT3Config(img_size=64, patch_size=16, embed_dim=128,
+                      num_heads=2, ffn_dim=256, num_layers=1,
+                      vocab_size=100, drop_path_rate=0.0,
+                      dtype=torch.bfloat16, attn_impl="pallas")
+    with torch.device("cuda"):
+        enc = BEiT3Encoder(cfg)
+    init_random_weights(enc, 0)
+    enc.eval()
+    r = np.random.default_rng(0)
+    args = (torch.from_numpy(r.normal(size=(2, 64, 64, 3)).astype(
+                np.float32)).cuda(),
+            torch.from_numpy(r.integers(1, 100, (2, 8))).cuda(),
+            torch.zeros(2, 8, dtype=torch.int64, device="cuda"))
+    args[2][1, 5:] = 1
+    with torch.no_grad():
+        program = torch.export.export(enc, args, strict=False)
+    target = torch.ops.simvg.attention_fwd.default
+    assert sum(n.op == "call_function" and n.target == target
+               for n in program.graph.nodes) == 1
+    before = fused_attention.launches
+    with torch.no_grad():
+        got = program.module()(*args)
+        want = enc(*args)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -308,7 +308,12 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.utils.logger, simvg_tpu_torch.tools.train, "
         "simvg_tpu_torch.tools.test, simvg_tpu_torch.tools.make_synth_data, "
         "simvg_tpu_torch.tools.jpeg_divergence, "
-        "simvg_tpu_torch.tools.distill_proof_big\n"
+        "simvg_tpu_torch.tools.distill_proof_big, simvg_tpu_torch.export, "
+        "simvg_tpu_torch.data.raw, simvg_tpu_torch.utils.visualize, "
+        "simvg_tpu_torch.tools.demo, simvg_tpu_torch.tools.inference, "
+        "simvg_tpu_torch.tools.serve, simvg_tpu_torch.tools.export_serving, "
+        "simvg_tpu_torch.tools.prune_envelope, "
+        "simvg_tpu_torch.tools.inference_time\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")
