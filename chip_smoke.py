@@ -47,7 +47,20 @@ and unpruned at batch 8 and 32), its serving forward through torch.export
 against eager), the HTTP server on the CLI phase's det_best (a burst of
 24 JPEG requests from 8 clients, each held to a direct eval step, then 23 s
 of load from 8 closed-loop clients for latency and images/s), and the demo
-and inference CLIs.  K1/K2 launches are counted from 0 around each path.
+and inference CLIs.  Then "int8" (ops/quant.py, w8a8 through
+torch._int_mm): the flagship calibrated with tools/quantize_serving.py,
+every _int_mm of a forward held to the float64 product of its operands,
+the int8_static and dynamic int8 models held to the float32 model beside
+the bf16 one, an fp32 int8_static forward on the card against the CPU,
+eval medians of bf16, int8 and int8_static at batch 8 and 32, _int_mm
+against bf16 F.linear at each shape, the test CLI and the server with
+--quant-collection (each response held to a direct int8_static step), the
+exported int8_static program bit for bit eager's, and int8_qat train steps.
+Then "remat": configs/single/ViT-large/refcoco/refcoco_onestage.py as
+written (ViT-large/32, 24 layers, batch 4, remat on) with remat off,
+"full" and "dots": gradients with drop-path against remat off bit for bit,
+K1/K2 a step, step time and peak memory.  K1/K2 launches are counted from
+0 around each path.
 
 Every phase raises on failure; there is no CPU path.
 
@@ -84,7 +97,7 @@ STEPS_PER_EPOCH = 1000
 KERNELS = ("attention_fwd", "attention_bwd")
 # the card's peaks (H100 SXM data sheet):
 # dense bf16 on the tensor cores, fp32 outside them, and HBM bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 # K1 vs its plain version.  float32: the bound of
@@ -1615,6 +1628,91 @@ def serve_load(port, bodies_path, clients, seconds):
     print(json.dumps(records), flush=True)
 
 
+def jpeg_requests(imgdir):
+    """SERVE_REQUESTS request bodies from the synthetic JPEGs, each asking
+    for every query's boxes and scores."""
+    import base64
+
+    reqs = []
+    for i, name in enumerate(sorted(os.listdir(imgdir))[:SERVE_REQUESTS]):
+        with open(os.path.join(imgdir, name), "rb") as f:
+            reqs.append({"image_b64": base64.b64encode(f.read()).decode(),
+                         "expression": f"the green box number {i}",
+                         "all": True})
+    return reqs
+
+
+def serve_burst(port, reqs):
+    """`reqs` sent to the server at `port` from SERVE_CLIENTS client
+    threads; returns [(status, response)] in request order, and raises on
+    a failed request or when no device batch held more than one."""
+    import threading
+
+    results = [None] * len(reqs)
+
+    def client(c):
+        for i in range(c, len(reqs), SERVE_CLIENTS):
+            results[i] = _http(port, "/predict", reqs[i])
+
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in clients) or any(
+            r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"serve: failed requests {results}")
+    if max(out["batch_size"] for _, out in results) <= 1:
+        raise AssertionError("serve: no device batch held more than one "
+                             "request")
+    return results
+
+
+def held_to_direct(results, reqs, model, cfg):
+    """Each response's boxes (back at the canvas scale) and scores, every
+    query of both branches, against a direct batch-1 eval step of its
+    request on ``model``: returns (max box |diff| / canvas, max score
+    |diff|, and the boxes' min distance from the NEXT request's direct
+    step, which a slot mix-up in the batcher would show)."""
+    import base64
+
+    import numpy as np
+    from simvg_tpu_torch.data.raw import RawPreprocessor
+    from simvg_tpu_torch.engine import make_eval_step
+
+    pre = RawPreprocessor(cfg, "cuda")
+    step = make_eval_step(model, device_norm=pre.device_norm)
+    direct, sfs = [], []  # each request's boxes (canvas scale) and scores
+    for req in reqs:
+        batch = pre.collate([pre(base64.b64decode(req["image_b64"]),
+                                 req["expression"])])
+        preds = step(to_device(batch))
+        direct.append({br: (preds[br]["boxes"][0].float().cpu().numpy(),
+                            preds[br]["scores"][0].float().cpu().numpy())
+                       for br in ("token", "decoder")})
+        sfs.append(batch["scale_factor"][0])
+
+    def distance(out, sf, want):  # max |diff| of boxes (canvas px), scores
+        box = score = 0.0
+        for br, (boxes, scores) in want.items():
+            served = np.asarray(out[br]["boxes"]) * sf
+            if not all(np.isfinite(a).all() for a in (
+                    served, boxes, scores, out[br]["scores"])):
+                raise AssertionError(f"serve: non-finite {br} predictions")
+            box = max(box, float(np.abs(served - boxes).max()))
+            score = max(score, float(np.abs(np.asarray(out[br]["scores"])
+                                            - scores).max()))
+        return box, score
+
+    errs = [distance(out, sf, want)
+            for (_, out), sf, want in zip(results, sfs, direct)]
+    swapped = min(distance(out, sf, want)[0] for (_, out), sf, want in
+                  zip(results, sfs, direct[1:] + direct[:1]))
+    return (max(e[0] for e in errs) / cfg.img_size, max(e[1] for e in errs),
+            swapped / cfg.img_size)
+
+
 def serve_phase(card, root, imgdir, launches):
     """The port's HTTP server in a thread on det_best (the CLI phase's
     flagship checkpoint), --max-batch 8.  A burst of SERVE_REQUESTS JPEG
@@ -1631,8 +1729,6 @@ def serve_phase(card, root, imgdir, launches):
     import numpy as np
     import torch
     from simvg_tpu_torch.config import Config
-    from simvg_tpu_torch.data.raw import RawPreprocessor
-    from simvg_tpu_torch.engine import make_eval_step
     from simvg_tpu_torch.ops.fused_attention import (attention_bwd,
                                                      fused_attention)
     from simvg_tpu_torch.tools import serve as serve_cli
@@ -1645,14 +1741,7 @@ def serve_phase(card, root, imgdir, launches):
     thread = threading.Thread(target=server.serve_forever)
     thread.start()
     port = server.server_port
-    files = sorted(os.listdir(imgdir))[:SERVE_REQUESTS]
-    reqs = []
-    for i, name in enumerate(files):
-        with open(os.path.join(imgdir, name), "rb") as f:
-            reqs.append({"image_b64": base64.b64encode(f.read()).decode(),
-                         "expression": f"the green box number {i}",
-                         "all": True})
-    results = [None] * len(reqs)
+    reqs = jpeg_requests(imgdir)
     bodies_path = os.path.join(root, "serve_requests.json")
     with open(bodies_path, "w") as f:
         json.dump(reqs, f)
@@ -1663,24 +1752,9 @@ def serve_phase(card, root, imgdir, launches):
         torch.cuda.synchronize()
         fused_attention.launches = attention_bwd.launches = 0
         server.batcher.batches = 0
-
-        def client(c):
-            for i in range(c, len(reqs), SERVE_CLIENTS):
-                results[i] = _http(port, "/predict", reqs[i])
-
-        clients = [threading.Thread(target=client, args=(c,))
-                   for c in range(SERVE_CLIENTS)]
-        for t in clients:
-            t.start()
-        for t in clients:
-            t.join(timeout=300)
+        results = serve_burst(port, reqs)
         burst_batches = server.batcher.batches
-        if any(t.is_alive() for t in clients) or any(
-                r is None or r[0] != 200 for r in results):
-            raise AssertionError(f"serve: failed requests {results}")
         sizes = [out["batch_size"] for _, out in results]
-        if max(sizes) <= 1:
-            raise AssertionError(f"serve: batch sizes {sizes}")
         errors = [_http(port, "/predict", {"expression": "no image"})[0],
                   _http(port, "/predict", {"image_b64": base64.b64encode(
                       b"\x89PNG\r\n\x1a\n0000").decode(),
@@ -1724,35 +1798,7 @@ def serve_phase(card, root, imgdir, launches):
 
     cfg = Config.fromfile(FLAGSHIP)
     model = serving_model(cfg, det_best, torch.device("cuda"))
-    pre = RawPreprocessor(cfg, "cuda")
-    step = make_eval_step(model, device_norm=pre.device_norm)
-    direct, sfs = [], []  # each request's boxes (canvas scale) and scores
-    for req in reqs:
-        batch = pre.collate([pre(base64.b64decode(req["image_b64"]),
-                                 req["expression"])])
-        preds = step(to_device(batch))
-        direct.append({br: (preds[br]["boxes"][0].float().cpu().numpy(),
-                            preds[br]["scores"][0].float().cpu().numpy())
-                       for br in ("token", "decoder")})
-        sfs.append(batch["scale_factor"][0])
-
-    def distance(out, sf, want):  # max |diff| of boxes (canvas px), scores
-        box = score = 0.0
-        for br, (boxes, scores) in want.items():
-            served = np.asarray(out[br]["boxes"]) * sf
-            box = max(box, float(np.abs(served - boxes).max()))
-            score = max(score, float(np.abs(np.asarray(out[br]["scores"])
-                                            - scores).max()))
-        return box, score
-
-    errs = [distance(out, sf, want)
-            for (_, out), sf, want in zip(results, sfs, direct)]
-    box_err = max(e[0] for e in errs) / cfg.img_size
-    score_err = max(e[1] for e in errs)
-    # the same responses held to the next request's direct step: what a
-    # slot mix-up in the batcher would show
-    swapped = min(distance(out, sf, want)[0] for (_, out), sf, want in
-                  zip(results, sfs, direct[1:] + direct[:1])) / cfg.img_size
+    box_err, score_err, swapped = held_to_direct(results, reqs, model, cfg)
     log(f"serve: burst of {len(reqs)} JPEG requests from {SERVE_CLIENTS} "
         f"clients in {burst_batches} device batches (sizes {sorted(sizes)})"
         f"; against a direct eval step at batch 1, every query: boxes max "
@@ -1837,6 +1883,548 @@ def demo_inference_phase(card, root, imgdir, opts, launches):
         f"boxes equal to the eval step's / scale_factor [{card}]")
 
 
+# int8 w8a8 (ops/quant.py) on the flagship
+INT8_CALIB_BATCHES = 4  # of 4 synthetic val JPEGs, through quantize_serving
+INT8_LINEARS = 12  # int8 products a layer: q/k/v/out and fc1/fc2, A and B
+# The int8 models' outputs, held to the float32 model (plain attention) on
+# the same weights: int8 rounds every activation and weight of the 144
+# products to 8 bits on a per-tensor / per-channel grid, where bf16 keeps 8
+# significant bits per value, so their distance may be INT8_REF_FACTOR
+# times the bf16 model's, plus INT8_FLOOR (absolute, on logits and boxes)
+INT8_REF_FACTOR = 16.0
+INT8_FLOOR = 5e-2
+# an fp32 int8_static forward on the card against the same forward on the
+# CPU.  Each of its 144 int8 layers, given the card's input, gives the
+# card's output on the CPU bit for bit (the same int8 operands, exact int32
+# sums, the same elementwise float32 rescale).  The whole forward differs
+# more: float32 elsewhere sums in another order, which moves activations
+# across a k + 0.5 boundary of their grid (one step ~ s_x * s_w * |w_q|),
+# and those steps compound over the 144 products (reading on the card:
+# 6.1e-2 max, 7.3e-3 mean on logits and boxes, against int8's own
+# 0.06-0.22 max from float32)
+INT8_CPU_MAX = 0.25
+INT8_CPU_MEAN = 2e-2
+INT8_TIMING_ITERS = 20
+QAT_STEPS = TRAIN_STEPS
+
+
+def calibrate(card, root, synth, checkpoint, launches):
+    """The port's calibration CLI (tools/quantize_serving.py) on the
+    flagship: INT8_CALIB_BATCHES batches of 4 synthetic val JPEGs in
+    int8_calib mode, through the eval step's on-device normalisation, on
+    ``checkpoint`` (None: random weights from SEED).  Returns the .npz."""
+    from simvg_tpu_torch.tools import quantize_serving
+
+    out = os.path.join(root, f"quant_{'det' if checkpoint else 'seed'}.npz")
+    argv = [FLAGSHIP] + ([checkpoint] if checkpoint else []) + [
+        "--out", out, "--num-batches", str(INT8_CALIB_BATCHES),
+        "--cfg-options", *synth,
+        f"data.samples_per_gpu={N_SYNTH_VAL // INT8_CALIB_BATCHES}"]
+    res = counted_run("int8[calibrate]", lambda: quantize_serving.main(argv),
+                      K1_STEP * INT8_CALIB_BATCHES, 0, card, launches)
+    if res["calibration_batches"] != INT8_CALIB_BATCHES or res[
+            "quantized_layers"] != INT8_LINEARS * K1_STEP:
+        raise AssertionError(f"int8[calibrate]: {res}")
+    log(f"int8[calibrate]: {res}")
+    return out
+
+
+def kernel_names(fn):
+    """The CUDA kernels one call of ``fn`` launches, by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_int_mm_exact(model, args, img_shape):
+    """Every _int_mm of one forward of ``model``, held to the float64
+    product of its operands (exact: |sum| < 2^53); returns the shapes
+    (M, K, N) it saw."""
+    from simvg_tpu_torch.ops import quant
+
+    real, shapes = quant.int_mm, []
+
+    def exact(a, b):  # int_mm counts its launches on the name it is under
+        out = real(a, b)
+        if not (out.double() == a.double() @ b.double()).all():
+            raise AssertionError(f"_int_mm at {tuple(a.shape)} x "
+                                 f"{tuple(b.shape)} is not exact")
+        shapes.append((a.shape[0], a.shape[1], b.shape[1]))
+        return out
+
+    exact.launches = real.launches
+    quant.int_mm = exact
+    try:
+        outputs(model, args, img_shape)
+    finally:
+        quant.int_mm = real
+        real.launches = exact.launches
+    return shapes
+
+
+def int_mm_rows(card, batch):
+    """_int_mm against bf16 F.linear at the flagship's products for
+    ``batch``, with the static layer's quantize pass and its whole forward
+    against the bf16 Linear's; each row's bound counts the int8 product's
+    bytes (operands read once, int32 out written once) and operations.
+    Raises if the _int_mm of ``w_q.t()`` copies its operands: a copy
+    kernel under the profiler, or K x N bytes allocated beside its
+    output."""
+    import torch
+    import torch.nn.functional as F
+    from simvg_tpu_torch.models.layers import Linear
+    from simvg_tpu_torch.ops.quant import (Int8Linear, build_quant_collection,
+                                           int_mm, set_quant_collection)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for m in (batch * 401, batch * 20):
+        for k, n in ((768, 768), (768, 3072), (3072, 768)):
+            x = torch.randn(m, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            lin = Linear(k, n, torch.bfloat16).cuda()
+            q = torch.nn.Sequential(Int8Linear(k, n, torch.bfloat16,
+                                               mode="static")).cuda()
+            q.load_state_dict({f"0.{a}": b for a, b in
+                               lin.state_dict().items()})
+            set_quant_collection(q, build_quant_collection(
+                q, {"0.act_amax": x.float().abs().amax()}))
+            a = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=gen)
+            w_t = q[0].w_q.t()
+            w_bf = lin.weight.to(torch.bfloat16)
+            s_x = q[0].act_scale / 127.0
+            it = INT8_TIMING_ITERS
+            fns = {"int_mm": lambda: int_mm(a, w_t),
+                   "bf16 F.linear": lambda: F.linear(x, w_bf),
+                   "quantize": lambda: torch.clamp(torch.round(
+                       x.float() / s_x), -127, 127).to(torch.int8),
+                   "Int8Linear static": lambda: q(x),
+                   "Linear bf16": lambda: lin(x)}
+            for fn in fns.values():
+                fn()
+            ms = {name: cuda_ms(fn, it) for name, fn in fns.items()}
+            ms.update({f"{name} (again)": cuda_ms(fns[name], it)
+                       for name in ("int_mm", "bf16 F.linear")})
+            launched = kernel_names(fns["int_mm"])
+            bound, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n,
+                                 "int8")
+            # what one call allocates beside its int32 output: a copy of the
+            # transposed weight would take K x N bytes (readings: 0-416 KiB,
+            # under the smallest weight's 576 KiB); the profiler's names are
+            # the second witness, where it traces the call
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fns["int_mm"]()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - before - 4 * m * n
+            log(f"int8[int_mm] M={m} K={k} N={n}: "
+                + ", ".join(f"{a} {b:.4f} ms" for a, b in ms.items())
+                + f"; _int_mm bound {bound:.4f} ms ({by}); one _int_mm "
+                f"allocates {extra} bytes beyond its output and launches "
+                f"{launched} [{card}]")
+            copies = [name for name in launched if any(
+                w in name.lower() for w in ("copy", "transpose",
+                                            "elementwise"))]
+            if copies or extra >= k * n:
+                raise AssertionError(f"_int_mm of [{m}, {k}] x w_q.t() "
+                                     f"copies its operands: {launched}, "
+                                     f"{extra} bytes")
+
+
+def int8_phase(card, root, synth, launches):
+    """int8 w8a8 on the flagship at full width, bf16, K1, random weights
+    from SEED: calibration through tools/quantize_serving.py and
+    attach_static_quant; every _int_mm of a forward held exactly; the
+    int8_static and int8 models' outputs and the bf16 model's against the
+    float32 model; an fp32 int8_static forward on the card against the
+    CPU; eval medians of bf16, int8 and int8_static at batch 8 and 32 with
+    kernels, busy ms, and the _int_mm and K1 launches of a forward;
+    _int_mm against bf16 F.linear at each shape; the test CLI and the
+    server on det_best with --quant-collection, every response held to a
+    direct int8_static step; the exported int8_static program bit for bit
+    eager's; 1 + QAT_STEPS int8_qat train steps at batch 32."""
+    import threading
+
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.engine import (make_eval_step,
+                                        normalize_images_on_device)
+    from simvg_tpu_torch.export import (attention_op_count, export_serving,
+                                        int_mm_op_count)
+    from simvg_tpu_torch.models import build_model
+    from simvg_tpu_torch.ops.fused_attention import (attention_bwd,
+                                                     fused_attention)
+    from simvg_tpu_torch.ops.quant import (attach_static_quant, int_mm,
+                                           quant_layers)
+    from simvg_tpu_torch.tools import serve as serve_cli
+    from simvg_tpu_torch.tools import test as test_cli
+    from simvg_tpu_torch.tools.test import serving_model
+
+    cfg = Config.fromfile(FLAGSHIP)
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    det_best = os.path.join(root, "work", "det_best")
+    npz = calibrate(card, root, synth, None, launches)
+
+    base, loss_cfg = build_flagship(cfg, "pallas", torch.bfloat16)
+    state = base.state_dict()
+    models = {"bf16": base}
+    for quant in ("int8", "int8_static"):
+        models[quant], _ = build_flagship(cfg, "pallas", torch.bfloat16,
+                                          state, quant=quant)
+    attach_static_quant(models["int8_static"], npz)
+    static = models["int8_static"]
+    loader = make_requests(np.random.default_rng(SEED), N_BATCHES, BATCH,
+                           cfg.model.vis_enc.vocab_size, cfg.max_token,
+                           cfg.img_size)
+
+    def model_args(batch):
+        dev = to_device(batch)
+        image = normalize_images_on_device(dev["image"], norm["mean"],
+                                           norm["std"], True,
+                                           dev["img_shape"])
+        return (image, dev["text_ids"], dev["text_padding_mask"]), \
+            dev["img_shape"]
+
+    args0, shape0 = model_args(loader[0])
+    shapes = check_int_mm_exact(static, args0, shape0)
+    want = {(b * s, k, n) for b in (BATCH,) for s in (401, 20)
+            for k, n in ((768, 768), (768, 3072), (3072, 768))}
+    if len(shapes) != INT8_LINEARS * K1_STEP or set(shapes) != want:
+        raise AssertionError(f"int8: _int_mm calls {len(shapes)} at "
+                             f"{sorted(set(shapes))}")
+    log(f"int8: {len(shapes)} _int_mm calls of one int8_static forward at "
+        f"batch {BATCH}, each equal to the float64 product of its operands;"
+        f" shapes (M, K, N) {sorted(set(shapes))}")
+
+    ref32, _ = build_flagship(cfg, "xla", torch.float32, state)
+    err = {name: {} for name in models}
+    for batch in loader:
+        args, img_shape = model_args(batch)
+        ref = outputs(ref32, args, img_shape)
+        for name, m in models.items():
+            for k, d in max_diffs(outputs(m, args, img_shape), ref).items():
+                err[name][k] = max(err[name].get(k, 0.0), d)
+    del ref32
+    log(f"int8: outputs on {len(loader)} batches of {BATCH}, max abs "
+        f"distance from the float32 plain model: " + "; ".join(
+            f"{name} {e}" for name, e in err.items())
+        + f" (bound for int8 and int8_static: {INT8_REF_FACTOR} x bf16's + "
+        f"{INT8_FLOOR})")
+    bad = [(name, k) for name in ("int8", "int8_static") for k in err[name]
+           if not err[name][k] <= INT8_REF_FACTOR * err["bf16"][k]
+           + INT8_FLOOR]
+    if bad:
+        raise AssertionError(f"int8 outputs {bad} beyond the bound")
+
+    # fp32 int8_static on the card against the CPU, batch 2
+    outs, fp32 = {}, {}
+    for device in ("cuda", "cpu"):
+        m, _ = build_model(dict(cfg.model, vis_enc=dict(
+            cfg.model.vis_enc, quant="int8_static")), img_size=cfg.img_size,
+            dtype=torch.float32, device="meta")
+        m = m.to_empty(device=device)
+        m.load_state_dict(state, strict=True)
+        fp32[device] = attach_static_quant(m, npz).eval()
+    seen = {}
+    hooks = [layer.register_forward_hook(
+        lambda mod, inp, out, name=name: seen.__setitem__(
+            name, (inp[0].cpu(), out.cpu())))
+        for name, layer in quant_layers(fp32["cuda"]).items()]
+    for device, m in fp32.items():
+        with torch.inference_mode():
+            out = m(*(t[:2].to(device) for t in args0),
+                    img_shape=shape0[:2].to(device))
+        outs[device] = {k: out[k].float().cpu() for k in OUT_SHAPES}
+    for h in hooks:
+        h.remove()
+    cpu_layers = quant_layers(fp32["cpu"])
+    with torch.inference_mode():
+        unequal = [name for name, (x, y) in seen.items()
+                   if not torch.equal(cpu_layers[name](x), y)]
+    del fp32
+    diff = torch.cat([(outs["cuda"][k] - outs["cpu"][k]).abs().flatten()
+                      for k in OUT_SHAPES])
+    log(f"int8: fp32 int8_static at batch 2, the card against the CPU: "
+        f"{len(seen) - len(unequal)} of {len(seen)} int8 layers give the "
+        f"card's output on the card's input bit for bit; the whole forward's "
+        f"outputs max |diff| {diff.max().item():.3e} (bound {INT8_CPU_MAX}), "
+        f"mean {diff.mean().item():.3e} (bound {INT8_CPU_MEAN})")
+    if unequal or len(seen) != INT8_LINEARS * K1_STEP or not (
+            diff.max() <= INT8_CPU_MAX and diff.mean() <= INT8_CPU_MEAN):
+        raise AssertionError(f"fp32 int8_static differs between the card and "
+                             f"the CPU: layers {unequal[:4]}")
+
+    steps = {name: make_eval_step(m, device_norm=norm)
+             for name, m in models.items()}
+    for name, step in steps.items():
+        step(to_device(loader[0]))  # warm-up
+        int_mm.launches = 0
+        counted_run(f"int8[{name} forward]", lambda: step(to_device(
+            loader[0])), K1_STEP, 0, card, launches)
+        want_mm = 0 if name == "bf16" else INT8_LINEARS * K1_STEP
+        if int_mm.launches != want_mm:
+            raise AssertionError(f"int8: {name} launched _int_mm "
+                                 f"{int_mm.launches} times a forward")
+        log(f"int8: {name} forward: _int_mm launches {int_mm.launches}, K1 "
+            f"launches {K1_STEP}")
+    rng = np.random.default_rng(SEED + 2)
+    for b, reqs in ((BATCH, loader), (TRAIN_BATCH, make_requests(
+            rng, 1, TRAIN_BATCH, cfg.model.vis_enc.vocab_size,
+            cfg.max_token, cfg.img_size))):
+        lat = time_eval(steps, reqs)
+        dev = to_device(reqs[0])
+        for name, ts in lat.items():
+            ms = ts[len(ts) // 2]
+            n_kernels, busy = device_kernels(lambda: steps[name](dev))
+            log(f"int8: eval forward, batch {b}, {name}: median {ms:.3f} "
+                f"ms/batch ({b / ms * 1e3:.1f} images/s), min {ts[0]:.3f}, "
+                f"max {ts[-1]:.3f}, {len(ts)} batches; one call under the "
+                f"profiler: {n_kernels} kernels, device busy {busy:.3f} ms "
+                f"[{card}]")
+    int_mm_rows(card, TRAIN_BATCH)
+
+    # the dynamic scale is a max over the whole batch: a request's answer
+    # depends on its batch mates, the static one's does not
+    one = {k: v[:1] for k, v in to_device(loader[0]).items()}
+    dep = {}
+    for name in ("int8", "int8_static"):
+        full = steps[name](to_device(loader[0]))["token"]["best_box"][0]
+        dep[name] = (steps[name](one)["token"]["best_box"][0]
+                     - full).abs().max().item()
+    log(f"int8: request 0's token box alone against in its batch of "
+        f"{BATCH}, max |diff| (px): {dep}")
+
+    export_batch = to_device(loader[0])
+    prog = export_serving(static, export_batch, device_norm=norm)
+    nodes = (int_mm_op_count(prog), attention_op_count(prog))
+    if nodes != (INT8_LINEARS * K1_STEP, K1_STEP):
+        raise AssertionError(f"int8: exported graph holds {nodes} _int_mm "
+                             "and K1 nodes")
+    prog.call(export_batch)  # warm-up
+    out = counted_run("int8[export call]", lambda: prog.call(export_batch),
+                      K1_STEP, 0, card, launches)
+    ref = steps["int8_static"](export_batch)
+    diffs = {f"{br}/{k}": (out[br][k].float() - ref[br][k].float()).abs()
+             .max().item() for br in ref for k in ref[br]}
+    if any(diffs.values()):
+        raise AssertionError(f"exported int8_static differs from eager: "
+                             f"{diffs}")
+    log(f"int8: the exported int8_static program holds {nodes[0]} _int_mm "
+        f"and {nodes[1]} K1 nodes; its outputs equal eager's bit for bit")
+    del prog
+
+    # served: the test CLI and the server on det_best
+    npz_det = calibrate(card, root, synth, det_best, launches)
+    opts = synth + ["model.vis_enc.quant=int8_static"]
+    got = counted_run("int8[test CLI]", lambda: test_cli.main(
+        [FLAGSHIP, det_best, "--quant-collection", npz_det,
+         "--cfg-options", *opts]), K1_STEP * 3, 0, card, launches)
+    if got["val"]["n_samples"] != N_SYNTH_VAL or not all(
+            np.isfinite(v) for v in got["val"].values()):
+        raise AssertionError(f"int8[test CLI]: {got}")
+    log(f"int8[test CLI]: det_best int8_static val {got['val']}")
+    server = serve_cli.build_server([
+        FLAGSHIP, "--checkpoint", det_best, "--port", "0", "--max-batch",
+        str(BATCH), "--batch-timeout-ms", "20", "--quant-collection",
+        npz_det, "--cfg-options", "model.vis_enc.quant=int8_static"])
+    thread = threading.Thread(target=server.serve_forever)
+    thread.start()
+    reqs = jpeg_requests(os.path.join(root, "synth", "images"))
+    try:
+        torch.cuda.synchronize()
+        server.batcher.batches = 0
+        fused_attention.launches = attention_bwd.launches = 0
+        results = serve_burst(server.server_port, reqs)
+        torch.cuda.synchronize()
+        batches = server.batcher.batches
+        k1, k2 = fused_attention.launches, attention_bwd.launches
+    finally:
+        server.close()
+        thread.join(timeout=60)
+    if (k1, k2) != (K1_STEP * batches, 0):
+        raise AssertionError(f"int8[serve]: K1 {k1}, K2 {k2} launches over "
+                             f"{batches} device batches")
+    launches.append((k1, k2))
+    scfg = Config.fromfile(FLAGSHIP)
+    scfg.merge_from_dict({"model.vis_enc.quant": "int8_static"})
+    box_err, score_err, swapped = held_to_direct(
+        results, reqs, serving_model(scfg, det_best, torch.device("cuda"),
+                                     quant_collection=npz_det), scfg)
+    log(f"int8[serve]: {len(reqs)} requests in {batches} device batches "
+        f"(sizes {sorted(out['batch_size'] for _, out in results)}), K1 "
+        f"launches {k1}; "
+        f"against a direct int8_static step at batch 1, every query: boxes "
+        f"max |diff| / canvas {box_err:.2e} (bound {SERVE_BOX_TOL}), scores "
+        f"{score_err:.2e} (bound {SERVE_SCORE_TOL}); the next request's "
+        f"direct step: boxes min {swapped:.2e}")
+    if not (box_err <= SERVE_BOX_TOL and score_err <= SERVE_SCORE_TOL):
+        raise AssertionError("served int8_static predictions differ from the"
+                             " direct step beyond the bound")
+
+    # int8_qat train steps
+    qat, _ = build_flagship(cfg, "pallas", torch.bfloat16, state,
+                            quant="int8_qat")
+    del models, steps, static, base
+    batches = [to_device(b, TRAIN_KEYS) for b in make_requests(
+        np.random.default_rng(SEED + 1), QAT_STEPS + 1, TRAIN_BATCH,
+        cfg.model.vis_enc.vocab_size, cfg.max_token, cfg.img_size)]
+    losses, grads = losses_and_grads(qat, batches[1], loss_cfg, norm)
+    dead = [n for n in quant_layers(qat)
+            if not grads[f"{n}.weight"].abs().max() > 0]
+    if dead or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"int8_qat: zero gradients {dead[:4]}, losses "
+                             f"{losses}")
+    del grads
+    step, tstate = make_train_step_for(cfg, qat, loss_cfg, norm)
+    tstate, _ = step(tstate, batches[0], SEED)  # warm-up
+
+    def train():
+        return [step(tstate, b, SEED)[1] for b in batches[1:]]
+
+    scalars = counted_run("int8[qat train]", train, K1_STEP * QAT_STEPS,
+                          K1_STEP * QAT_STEPS, card, launches)
+    loss = [float(s["loss_total"]) for s in scalars]
+    if not np.isfinite(loss).all():
+        raise AssertionError(f"int8_qat losses {loss}")
+    log(f"int8[qat]: {QAT_STEPS} steps of {TRAIN_BATCH}, loss_total {loss};"
+        f" every one of the {len(quant_layers(qat))} encoder Linears has a "
+        f"non-zero gradient")
+    del qat, step, tstate
+    torch.cuda.empty_cache()
+
+
+LARGE = os.path.join(REPO, "configs", "single", "ViT-large", "refcoco",
+                     "refcoco_onestage.py")
+REMAT_STEPS = 3  # counted train steps of each mode, after one warm-up
+
+
+def remat_phase(card, launches):
+    """configs/single/ViT-large/refcoco/refcoco_onestage.py as written:
+    ViT-large/32 at 640 px (24 layers, D=1024, H=16, S=421), its batch of
+    4, bf16 compute, fp32 params, Adam amsgrad, random weights from SEED;
+    for remat off, "full" and "dots": the gradients of one batch with the
+    config's drop-path from one generator seed, against remat off (bit for
+    bit), with the memory that the forward keeps for the backward and the
+    peak of both, then 1 + REMAT_STEPS train steps: K1/K2 launches a step, the
+    step's median and peak allocated memory."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.engine import normalize_images_on_device
+    from simvg_tpu_torch.engine.train import train_losses
+    from simvg_tpu_torch.models.layers import set_generator
+    from simvg_tpu_torch.ops.fused_attention import (attention_bwd,
+                                                     fused_attention)
+
+    cfg = Config.fromfile(LARGE)
+    batch_size = cfg.data.samples_per_gpu
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    t0 = time.perf_counter()
+    ref, loss_cfg = build_flagship(cfg, "pallas", torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    enc = ref.cfg.beit3
+    layers = enc.num_layers
+    state = ref.state_dict()
+    batches = [to_device(b, TRAIN_KEYS) for b in make_requests(
+        np.random.default_rng(SEED + 3), REMAT_STEPS + 1, batch_size,
+        enc.vocab_size, cfg.max_token, cfg.img_size)]
+    log(f"remat: {os.path.relpath(LARGE, REPO)}: {layers} layers, "
+        f"D={enc.embed_dim}, {enc.num_heads} heads, "
+        f"S={enc.seq_vision + cfg.max_token}, batch {batch_size}, remat="
+        f"{cfg.model.vis_enc.remat} in the config, drop-path "
+        f"{enc.drop_path_rate}; {sum(p.numel() for p in ref.parameters())} "
+        f"params, random from seed {SEED} in {init_s:.1f} s")
+    del ref
+
+    def grads_of(model):
+        """(loss, gradients, GiB that the forward leaves allocated for the
+        backward, GiB allocated at the peak of forward and backward, both
+        above what was allocated before them)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.train()
+        set_generator(model, torch.Generator(device="cuda").manual_seed(SEED))
+        b = batches[0]
+        image = normalize_images_on_device(b["image"], norm["mean"],
+                                           norm["std"], True, b["img_shape"])
+        losses, _ = train_losses(
+            model, b, image,
+            branch_loss_weight=loss_cfg["branch_loss_weight"],
+            prepare_target_mode=loss_cfg["prepare_target_mode"],
+            distill_type=loss_cfg["distill_type"],
+            mlp_aux_loss=loss_cfg["mlp_aux_loss"])
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - before
+        grads = torch.autograd.grad(losses["loss_total"],
+                                    list(model.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        return losses["loss_total"].item(), grads, saved / 2 ** 30, (
+            torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+    want = None
+    for mode, vis in (("off", dict(remat=False)),
+                      ("full", dict(remat=True, remat_policy="full")),
+                      ("dots", dict(remat=True, remat_policy="dots"))):
+        model, _ = build_flagship(cfg, "pallas", torch.bfloat16, state,
+                                  **vis)
+        loss, grads, saved_gib, fb_gib = grads_of(model)
+        if want is None:
+            want = (loss, grads)
+        if [g is None for g in grads] != [g is None for g in want[1]]:
+            raise AssertionError(f"remat {mode}: other parameters without "
+                                 "a gradient")
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(grads, want[1]) if a is not None)
+        del grads
+        step, tstate = make_train_step_for(cfg, model, loss_cfg, norm)
+        tstate, _ = step(tstate, batches[0], SEED)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_attention.launches = attention_bwd.launches = 0
+        times = []
+        for b in batches[1:]:
+            t1 = time.perf_counter()
+            tstate, scalars = step(tstate, b, SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        k1, k2 = fused_attention.launches, attention_bwd.launches
+        launches.append((k1, k2))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want_k1 = (1 if mode == "off" else 2) * layers * REMAT_STEPS
+        if (k1, k2) != (want_k1, layers * REMAT_STEPS):
+            raise AssertionError(f"remat {mode}: K1 {k1}, K2 {k2} launches "
+                                 f"in {REMAT_STEPS} steps")
+        if not np.isfinite(float(scalars["loss_total"])):
+            raise AssertionError(f"remat {mode}: loss {scalars}")
+        times.sort()
+        log(f"remat[{mode}]: train step, batch {batch_size}, bf16: median "
+            f"{times[len(times) // 2]:.3f} ms/step (min {times[0]:.3f}, max "
+            f"{times[-1]:.3f}), max_memory_allocated {peak:.2f} GiB, K1 "
+            f"launches a step {k1 // REMAT_STEPS}, K2 {k2 // REMAT_STEPS}; "
+            f"forward + backward alone: {saved_gib:.2f} GiB kept for the "
+            f"backward, {fb_gib:.2f} GiB at the peak (gradients included), "
+            f"above the model; loss {loss}, gradients against remat "
+            f"off, max |diff| {diff} (bound 0: the recompute replays the "
+            f"forward) [{card}]")
+        if loss != want[0] or diff != 0.0:
+            raise AssertionError(f"remat {mode}: gradients differ from remat "
+                                 "off")
+        del model, step, tstate
+        torch.cuda.empty_cache()
+
+
 def serving_phases(card, root, synth):
     """The serving entry points: "prune", "export", "serve", "demo" and
     "inference", each path's K1 launches counted from 0 around it.
@@ -1912,13 +2500,24 @@ def main() -> int:
         grec_k1, grec_k2 = grec_phase(card, root)
         mixed_k1, mixed_k2 = mixed_phase(card, root)
         serving = serving_phases(card, root, synth)
+        t0 = time.perf_counter()
+        counts = []
+        int8_phase(card, root, synth, counts)
+        int8_k1, int8_k2 = (sum(c[i] for c in counts) for i in (0, 1))
+        log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    counts = []
+    remat_phase(card, counts)
+    remat_k1, remat_k2 = (sum(c[i] for c in counts) for i in (0, 1))
+    log(f"remat phase: {time.perf_counter() - t0:.1f} s")
     log(f"launches on the main paths: K1 serve {serve_k1}, train {train_k1}, "
         f"cli {cli_k1}, grec {grec_k1}, mixed {mixed_k1}, "
         + ", ".join(f"{k} {v}" for k, v in serving.items())
-        + f"; K2 train {train_k2}, cli {cli_k2}, grec {grec_k2}, mixed "
-        f"{mixed_k2}")
+        + f", int8 {int8_k1}, remat {remat_k1}; K2 train {train_k2}, cli "
+        f"{cli_k2}, grec {grec_k2}, mixed {mixed_k2}, int8 {int8_k2}, remat "
+        f"{remat_k2}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
@@ -1941,9 +2540,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
               k1_rows, serve_k1 + train_k1 + cli_k1 + grec_k1 + mixed_k1
-              + sum(serving.values())),
+              + sum(serving.values()) + int8_k1 + remat_k1),
         entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
-              k2_rows, train_k2 + cli_k2 + grec_k2 + mixed_k2),
+              k2_rows, train_k2 + cli_k2 + grec_k2 + mixed_k2 + int8_k2
+              + remat_k2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

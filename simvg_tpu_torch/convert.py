@@ -16,6 +16,10 @@ state dict (``vis_enc.*``, ``head.*``) or a BEiT-3 pretrain one
 position table and the patch projection interpolated to the model's grid
 and patch size (``interpolate_pos_embed``, ``interpolate_patch_proj``, the
 same bicubic resize).
+
+``quant_key_to_jax`` and ``quant_keys_from_jax`` name the int8 serving
+artifact's entries (``ops/quant.py``) both ways: the port's
+``<module>.<leaf>`` and the flax path of JAX's ``.npz``.
 """
 
 from __future__ import annotations
@@ -312,3 +316,42 @@ def _export_head_entry(parts, v, sd, packed_qkv):
             put(f"{base}norms.{n}."
                 f"{'weight' if rest[1] == 'scale' else 'bias'}", v)
             return
+
+
+def quant_key_to_jax(name: str) -> str:
+    """A quant collection key of the port -> the flax path of JAX's
+    ``.npz`` ('/'-joined): ``vis_enc.beit3.encoder.layers.0.self_attn.
+    q_proj.A.w_q`` -> ``beit3/layers_0/self_attn/q_proj_A/w_q``,
+    ``...layers.0.ffn.A.fc1.act_scale`` -> ``.../ffn/fc1_A/act_scale``.
+    The inverse of ``quant_keys_from_jax`` on an unstacked key."""
+    prefix, _, rest = name.partition("encoder.layers.")
+    if prefix not in ("vis_enc.beit3.", ""):
+        raise KeyError(f"not a quantized encoder layer: {name}")
+    i, block, *mod, leaf = rest.split(".")
+    if block == "self_attn":  # self_attn.q_proj.A
+        path = f"self_attn/{mod[0]}_{mod[1]}"
+    elif block == "ffn":  # ffn.A.fc1
+        path = f"ffn/{mod[1]}_{mod[0]}"
+    else:
+        raise KeyError(f"not a quantized encoder layer: {name}")
+    return f"{'beit3/' if prefix else ''}layers_{i}/{path}/{leaf}"
+
+
+def quant_keys_from_jax(key: str, value: np.ndarray):
+    """A flax path of JAX's ``.npz`` and its array -> [(the port's quant
+    collection key, array)]: one entry, or one per layer for a stacked
+    ``layers/...`` entry of a model calibrated under ``scan_layers=True``
+    (a leading layer axis)."""
+    parts = key.split("/")
+    prefix = ""
+    if parts[0] == "beit3":
+        prefix, parts = "vis_enc.beit3.", parts[1:]
+    if parts[0] == "layers":  # scan-stacked: split the leading axis
+        return [pair for i in range(value.shape[0]) for pair in
+                quant_keys_from_jax("/".join(
+                    (["beit3"] if prefix else []) + [f"layers_{i}"]
+                    + parts[1:]), value[i])]
+    got = _export_beit3_key(parts[:-1] + ["kernel"])
+    if got is None or not got[0].endswith(".weight"):
+        raise KeyError(f"not a quantized encoder layer: {key}")
+    return [(prefix + got[0][:-len("weight")] + parts[-1], value)]

@@ -16,7 +16,10 @@ configs, both branches decoded), so exported predictions are those of the
 eval step on the same device.  The attention forward K1 stays in the graph
 as one ``simvg::attention_fwd`` node a call (a custom operator, see
 ``ops/fused_attention.py``), which launches the Hopper kernel when the
-program runs on the card; ``attention_op_count`` counts the nodes.
+program runs on the card; ``attention_op_count`` counts the nodes.  An
+``int8_static`` model exports with its int8 products as ``aten._int_mm``
+nodes (``int_mm_op_count``) and its quant tensors baked in, or, with the
+weights as an argument, in that argument (``serving_state``).
 
 What differs from JAX's ``jax.export``:
 
@@ -35,6 +38,7 @@ from typing import Dict, Optional
 import torch
 
 from simvg_tpu_torch.engine.eval import eval_forward
+from simvg_tpu_torch.ops.quant import quant_layers
 
 # The exported calling convention: one dict with exactly these keys (the
 # loader's device batch minus host-only fields).
@@ -55,8 +59,9 @@ class _Serving(torch.nn.Module):
 
 
 class _WeightsAsArgument(torch.nn.Module):
-    """forward(params, batch) -> preds: the model's parameters come in as
-    the first argument, by state-dict name, and the program holds none."""
+    """forward(params, batch) -> preds: the model's parameters (and the
+    quant tensors of an int8_static model, ``serving_state``) come in as
+    the first argument, by name, and the program holds none."""
 
     def __init__(self, model: torch.nn.Module, device_norm=None):
         super().__init__()
@@ -73,6 +78,17 @@ class _WeightsAsArgument(torch.nn.Module):
                 {"img_shape": img_shape})
 
         return eval_forward(call, batch, self.device_norm)
+
+
+def serving_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The ``params`` argument of a program exported with
+    ``bake_weights=False``: the state dict and, for an ``int8_static``
+    model, its quant tensors (``w_q``, ``s_w``, ``act_scale``), which stay
+    out of state dicts but travel with the weights they were quantized
+    from."""
+    state = dict(model.state_dict())
+    state.update(model.named_buffers())
+    return {k: v.detach() for k, v in state.items()}
 
 
 def make_serving_fn(model: torch.nn.Module,
@@ -132,8 +148,10 @@ def export_serving(model: torch.nn.Module, sample_batch: Dict, *,
     """``torch.export`` of the serving forward at ``sample_batch``'s shapes
     and device.  ``bake_weights=True``: the weights are in the program,
     ``call(batch)``; ``False``: they are its first argument,
-    ``call(params, batch)`` with ``params`` a state dict of the same
-    names, for a site that swaps checkpoints under one program."""
+    ``call(params, batch)`` with ``params`` the ``serving_state`` of a
+    model of the same config, for a site that swaps checkpoints under one
+    program.  An ``int8_static`` model's program holds ``_int_mm`` nodes
+    (``int_mm_op_count``) and ``"quantized"`` in its meta."""
     if platforms is not None:
         raise ValueError(
             "platforms= has no counterpart in torch.export: a program runs "
@@ -144,7 +162,7 @@ def export_serving(model: torch.nn.Module, sample_batch: Dict, *,
         fn, args = _Serving(model, device_norm), (batch,)
         shapes = None if dynamic is None else (dynamic,)
     else:
-        params = {k: v.detach() for k, v in model.state_dict().items()}
+        params = serving_state(model)
         fn, args = _WeightsAsArgument(model, device_norm), (params, batch)
         shapes = None if dynamic is None else (
             {k: None for k in params}, dynamic)
@@ -153,6 +171,7 @@ def export_serving(model: torch.nn.Module, sample_batch: Dict, *,
                                       strict=False)
     _drop_metadata_asserts(program)
     meta = {"weights_as_argument": not bake_weights,
+            "quantized": bool(quant_layers(model, "static")),
             "polymorphic_batch": polymorphic_batch,
             "inputs": {k: [list(v.shape), str(v.dtype).replace("torch.", "")]
                        for k, v in batch.items()},
@@ -177,13 +196,22 @@ def _drop_metadata_asserts(program) -> None:
     program.graph_module.recompile()
 
 
+def _op_count(program, target) -> int:
+    program = getattr(program, "program", program)
+    return sum(1 for node in program.graph.nodes
+               if node.op == "call_function" and node.target == target)
+
+
 def attention_op_count(program) -> int:
     """The ``simvg::attention_fwd`` (K1) nodes of an exported program's
     graph (a ServingProgram or a torch ExportedProgram)."""
-    program = getattr(program, "program", program)
-    target = torch.ops.simvg.attention_fwd.default
-    return sum(1 for node in program.graph.nodes
-               if node.op == "call_function" and node.target == target)
+    return _op_count(program, torch.ops.simvg.attention_fwd.default)
+
+
+def int_mm_op_count(program) -> int:
+    """The ``aten._int_mm`` nodes (the int8 products of an ``int8`` or
+    ``int8_static`` model) of an exported program's graph."""
+    return _op_count(program, torch.ops.aten._int_mm.default)
 
 
 def save_exported(path: str, prog: ServingProgram) -> None:

@@ -10,16 +10,19 @@ Module and parameter names follow the reference's torchscale state dict
 ``encoder.layers.N.self_attn.q_proj.A``, ...), so a converted checkpoint
 loads with ``strict=True``.
 
-Ported: the main path of the flagship, and vision-token pruning
+Ported: the main path of the flagship; vision-token pruning
 (``token_prune_keep``), the serving lever that keeps the top-K patch
-tokens by the CLS query's attention after one layer.  Left out:
-``scan_layers`` and ``remat`` (JAX compile devices), ``quant``,
-``seq_parallel``, ``attn_bias`` and the single-modality modes.
+tokens by the CLS query's attention after one layer; int8 w8a8 on the 12
+multiway ``Linear``s of each layer (``quant``, ``ops/quant.py``); and
+activation checkpointing of each layer (``remat``, ``remat_policy``).
+Left out: ``scan_layers`` (a JAX compile device), ``seq_parallel``,
+``attn_bias`` and the single-modality modes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from simvg_tpu_torch.ops.attention import cls_attention, multihead_attention
 from .layers import LayerNorm, Linear, Stochastic, keep_mask
@@ -56,6 +61,15 @@ class BEiT3Config:
     token_prune_keep: Optional[int] = None
     token_prune_layer: int = 4
     token_prune_force: bool = False
+    # int8 w8a8 of the layers' Linears: "none" | "int8" (dynamic) |
+    # "int8_calib" | "int8_static" | "int8_qat" (ops/quant.py); every mode
+    # but "none" and "int8_qat" is serving-only
+    quant: str = "none"
+    # activation checkpointing of each layer when gradients are on:
+    # "full" saves the layer's inputs only, "dots" also the outputs of its
+    # parameter matmuls (JAX's dots_with_no_batch_dims_saveable)
+    remat: bool = False
+    remat_policy: str = "full"
 
     @property
     def num_patches(self) -> int:
@@ -94,6 +108,15 @@ def _multiway(make) -> Multiway:
     return Multiway(make(), make())
 
 
+def _dense(cfg: BEiT3Config, d_in: int, d_out: int) -> Linear:
+    """The layers' Linear: ``Int8Linear`` in the int8 modes."""
+    if cfg.quant == "none":
+        return Linear(d_in, d_out, cfg.dtype)
+    from simvg_tpu_torch.ops.quant import MODES, Int8Linear
+
+    return Int8Linear(d_in, d_out, cfg.dtype, mode=MODES[cfg.quant])
+
+
 def _gelu(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Exact (erf) GELU in float32, cast back to the compute dtype."""
     return F.gelu(h.float()).to(dtype)
@@ -102,8 +125,8 @@ def _gelu(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class _FFNWay(nn.Module):
     def __init__(self, cfg: BEiT3Config):
         super().__init__()
-        self.fc1 = Linear(cfg.embed_dim, cfg.ffn_dim, cfg.dtype)
-        self.fc2 = Linear(cfg.ffn_dim, cfg.embed_dim, cfg.dtype)
+        self.fc1 = _dense(cfg, cfg.embed_dim, cfg.ffn_dim)
+        self.fc2 = _dense(cfg, cfg.ffn_dim, cfg.embed_dim)
         self.ffn_layernorm = LayerNorm(cfg.ffn_dim, eps=cfg.layernorm_eps)
         self.dtype = cfg.dtype
 
@@ -129,7 +152,7 @@ class MultiwayAttention(nn.Module):
         self.cfg = cfg
         d = cfg.embed_dim
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, _multiway(lambda: Linear(d, d, cfg.dtype)))
+            setattr(self, name, _multiway(lambda: _dense(cfg, d, d)))
         self.inner_attn_ln = _multiway(
             lambda: LayerNorm(d, eps=cfg.layernorm_eps))
 
@@ -206,6 +229,53 @@ class EncoderLayer(nn.Module):
         hs = self.drop_path(self.ffn(self.final_layer_norm(xs)))
         out = xs[0] + hs[0], xs[1] + hs[1]
         return (out, cls_attn) if return_cls_attn else out
+
+
+# the parameter matmuls of a layer (torch.nn.functional.linear reaches
+# these, with or without the batch flattened); attention's products
+# carry a batch dimension and are recomputed, as in JAX's policy
+_PARAM_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_param_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _PARAM_MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(layer: nn.Module, xs, pad, policy: str = "full"):
+    """``layer(xs, pad)`` under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): ``"full"`` keeps the
+    layer's inputs only, ``"dots"`` also its parameter matmuls' outputs.
+
+    The recompute replays the forward's draws: checkpoint restores only
+    torch's default generators, and the layer's dropout and drop-path draw
+    from the explicit generator of its ``Stochastic`` modules, whose state
+    is saved here before the forward and set again for the recompute (and
+    put back after it), so the recomputed masks are the forward's."""
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Stochastic)
+                 and m.generator is not None}.values())
+    saved = [g.get_state() for g in gens]
+    replay = []
+
+    def run(xs, pad):
+        if not replay:  # the forward
+            replay.append(True)
+            return layer(xs, pad)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, saved):
+            g.set_state(state)
+        try:
+            return layer(xs, pad)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_param_matmuls)
+    return checkpoint(run, xs, pad, use_reentrant=False, **kw)
 
 
 class VisionEmbedding(nn.Module):
@@ -306,6 +376,11 @@ class BEiT3Encoder(nn.Module):
 
     def __init__(self, cfg: BEiT3Config):
         super().__init__()
+        if cfg.quant not in ("none", "int8", "int8_calib", "int8_static",
+                             "int8_qat"):
+            raise ValueError(f"unknown quant mode {cfg.quant!r}")
+        if cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         self.cfg = cfg
         self.prune_layer = prune_layer_of(cfg)
         self.text_embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
@@ -315,6 +390,14 @@ class BEiT3Encoder(nn.Module):
     def forward(self, images, text_ids, text_padding_mask=None,
                 return_prune_idx: bool = False):
         cfg, dt = self.cfg, self.cfg.dtype
+        if self.training and cfg.quant not in ("none", "int8_qat"):
+            # ValueError, not assert: int8 rounding has no gradient, so a
+            # train step in a serving mode would silently kill the
+            # encoder's gradients
+            raise ValueError(
+                f"quant={cfg.quant!r} is serving-only; train with "
+                "quant='int8_qat' (STE) and serve with int8_static")
+        remat = cfg.remat and torch.is_grad_enabled()
         pos = self.encoder.embed_positions
         x_vis = self.vision_embed(images)
         b, split = x_vis.shape[:2]
@@ -341,7 +424,8 @@ class BEiT3Encoder(nn.Module):
         prune_idx = None
         for i, layer in enumerate(self.encoder.layers):
             if i != self.prune_layer:
-                xs = layer(xs, pad)
+                xs = (remat_layer(layer, xs, pad, cfg.remat_policy) if remat
+                      else layer(xs, pad))
                 continue
             xs, cls_attn = layer(xs, pad, return_cls_attn=True)
             # rank the patch tokens (positions 1..split-1) by the CLS

@@ -18,11 +18,10 @@ from .heads.tgqs_head import TGQSHeadConfig
 from .model import SimVGConfig, SimVGModel
 
 # vis_enc keys that change the forward and are not ported, with the value
-# that leaves them off.  scan_layers and remat only change how JAX
-# compiles the same forward, and gelu_impl only picks JAX's erf form:
-# the port reads none of them (but refuses scan_layers with token pruning,
-# as the JAX encoder does).
-_NOT_PORTED = {"quant": "none", "seq_parallel": False}
+# that leaves them off.  scan_layers only changes how JAX compiles the same
+# forward, and gelu_impl only picks JAX's erf form: the port reads neither
+# (but refuses scan_layers with token pruning, as the JAX encoder does).
+_NOT_PORTED = {"seq_parallel": False}
 
 
 def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
@@ -57,6 +56,9 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
         token_prune_keep=ve.get("token_prune_keep", None),
         token_prune_layer=ve.get("token_prune_layer", 4),
         token_prune_force=ve.get("token_prune_force", False),
+        quant=ve.get("quant", "none"),
+        remat=ve.get("remat", False),
+        remat_policy=ve.get("remat_policy", "full"),
     )
     extra = {k: ve[k] for k in ("embed_dim", "num_heads", "ffn_dim",
                                 "num_layers") if k in ve}

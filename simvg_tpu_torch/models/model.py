@@ -3,7 +3,9 @@
 
 State-dict names are the reference's: ``vis_enc.beit3.*`` and ``head.*``.
 Token pruning (``BEiT3Config.token_prune_keep``) is a serving flag with the
-same parameters: a pruned model serves the token branch only.
+same parameters: a pruned model serves the token branch only.  The int8
+modes but ``int8_qat`` (``BEiT3Config.quant``) are serving flags too: a
+train-mode forward refuses them.
 """
 
 from __future__ import annotations
@@ -45,6 +47,15 @@ class SimVGModel(nn.Module):
         b, h_img, w_img, _ = image.shape
         ps = self.cfg.beit3.patch_size
         h, w = h_img // ps, w_img // ps
+        if self.training and self.cfg.beit3.quant not in ("none",
+                                                          "int8_qat"):
+            raise ValueError(
+                f"quant={self.cfg.beit3.quant!r} is a serving-only flag: "
+                "round/clip has zero gradient almost everywhere (no STE), "
+                "so training with it silently kills encoder gradients.  "
+                "For quantization-aware training use quant='int8_qat' "
+                "(fake-quant + STE), then serve the checkpoint with "
+                "int8_static")
         if self.cfg.beit3.token_prune_keep is None:
             img_feat, text_feat, cls_feat = self.vis_enc["beit3"](
                 image, text_ids, text_padding_mask)

@@ -13,7 +13,8 @@ It prints the box at the original image's scale and its score, and writes
 with on the card's machine).  Without ``--checkpoint`` the weights are
 random (``init_random_weights`` from seed 0).  It runs on the card unless
 ``--device cpu`` is given, and raises where there is no card.
-``--quant-collection`` (M17) raises.  ``main(argv)`` returns
+An ``int8_static`` model serves with ``--quant-collection``
+(``tools/quantize_serving.py``'s .npz).  ``main(argv)`` returns
 ``{"box", "score", "out_file"}``.
 """
 
@@ -29,7 +30,7 @@ from simvg_tpu_torch.engine import make_eval_step
 from simvg_tpu_torch.engine.evaluate import DEVICE_KEYS
 from simvg_tpu_torch.utils.visualize import imshow_expr_bbox
 
-from .test import refuse_quant, serving_model
+from .test import serving_model
 from .train import check_ported, resolve_device, to_device
 
 
@@ -42,7 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--output-dir", default="demo_out")
     p.add_argument("--branch", default="token", choices=["token", "decoder"])
     p.add_argument("--quant-collection", default=None,
-                   help="int8 serving collection (not ported yet: M17)")
+                   help="int8_static calibration artifact (.npz) from "
+                        "tools/quantize_serving.py")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="*", default=[],
@@ -53,11 +55,11 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
-    refuse_quant(args.quant_collection)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg)
-    model = serving_model(cfg, args.checkpoint, device)
+    model = serving_model(cfg, args.checkpoint, device,
+                          quant_collection=args.quant_collection)
     preproc = RawPreprocessor(cfg, device)
 
     with open(args.img, "rb") as f:

@@ -16,9 +16,10 @@ batch axis symbolic with ``--polymorphic-batch``.  Without a checkpoint the
 weights are random (``init_random_weights`` from seed 0).  The program runs
 on the device it was exported on: export on the card to serve on the card.
 ``--target-platforms`` (JAX's cross-platform lowering) has no counterpart
-and raises; ``--quant-collection`` (M17) raises.  It writes ``<out>.json``
-(the meta, with the count of K1 nodes in the graph) and prints it as its
-last line; ``main(argv)`` returns it.
+and raises.  An ``int8_static`` model exports with the quant tensors of
+``--quant-collection`` baked in (``"quantized"`` in the meta).  It writes
+``<out>.json`` (the meta, with the counts of K1 and ``_int_mm`` nodes in
+the graph) and prints it as its last line; ``main(argv)`` returns it.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
                                           build_loader_from_cfg)
 from simvg_tpu_torch.export import (SERVING_INPUTS, attention_op_count,
-                                    export_serving, save_exported)
+                                    export_serving, int_mm_op_count,
+                                    save_exported)
 
-from .test import refuse_quant, serving_model
+from .test import serving_model
 from .train import check_ported, device_norm_of, resolve_device, to_device
 
 
@@ -53,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--target-platforms", nargs="+", default=None,
                    help="no counterpart in torch.export (raises)")
     p.add_argument("--quant-collection", default=None,
-                   help="int8 serving collection (not ported yet: M17)")
+                   help="int8_static calibration artifact (.npz) from "
+                        "tools/quantize_serving.py")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="*", default=[],
@@ -64,12 +67,12 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
-    refuse_quant(args.quant_collection)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg)
     img_size = cfg.get("img_size", 640)
-    model = serving_model(cfg, args.checkpoint, device)
+    model = serving_model(cfg, args.checkpoint, device,
+                          quant_collection=args.quant_collection)
 
     norm_on_device = cfg.get("normalize_on_device", False)
     ds = build_dataset_from_cfg(cfg.data["val"],
@@ -90,7 +93,8 @@ def main(argv=None):
                           platforms=args.target_platforms)
     save_exported(args.out, prog)
     meta = dict(prog.meta, out=args.out, bytes=os.path.getsize(args.out),
-                attention_op_nodes=attention_op_count(prog))
+                attention_op_nodes=attention_op_count(prog),
+                int_mm_nodes=int_mm_op_count(prog))
     with open(args.out + ".json", "w") as f:
         json.dump(meta, f, indent=1)
     print(json.dumps(meta))

@@ -15,9 +15,10 @@ Each image ``<out>.jpg`` has ``<out>.jpg.json`` beside it with the
 expression, the boxes at the original image's scale and their scores.  The
 images are decoded, drawn on, coloured (cv2's JET table) and encoded on
 the card (``utils/visualize.py``).  It runs on the card unless ``--device
-cpu`` is given, and raises where there is no card.  ``--quant-collection``
-(M17) raises; ``--with-attn`` raises on a token-pruned model, whose
-decoder does not run.  ``main(argv)`` returns one record per image
+cpu`` is given, and raises where there is no card.  An ``int8_static``
+model serves with ``--quant-collection`` (``tools/quantize_serving.py``'s
+.npz).  ``--with-attn`` raises on a token-pruned model, whose decoder does
+not run.  ``main(argv)`` returns one record per image
 written: ``{"file", "boxes", "scores"}``.
 """
 
@@ -38,7 +39,7 @@ from simvg_tpu_torch.models.heads.detr_transformer import (
 from simvg_tpu_torch.utils.visualize import (attention_overlay,
                                              imshow_expr_bbox, write_jpeg)
 
-from .test import refuse_quant, serving_model
+from .test import serving_model
 from .train import check_ported, gt_settings, resolve_device, to_device
 
 
@@ -54,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--with-attn", action="store_true",
                    help="also write decoder cross-attention heatmaps")
     p.add_argument("--quant-collection", default=None,
-                   help="int8 serving collection (not ported yet: M17)")
+                   help="int8_static calibration artifact (.npz) from "
+                        "tools/quantize_serving.py")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="*", default=[],
@@ -65,13 +67,13 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
-    refuse_quant(args.quant_collection)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg)
     img_size = cfg.get("img_size", 640)
     is_grec, max_gt = gt_settings(cfg)
-    model = serving_model(cfg, args.checkpoint, device)
+    model = serving_model(cfg, args.checkpoint, device,
+                          quant_collection=args.quant_collection)
     if args.with_attn and model.cfg.beit3.token_prune_keep is not None:
         raise ValueError("--with-attn needs the decoder branch, which a "
                          "token-pruned model does not run")

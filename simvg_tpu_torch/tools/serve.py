@@ -40,7 +40,12 @@ the server listens.
         [--device cuda|cpu] [--cfg-options ...]
 
 It runs on the card unless ``--device cpu`` is given, and raises where
-there is no card.  ``--quant-collection`` (M17) raises.
+there is no card.  An ``int8_static`` model serves with
+``--quant-collection`` (``tools/quantize_serving.py``'s .npz), on the live
+backend and on a program exported with its weights as an argument (a
+program with baked weights holds its quant tensors already).  In dynamic
+``int8`` the activation scales are maxima over the whole device batch, so
+a response depends on its batch mates (JAX's server does the same).
 ``build_server(argv)`` returns the server without serving it
 (``serve_forever()`` then ``close()``).
 """
@@ -64,10 +69,10 @@ from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.data.jpeg import encode
 from simvg_tpu_torch.data.raw import RawPreprocessor
 from simvg_tpu_torch.engine import make_eval_step
-from simvg_tpu_torch.export import SERVING_INPUTS, load_exported
-from simvg_tpu_torch.utils.checkpoint import load_checkpoint
+from simvg_tpu_torch.export import (SERVING_INPUTS, load_exported,
+                                    serving_state)
 
-from .test import refuse_quant, serving_model
+from .test import serving_model
 from .train import check_ported, resolve_device, to_device
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -177,9 +182,11 @@ class Batcher:
             ev.set()
 
 
-def build_backend(args, cfg, device, device_norm=None):
+def build_backend(args, cfg, device, device_norm=None,
+                  quant_collection=None):
     """-> (run_batch(batch) -> preds, backend name, img_size).  An exported
-    program with a fixed batch sets ``args.max_batch`` to it."""
+    program with a fixed batch sets ``args.max_batch`` to it.
+    ``quant_collection``: the .npz of an int8_static model."""
     if args.exported:
         prog = load_exported(args.exported)
         meta = prog.meta
@@ -190,6 +197,11 @@ def build_backend(args, cfg, device, device_norm=None):
             args.max_batch = b0
         name = f"exported:{osp.basename(args.exported)}"
         if not meta["weights_as_argument"]:
+            if quant_collection:
+                raise SystemExit(
+                    f"{args.exported} holds its weights and quant tensors; "
+                    "--quant-collection applies to the live backend and to "
+                    "a program exported with its weights as an argument")
             return (lambda batch: prog.call(
                 to_device(batch, device, SERVING_INPUTS)), name,
                 meta["img_size"])
@@ -198,13 +210,15 @@ def build_backend(args, cfg, device, device_norm=None):
                 f"{args.exported} was exported with bake_weights=False (its "
                 "weights are an argument, not in the file); pass "
                 "--checkpoint to restore the weights to serve with it")
-        params = {k: v.to(device) for k, v in
-                  load_checkpoint(args.checkpoint)["params"].items()}
+        params = serving_state(serving_model(
+            cfg, args.checkpoint, device,
+            quant_collection=quant_collection))
         return (lambda batch: prog.call(
             params, to_device(batch, device, SERVING_INPUTS)), name,
             meta["img_size"])
 
-    model = serving_model(cfg, args.checkpoint, device)
+    model = serving_model(cfg, args.checkpoint, device,
+                          quant_collection=quant_collection)
     step = make_eval_step(model, device_norm=device_norm)
     name = ("live:" + osp.basename(osp.normpath(args.checkpoint))
             if args.checkpoint else "live:random-init")
@@ -265,7 +279,8 @@ def parse_args(argv=None):
                    help="allow {'image_path': ...} requests, resolved under "
                         "(and confined to) this directory")
     p.add_argument("--quant-collection", default=None,
-                   help="int8 serving collection (not ported yet: M17)")
+                   help="int8_static calibration artifact (.npz) from "
+                        "tools/quantize_serving.py")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="*", default=[])
@@ -288,13 +303,13 @@ def build_server(argv=None) -> Server:
     binds the server (``serve_forever()`` serves it)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    refuse_quant(args.quant_collection)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg)
     preproc = RawPreprocessor(cfg, device)
     run_batch, backend, img_size = build_backend(
-        args, cfg, device, device_norm=preproc.device_norm)
+        args, cfg, device, device_norm=preproc.device_norm,
+        quant_collection=args.quant_collection)
     preproc.canvas = img_size
     batcher = Batcher(run_batch, preproc, max_batch=args.max_batch,
                       timeout_ms=args.batch_timeout_ms,

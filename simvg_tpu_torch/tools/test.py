@@ -8,9 +8,12 @@ weights.
 It runs on the card unless ``--device cpu`` is given, and raises where
 there is no card.  ``main(argv)`` runs it in-process and returns
 ``{split: metrics}`` (EMA results under ``"<split>[EMA]"``); a GRefCOCO
-config's metrics are the per-branch F1/N-acc.
-``--distributed`` (M16) and ``--quant-collection`` (M17) are not ported
-yet and raise.
+config's metrics are the per-branch F1/N-acc.  An ``int8_static`` model
+(``--cfg-options model.vis_enc.quant=int8_static``) serves with the
+``--quant-collection`` artifact of ``tools/quantize_serving.py``: its
+activation scales, with the weights quantized from the ones evaluated
+(the EMA weights for the EMA results).  ``--distributed`` (M16) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
 from simvg_tpu_torch.engine import evaluate, make_eval_step
 from simvg_tpu_torch.engine.train_state import swapped_params
 from simvg_tpu_torch.models import build_model, init_random_weights
+from simvg_tpu_torch.ops.quant import attach_static_quant
 from simvg_tpu_torch.utils.checkpoint import load_checkpoint
 from simvg_tpu_torch.utils.logger import get_root_logger
 
@@ -38,7 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--with-ema", action="store_true",
                    help="also evaluate the EMA weights")
     p.add_argument("--quant-collection", default=None,
-                   help="int8 serving collection (not ported yet: M17)")
+                   help="int8_static calibration artifact (.npz) from "
+                        "tools/quantize_serving.py")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process evaluation (not ported yet: M16)")
     p.add_argument("--device", default="cuda",
@@ -47,16 +52,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_quant(quant_collection) -> None:
-    if quant_collection:
-        raise NotImplementedError("--quant-collection is not ported yet "
-                                  "(ROADMAP: M17)")
-
-
-def serving_model(cfg, checkpoint, device, seed: int = 0):
+def serving_model(cfg, checkpoint, device, seed: int = 0,
+                  quant_collection=None):
     """The config's model on ``device`` in eval mode, with the params of
     ``checkpoint`` (a checkpoint directory of the port), or random weights
-    from ``seed`` (``init_random_weights``) when it is None."""
+    from ``seed`` (``init_random_weights``) when it is None; an
+    ``int8_static`` model gets its quant tensors from those weights and
+    the ``quant_collection`` .npz (``attach_static_quant``)."""
     model, _ = build_model(cfg.model, img_size=cfg.get("img_size", 640),
                            dtype=model_dtype(cfg), device="meta")
     model = model.to_empty(device=device)
@@ -65,13 +67,12 @@ def serving_model(cfg, checkpoint, device, seed: int = 0):
                               strict=True)
     else:
         init_random_weights(model, seed)
-    return model.eval()
+    return attach_static_quant(model, quant_collection).eval()
 
 
 def main(argv=None) -> Dict[str, Dict[str, float]]:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    refuse_quant(args.quant_collection)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg, args.distributed)
@@ -98,6 +99,7 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
 
     ck = load_checkpoint(args.checkpoint, with_ema=args.with_ema)
     model.load_state_dict(ck["params"], strict=True)
+    attach_static_quant(model, args.quant_collection)
     logger.info(f"loaded {args.checkpoint} (epoch {ck['epoch']})")
     ema = None
     if args.with_ema and "ema_params" in ck:
@@ -114,8 +116,11 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
         results[split] = m
         if ema is not None:
             with swapped_params(model, ema):
+                # the EMA weights' own quantization, the .npz's act_scale
+                attach_static_quant(model, args.quant_collection)
                 m = evaluate(model, loader, is_grec=is_grec,
                              eval_step=eval_step)
+            attach_static_quant(model, args.quant_collection)
             logger.info(f"[{split}][EMA] " + fmt_metrics(m))
             results[f"{split}[EMA]"] = m
     return results

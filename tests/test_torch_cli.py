@@ -10,7 +10,8 @@ the CPU with ``configs/smoke/tiny_synth.py`` and synthetic data.
 - the port's gates accept every top-level config under ``configs/`` but
   the two whose features are not ported yet;
 - both default to the card and raise without one; the options that are not
-  ported yet raise NotImplementedError naming their ROADMAP item.
+  ported yet raise NotImplementedError naming their ROADMAP item, and
+  ``--quant-collection`` on a model without int8_static layers raises.
 """
 
 import json
@@ -115,10 +116,21 @@ def test_unported_options_raise(tmp_path, synth, extra, item):
         train_cli.main(argv)
 
 
-def test_quant_collection_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="M17"):
-        test_cli.main([TINY, str(tmp_path), "--device", "cpu",
-                       "--quant-collection", "q.npz"])
+def test_quant_collection_raises(tmp_path, synth):
+    """--quant-collection on a model without int8_static layers raises with
+    JAX's message (the int8 path itself: tests/test_torch_quant.py)."""
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.models import build_model
+    from simvg_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model, _ = build_model(Config.fromfile(TINY).model, img_size=64,
+                           device="cpu")
+    save_checkpoint(str(tmp_path), "ck", params=model.state_dict(),
+                    block=True)
+    with pytest.raises(SystemExit, match="no quant layers"):
+        test_cli.main([TINY, str(tmp_path / "ck"), "--device", "cpu",
+                       "--quant-collection", "q.npz", "--cfg-options",
+                       *synth])
 
 
 def test_test_cli_on_jax_weights_matches_jax_evaluate(tmp_path, synth):

@@ -337,3 +337,104 @@ def test_exported_encoder_layer_holds_and_launches_k1(gen):
     assert fused_attention.launches == before + 2
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# the flagship's int8 products, one encoder layer (ops/quant.py): M rows of
+# the vision (B x 401) and text (B x 20) segments at batch 1 and 8, (K, N)
+# of q/k/v/out (768, 768), fc1 (768, 3072) and fc2 (3072, 768); and M = 12,
+# which the wrapper pads to cuBLASLt's 17 rows
+INT_MM_CASES = [(m, k, n) for m in (20, 401, 160, 3208)
+                for k, n in ((768, 768), (768, 3072), (3072, 768))] + [
+    (12, 32, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", INT_MM_CASES)
+def test_int_mm_is_exact_at_the_flagship_shapes(gen, m, k, n):
+    """torch._int_mm through ``int_mm`` on the card: int8 [M, K] x the
+    transposed view of an [N, K] weight (no copy) equals the float64
+    product exactly (|sum| < 2^53), one launch a call."""
+    from simvg_tpu_torch.ops.quant import int_mm
+
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    before = int_mm.launches
+    out = int_mm(a, w.t())
+    torch.cuda.synchronize()
+    assert int_mm.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    assert torch.equal(out.double(), a.double() @ w.double().t())
+
+
+def test_int8_static_layer_on_the_card_matches_the_cpu(gen):
+    """An int8_static Linear in float32 at the flagship's fc1 shape: the
+    card's quant tensors and output equal the CPU's bit for bit (the same
+    int8 operands, exact int32 sums, an elementwise float32 rescale, and
+    every division by 127 a true division on both)."""
+    from simvg_tpu_torch.ops.quant import Int8Linear, set_quant_collection
+    from simvg_tpu_torch.ops.quant import build_quant_collection
+
+    layer = torch.nn.Sequential(Int8Linear(768, 3072, mode="static"))
+    torch.nn.init.normal_(layer[0].weight, 0.0, 0.02)
+    x = torch.randn(2, 421, 768)
+    set_quant_collection(layer, build_quant_collection(
+        layer, {"0.act_amax": x.abs().amax() * 0.9}))
+    want = layer(x)
+    cpu_quant = {k: v.clone() for k, v in layer.named_buffers()}
+    layer.cuda()
+    set_quant_collection(layer, build_quant_collection(
+        layer, {"0.act_amax": x.cuda().abs().amax() * 0.9}))
+    got = layer(x.cuda())
+    torch.cuda.synchronize()
+    for k, v in layer.named_buffers():
+        assert torch.equal(v.cpu(), cpu_quant[k]), k
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_with_k1_k2_gives_the_gradients_of_no_remat(gen, policy):
+    """A two-layer bf16 flagship encoder (S=421, batch 16) with K1/K2 and
+    drop-path 0.1 on the card: the
+    gradients with remat equal those without bit for bit (the recompute
+    replays the generator's draws and the kernels are deterministic), K1
+    launches twice a layer (forward and recompute), K2 once, and the peak
+    memory of the step is lower."""
+    from simvg_tpu_torch.models import init_random_weights
+    from simvg_tpu_torch.models.beit3 import BEiT3Config, BEiT3Encoder
+    from simvg_tpu_torch.models.layers import set_generator
+
+    def step(remat):
+        cfg = BEiT3Config(img_size=640, patch_size=32, embed_dim=768,
+                          num_heads=12, ffn_dim=3072, num_layers=2,
+                          vocab_size=100, drop_path_rate=0.1,
+                          dtype=torch.bfloat16, attn_impl="pallas",
+                          remat=remat, remat_policy=policy)
+        with torch.device("cuda"):
+            enc = BEiT3Encoder(cfg)
+        init_random_weights(enc, 0)
+        enc.train()
+        set_generator(enc, torch.Generator(device="cuda").manual_seed(3))
+        r = np.random.default_rng(0)
+        args = (torch.from_numpy(r.normal(size=(16, 640, 640, 3)).astype(
+                    np.float32)).cuda(),
+                torch.from_numpy(r.integers(1, 100, (16, 20))).cuda(),
+                torch.zeros(16, 20, dtype=torch.int64, device="cuda"))
+        args[2][:, 12:] = 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1, k2 = fused_attention.launches, attention_bwd.launches
+        loss = sum((o.float() ** 2).sum() for o in enc(*args))
+        grads = torch.autograd.grad(loss, list(enc.parameters()),
+                                    allow_unused=True)  # mask_token
+        torch.cuda.synchronize()
+        return (grads, fused_attention.launches - k1,
+                attention_bwd.launches - k2,
+                torch.cuda.max_memory_allocated())
+
+    want, k1, k2, peak = step(False)
+    got, rk1, rk2, rpeak = step(True)
+    assert (k1, k2) == (2, 2) and (rk1, rk2) == (4, 2)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert rpeak < peak

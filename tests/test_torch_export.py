@@ -141,6 +141,60 @@ def test_export_weights_as_argument(model, tmp_path):
         prog.call(batch)
 
 
+def _int8_static(seed=0):
+    """The tiny model in int8_static, with K1, calibrated on one batch."""
+    from simvg_tpu_torch.ops import quant as q
+
+    base = _model(seed)
+    models = {}
+    for mode in ("int8_calib", "int8_static"):
+        m = SimVGModel(dataclasses.replace(base.cfg, beit3=dataclasses.replace(
+            base.cfg.beit3, quant=mode))).eval()
+        m.load_state_dict(base.state_dict(), strict=True)
+        models[mode] = m
+    with torch.no_grad():
+        models["int8_calib"](**to_torch(np_batch(b=2, seed=9)))
+    static = models["int8_static"]
+    q.set_quant_collection(static, q.build_quant_collection(
+        static, q.calibration_amax(models["int8_calib"])))
+    return static
+
+
+def test_export_int8_static(tmp_path):
+    """int8_static exports with baked weights and with weights as an
+    argument: 12 _int_mm nodes a layer beside its K1 node, outputs equal
+    to the eager step's bit for bit, "quantized" in the meta.  With
+    weights as an argument the quant tensors travel in the argument
+    (``serving_state``), not as constants of the program: other scales in
+    the argument give other outputs."""
+    from simvg_tpu_torch.export import int_mm_op_count, serving_state
+
+    model = _int8_static()
+    layers = model.cfg.beit3.num_layers
+    batch = to_torch(np_batch(b=2))
+    direct = make_eval_step(model)(batch)
+    for bake in (True, False):
+        f = str(tmp_path / f"q{bake}.pt2")
+        save_exported(f, export_serving(model, batch, bake_weights=bake))
+        prog = load_exported(f)
+        assert prog.meta["quantized"]
+        assert int_mm_op_count(prog) == 12 * layers
+        assert attention_op_count(prog) == layers
+        if bake:
+            _assert_equal(prog.call(batch), direct)
+            continue
+        assert not prog.program.state_dict
+        assert not any(v.dtype == torch.int8
+                       for v in prog.program.constants.values())
+        params = serving_state(model)
+        assert {k for k in params if k.endswith(".w_q")}
+        _assert_equal(prog.call(params, batch), direct)
+        halved = {k: v / 2 if k.endswith(".act_scale") else v
+                  for k, v in params.items()}
+        assert not torch.equal(prog.call(halved, batch)["token"]["best_box"],
+                               direct["token"]["best_box"])
+
+
 def test_export_platforms_raise(model):
     with pytest.raises(ValueError, match="no counterpart"):
         export_serving(model, to_torch(np_batch(b=2)), platforms=("tpu",))

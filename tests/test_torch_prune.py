@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from util_torch_port import (TINY_BEIT3, TINY_HEAD, jax_tiny_model,
+from util_torch_port import (TINY_BEIT3, TINY_HEAD, assert_int8_close,
+                             jax_tiny_model,
                              np_batch, to_jax, to_torch)
 
-from simvg_tpu_torch.convert import load_jax_params
+from simvg_tpu_torch.convert import export_simvg_full, load_jax_params
 from simvg_tpu_torch.models import build_model, init_random_weights
 from simvg_tpu_torch.models.beit3 import (BEiT3Config, BEiT3Encoder,
                                           stable_top_k)
@@ -283,6 +284,51 @@ def test_pruned_model_matches_jax(jax_init_params):
                                     "cpu").reshape(4, 16)
     want = np.take_along_axis(full.numpy(), np.asarray(idx_j), axis=1)
     np.testing.assert_array_equal(masks[0][:, :, 0].numpy(), want)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+def test_prune_composes_with_int8(jax_init_params, quant, tmp_path):
+    """Both serving levers together (tests/test_token_prune.py): the
+    encoder pruned after layer 0 with w8a8 Linears keeps 5 patches, and
+    matches the JAX encoder
+    on the same weights and quant collection (int8_static: the port's
+    calibration, read by JAX's load_quant_collection) within the int8
+    bounds (``util_torch_port.assert_int8_close``), with the same kept
+    indices."""
+    from simvg_tpu.models.beit3 import BEiT3Config as JaxBEiT3Config
+    from simvg_tpu.models.beit3 import BEiT3Encoder as JaxEncoder
+    from simvg_tpu.ops.quant import load_quant_collection
+    from simvg_tpu_torch.ops import quant as q
+
+    kw = dict(TINY_BEIT3, **dict(PRUNE, token_prune_layer=0))
+    params = {"params": jax_init_params["params"]["beit3"]}
+    port = BEiT3Encoder(BEiT3Config(**kw, quant=quant)).eval()
+    sd = export_simvg_full({"params": {"beit3": params["params"]}})
+    port.load_state_dict({k[len("vis_enc.beit3."):]: torch.from_numpy(v)
+                          for k, v in sd.items()}, strict=True)
+    batch = np_batch(b=3, seed=4)
+    args = [batch[k] for k in ("image", "text_ids", "text_padding_mask")]
+    variables = dict(params)
+    if quant == "int8_static":
+        calib = BEiT3Encoder(BEiT3Config(**kw, quant="int8_calib")).eval()
+        calib.load_state_dict(port.state_dict(), strict=True)
+        with torch.no_grad():
+            calib(*map(torch.from_numpy, args))
+        npz = str(tmp_path / "q.npz")
+        q.save_quant_collection(npz, q.build_quant_collection(
+            calib, q.calibration_amax(calib)))
+        q.attach_static_quant(port, npz)
+        variables["quant"] = load_quant_collection(npz)
+    *out_j, idx_j = JaxEncoder(JaxBEiT3Config(**kw, quant=quant)).apply(
+        variables, *map(jnp.asarray, args), return_prune_idx=True)
+    with torch.no_grad():
+        *out_t, idx_t = port(*map(torch.from_numpy, args),
+                             return_prune_idx=True)
+    assert out_t[0].shape == (3, 5, 32)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    for a, b in zip(out_t, out_j):
+        assert torch.isfinite(a).all()
+        assert_int8_close(a.numpy(), b)
 
 
 def test_stable_top_k_pins_the_lower_index_on_ties():

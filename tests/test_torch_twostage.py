@@ -6,8 +6,12 @@ EMA) for 1 epoch; stage 2 trains ``tiny_synth_stage2.py`` (balanced
 distillation) from ``load_from=<stage 1>/latest`` for 4 epochs.  Stage 1
 logs no token loss; in stage 2 the distillation loss of the last epoch is
 below 0.8x the first epoch's and the token loss below 0.95x (the JAX
-trajectory at seed 6666: kd 1.06 -> 0.54, tgt 10.3 -> 8.1).  The int8
-serving half of the JAX test waits for the port's quantisation (M17).
+trajectory at seed 6666: kd 1.06 -> 0.54, tgt 10.3 -> 8.1).  Then the
+int8 serving half: stage 1's latest is calibrated with the port's
+``quantize_serving`` and evaluated by the test CLI under int8_static with
+``--with-ema --quant-collection``, which serves both the raw and the EMA
+weights (each with its own quantized weights and the .npz's activation
+scales).
 """
 
 import json
@@ -17,6 +21,8 @@ import numpy as np
 
 from util_synth import make_refcoco_style
 
+from simvg_tpu_torch.tools import quantize_serving
+from simvg_tpu_torch.tools import test as test_cli
 from simvg_tpu_torch.tools import train as train_cli
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
@@ -64,6 +70,20 @@ def test_twostage_flow(tmp_path):
     tgt0, tgt1 = ep_mean("loss_tgt", first), ep_mean("loss_tgt", final)
     assert kd1 < 0.8 * kd0, (kd0, kd1)
     assert tgt1 < 0.95 * tgt0, (tgt0, tgt1)
+
+    data_opts = [f"data.{s}.{k}={root}/{v}" for s in ("train", "val")
+                 for k, v in (("annsfile", "instances.json"),
+                              ("imgsfile", "images"))]
+    stage1 = osp.join(SMOKE, "tiny_synth_stage1.py")
+    npz = str(tmp_path / "q.npz")
+    quantize_serving.main([stage1, str(s1 / "latest"), "--device", "cpu",
+                           "--num-batches", "1", "--out", npz,
+                           "--cfg-options", *data_opts])
+    res = test_cli.main([stage1, str(s1 / "latest"), "--device", "cpu",
+                         "--with-ema", "--quant-collection", npz,
+                         "--cfg-options", "model.vis_enc.quant=int8_static",
+                         *data_opts])
+    assert {"val", "val[EMA]"} <= set(res), sorted(res)
 
 
 def test_distill_proof_big_chain_runs(tmp_path):

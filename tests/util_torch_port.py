@@ -18,6 +18,23 @@ TINY_HEAD = dict(num_queries=2, in_channels=32, embed_dim=32,
                  num_decoder_layers=2, num_tgqg_layers=1)
 
 
+# int8 outputs against JAX: a float32 difference of ~1e-6 upstream (another
+# summation order) can move an activation across a k + 0.5 boundary of its
+# int8 grid, which moves that value one step, s_x * s_w * |w_q| in the
+# product (~1e-3 at these weights) and more after the layers above it.
+# Such flips are rare: the most elements may differ by INT8_MAX_ATOL, the
+# mean by INT8_MEAN_ATOL, a tenth of the int8 model's own drift from float32
+INT8_MAX_ATOL = 5e-3
+INT8_MEAN_ATOL = 2e-4
+
+
+def assert_int8_close(got, want, err_msg=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    assert diff.max() <= INT8_MAX_ATOL, (err_msg, diff.max())
+    assert diff.mean() <= INT8_MEAN_ATOL, (err_msg, diff.mean())
+
+
 def jax_tiny_model():
     from simvg_tpu.models import SimVGConfig, SimVGModel
     from simvg_tpu.models.beit3 import BEiT3Config
