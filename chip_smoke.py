@@ -59,8 +59,19 @@ exported int8_static program bit for bit eager's, and int8_qat train steps.
 Then "remat": configs/single/ViT-large/refcoco/refcoco_onestage.py as
 written (ViT-large/32, 24 layers, batch 4, remat on) with remat off,
 "full" and "dots": gradients with drop-path against remat off bit for bit,
-K1/K2 a step, step time and peak memory.  K1/K2 launches are counted from
-0 around each path.
+K1/K2 a step, step time and peak memory.  Then "dist" (M16,
+``parallel/mesh.py``) in 1-rank NCCL groups (a card holds one NCCL rank):
+the flagship through the train CLI with ``--distributed`` (DDP; its first
+loss against the non-distributed run's) and the test CLI with it on its
+det_best (the metrics of the test CLI without it), and the fsdp8 config
+through both (FSDP2; the test CLI's det_acc the train CLI's), while the
+synthetic JPEGs are there; then configs/single/ViT-large/refcoco/
+refcoco_onestage_fsdp8.py as written under FSDP2 on the remat phase's
+weights: one batch's loss terms and gradients bit for bit the unwrapped
+model's, held to float32 (the gradients and loss_total by the bf16 rule,
+every K1/K2 call too), K1/K2 a step, step time and peak memory
+beside the unwrapped model's, and one NCCL all-reduce of evaluation
+counters.  K1/K2 launches are counted from 0 around each path.
 
 Every phase raises on failure; there is no CPU path.
 
@@ -624,24 +635,41 @@ def dropout_off(model):
             m.attn_dropout = 0.0
 
 
-def losses_and_grads(model, batch, loss_cfg, norm):
+def losses_and_grads(model, batch, loss_cfg, norm, sharded=None,
+                     dp_size=1):
     """One train-mode forward and backward, as the train step takes it:
     returns ({loss term: float}, {param name: fp32 grad}).  ``norm``: the
-    uint8 image's normalisation, None for an image the loader normalised."""
+    uint8 image's normalisation, None for an image the loader normalised.
+    ``sharded``: ``model``'s layout on a mesh (``shard_model``), whose
+    module runs the forward on this rank's shard of the batch; the loss
+    terms and the gradients come back whole, the global batch's.
+    ``dp_size``: the criterion's, for a model that is not laid out."""
     import torch
     from simvg_tpu_torch.engine import normalize_images_on_device
-    from simvg_tpu_torch.engine.train import train_losses
+    from simvg_tpu_torch.engine.train import global_scalars, train_losses
+    from simvg_tpu_torch.parallel import full_tensor, local
 
     image = batch["image"] if norm is None else normalize_images_on_device(
         batch["image"], norm["mean"], norm["std"], True, batch["img_shape"])
+    kw = (dict(dp_size=dp_size) if sharded is None else
+          dict(dp_size=sharded.dp, batch_sum=sharded.batch_sum))
     losses, _ = train_losses(
-        model, batch, image, branch_loss_weight=loss_cfg["branch_loss_weight"],
+        model if sharded is None else sharded.module, batch, image,
+        branch_loss_weight=loss_cfg["branch_loss_weight"],
         prepare_target_mode=loss_cfg["prepare_target_mode"],
         distill_type=loss_cfg["distill_type"],
-        mlp_aux_loss=loss_cfg["mlp_aux_loss"])
+        mlp_aux_loss=loss_cfg["mlp_aux_loss"], **kw)
     names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(losses["loss_total"], params,
-                                allow_unused=True)
+    if sharded is None:
+        grads = torch.autograd.grad(losses["loss_total"], params,
+                                    allow_unused=True)
+    else:
+        (losses["loss_total"] * sharded.dp).backward()
+        sharded.sync_grads(params)
+        grads = [None if p.grad is None else full_tensor(local(p.grad), p)
+                 for p in params]
+        losses = global_scalars({k: v.detach() for k, v in losses.items()},
+                                sharded.batch_sum, sharded.dp)
     return ({k: v.item() for k, v in losses.items()},
             {n: (torch.zeros_like(p) if g is None else g).float()
              for n, p, g in zip(names, params, grads)})
@@ -771,6 +799,68 @@ def hold_train_against_plain(name, cfg, state, batch, loss_cfg, norm):
     if bad:
         raise AssertionError(f"the {name} train step with K1/K2 is further "
                              f"from float32 than the bound in {bad}")
+    hold_calls_against_fp32(f"train[{name}]", calls)
+
+
+def hold_sharded_against_unwrapped(name, cfg, state, batch, loss_cfg, norm,
+                                   wrap):
+    """Loss terms and gradients of one batch on the weights ``state``,
+    dropout off, every model on the float32 model's Hungarian matching:
+    the model laid out by ``wrap`` (which returns its ``shard_model``
+    layout) against the same bf16 K1/K2 model unwrapped, bit for bit (a
+    1-rank layout copies, it does not change the arithmetic); every K1/K2
+    call of the laid-out run against float32 attention on its own inputs
+    (``hold_calls_against_fp32``); and its distance from the float32 plain
+    model beside the bf16 plain model's: the gradients' (max |difference|,
+    relative L2) and loss_total's within BF16_REF_FACTOR x plain's + the
+    floors, the other loss terms printed (a term that is a mean over a
+    batch of 4, as the distillation weight, moves between seeds by more
+    than that factor in both bf16 models)."""
+    import torch
+
+    runs, matching, calls = {}, [], []
+    for label, impl, dtype in (("fp32 plain", "xla", torch.float32),
+                               ("unwrapped", "pallas", torch.bfloat16),
+                               ("wrapped", "pallas", torch.bfloat16),
+                               ("plain", "xla", torch.bfloat16)):
+        model = build_flagship(cfg, impl, dtype, state)[0]
+        dropout_off(model)
+        sharded = wrap(model) if label == "wrapped" else None
+        with fixed_matching(matching), recorded_attention() as new_calls:
+            runs[label] = losses_and_grads(model, batch, loss_cfg, norm,
+                                           sharded)
+        if label == "wrapped":
+            calls = new_calls
+        del model, sharded
+        torch.cuda.empty_cache()
+    (lw, gw), (lu, gu) = runs["wrapped"], runs["unwrapped"]
+    if lw != lu or any(not torch.equal(gw[n], g) for n, g in gu.items()):
+        raise AssertionError(f"{name}: the laid-out model's loss terms or "
+                             "gradients differ from the unwrapped model's")
+    losses32, grads32 = runs["fp32 plain"]
+    gmax = max(g.abs().max().item() for g in grads32.values())
+    gnorm = l2(grads32.values())
+    dist = {}
+    for label in ("wrapped", "plain"):
+        losses, grads = runs[label]
+        dist[label] = dict(
+            {k: abs(losses[k] - v) / max(abs(v), 1e-12)
+             for k, v in losses32.items()},
+            grad_max=max((grads[n] - g).abs().max().item()
+                         for n, g in grads32.items()) / gmax,
+            grad_l2=l2(grads[n] - g for n, g in grads32.items()) / gnorm)
+    log(f"bf16 train[{name}], one batch, dropout off: loss terms and "
+        f"gradients equal to the unwrapped K1/K2 model's bit for bit; "
+        f"distance from the float32 plain model, relative, laid out "
+        f"{dist['wrapped']}, plain bf16 {dist['plain']} (bound "
+        f"{BF16_REF_FACTOR} x plain + {GRAD_FLOOR} on the gradients and "
+        f"loss_total)")
+    bad = [k for k in ("grad_max", "grad_l2", "loss_total")
+           if not dist["wrapped"][k] <= BF16_REF_FACTOR * dist["plain"][k]
+           + (GRAD_FLOOR if k.startswith("grad") else LOSS_FLOOR)]
+    if bad:
+        raise AssertionError(f"the {name} train step is further from "
+                             f"float32 than the bound in {bad}")
     hold_calls_against_fp32(f"train[{name}]", calls)
 
 
@@ -1099,7 +1189,7 @@ def cli_phase(card, root, opts):
     train 1 epoch (2 steps of 32, eval of val/testA/testB, det_best and
     latest), test on det_best (the same det_acc), resume from latest to
     epoch 2; K1/K2 launches counted from 0 around each.  Returns the K1 and
-    K2 launches of the three runs."""
+    K2 launches of the three runs and the first run's train losses."""
     import torch
     from simvg_tpu_torch.tools import test as test_cli
     from simvg_tpu_torch.tools import train as train_cli
@@ -1172,7 +1262,8 @@ def cli_phase(card, root, opts):
         f"GiB, params + amsgrad's three moments): load {load_s:.2f} s to the "
         f"host, save {save_s:.2f} s from the card (copy to the host + write)"
         f" [{card}]")
-    return (sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches))
+    return (sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches),
+            losses)
 
 
 GREC = os.path.join(REPO, "configs", "single", "ViT-base", "grefcoco",
@@ -2315,7 +2406,8 @@ def remat_phase(card, launches):
     config's drop-path from one generator seed, against remat off (bit for
     bit), with the memory that the forward keeps for the backward and the
     peak of both, then 1 + REMAT_STEPS train steps: K1/K2 launches a step, the
-    step's median and peak allocated memory."""
+    step's median and peak allocated memory.  Returns ({mode: (median ms,
+    peak GiB)}, the weights)."""
     import numpy as np
     import torch
     from simvg_tpu_torch.config import Config
@@ -2373,7 +2465,7 @@ def remat_phase(card, launches):
         return losses["loss_total"].item(), grads, saved / 2 ** 30, (
             torch.cuda.max_memory_allocated() - before) / 2 ** 30
 
-    want = None
+    want, summary = None, {}
     for mode, vis in (("off", dict(remat=False)),
                       ("full", dict(remat=True, remat_policy="full")),
                       ("dots", dict(remat=True, remat_policy="dots"))):
@@ -2421,8 +2513,205 @@ def remat_phase(card, launches):
         if loss != want[0] or diff != 0.0:
             raise AssertionError(f"remat {mode}: gradients differ from remat "
                                  "off")
+        summary[mode] = (times[len(times) // 2], peak)
         del model, step, tstate
         torch.cuda.empty_cache()
+    return summary, state
+
+
+FSDP8 = os.path.join(REPO, "configs", "single", "ViT-large", "refcoco",
+                     "refcoco_onestage_fsdp8.py")
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """torchrun's environment for a 1-rank group on this card (a free port
+    on localhost), restored after the body."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_phase(card, remat, state, launches):
+    """configs/single/ViT-large/refcoco/refcoco_onestage_fsdp8.py as written
+    (ViT-large/32 at 640 px, batch 4, bf16 compute, fp32 params, remat on,
+    Adam amsgrad; fsdp) under FSDP2 in a 1-rank NCCL group, on the "remat"
+    phase's weights: the loss terms and gradients of one batch, dropout
+    off, against the unwrapped model's and float32
+    (``hold_sharded_against_unwrapped``, every K1/K2 call too); then
+    1 + REMAT_STEPS train steps, K1/K2 launches a step, the step's median
+    and peak beside the remat phase's unwrapped ones; and one NCCL
+    all-reduce of evaluation counters, exact.  A card cannot hold two NCCL
+    ranks, so the group has one: the code paths of any size, at full
+    width."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.models import build_model
+    from torch.distributed.tensor import DTensor
+    from simvg_tpu_torch.parallel import (FSDP_MIN_SIZE, create_mesh,
+                                          init_distributed, local,
+                                          shard_model)
+
+    cfg = Config.fromfile(FSDP8)
+    loss_cfg = build_model(cfg.model, img_size=cfg.img_size,
+                           device="meta")[1]
+    batch_size = cfg.data.samples_per_gpu
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    min_size = cfg.get("fsdp_min_size", FSDP_MIN_SIZE)
+    layers = cfg.model.vis_enc.get("num_layers", 24)
+    batches = [to_device(b, TRAIN_KEYS) for b in make_requests(
+        np.random.default_rng(SEED + 4), REMAT_STEPS + 1, batch_size,
+        cfg.model.vis_enc.vocab_size, cfg.max_token, cfg.img_size)]
+    with one_rank_group():
+        init_distributed("cuda", timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = create_mesh(cfg.get("model_parallel", 1), "cuda")
+            log(f"dist: {os.path.relpath(FSDP8, REPO)}: fsdp "
+                f"{cfg.fsdp}, fsdp_min_size {min_size}, model_parallel "
+                f"{cfg.get('model_parallel', 1)}, remat "
+                f"{cfg.model.vis_enc.remat}, batch {batch_size}; a 1-rank "
+                f"{dist.get_backend()} group, mesh {mesh.shape}")
+
+            def wrap(model):
+                return shard_model(model, mesh, fsdp=True,
+                                   fsdp_min_size=min_size)
+
+            hold_sharded_against_unwrapped("fsdp8", cfg, state,
+                                           batches[0], loss_cfg, norm, wrap)
+            model = build_flagship(cfg, "pallas", torch.bfloat16, state)[0]
+            sharded = wrap(model)
+            params = list(model.parameters())
+            n_sharded = sum(isinstance(p, DTensor) for p in params)
+            step, tstate = make_train_step_for(cfg, model, loss_cfg, norm,
+                                               sharded=sharded)
+            tstate, _ = step(tstate, batches[0], SEED)  # warm-up
+            times, box = [], {"state": tstate}
+
+            def steps():
+                for b in batches[1:]:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    box["state"], out = step(box["state"], b, SEED)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                return out
+
+            scalars = counted_run(
+                "dist[fsdp8 train]", steps, 2 * layers * REMAT_STEPS,
+                layers * REMAT_STEPS, card, launches)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if not np.isfinite(float(scalars["loss_total"])):
+                raise AssertionError(f"dist fsdp8: loss {scalars}")
+            times.sort()
+            off, full = remat["off"], remat["full"]
+            log(f"dist[fsdp8]: {n_sharded} of {len(params)} parameters "
+                f"sharded (FSDP2), {sum(local(p).numel() for p in params)} "
+                f"elements held; train step, batch {batch_size}, bf16: median "
+                f"{times[len(times) // 2]:.3f} ms/step (min {times[0]:.3f}, "
+                f"max {times[-1]:.3f}), max_memory_allocated {peak:.2f} GiB; "
+                f"unwrapped (remat phase): full {full[0]:.3f} ms, "
+                f"{full[1]:.2f} GiB; off {off[0]:.3f} ms, {off[1]:.2f} GiB; "
+                f"loss_total {float(scalars['loss_total'])}, grad_norm "
+                f"{float(scalars['grad_norm'])} [{card}]")
+            counters = torch.tensor([13.0, 9.123456789, 16.0, 0.5, 7.0],
+                                    dtype=torch.float64)
+            summed = sharded.batch_sum(counters)
+            if summed.device.type != "cuda" or not torch.equal(
+                    summed.cpu(), counters):
+                raise AssertionError(f"NCCL all-reduce of eval counters: "
+                                     f"{summed} for {counters}")
+            log(f"dist: NCCL all-reduce of eval counters on "
+                f"{summed.device}: {summed.tolist()}, exact")
+            del model, sharded, step, tstate, box
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def dist_cli_phase(card, root, opts, single_losses):
+    """The flagship through the train CLI with ``--distributed`` (DDP in a
+    1-rank NCCL group, one epoch on the synthetic JPEGs), its first step's
+    loss against the non-distributed CLI run's (the same weights and
+    batch); then the test CLI with and without ``--distributed`` on its
+    det_best, the same metrics.  Then refcoco_onestage_fsdp8.py as written
+    through both CLIs with ``--distributed`` (FSDP2, one epoch of batch 4,
+    its checkpoints gathered from the shards): the test CLI's det_acc on
+    det_best the train CLI's.  Returns the K1/K2 launches."""
+    from simvg_tpu_torch.tools import test as test_cli
+    from simvg_tpu_torch.tools import train as train_cli
+
+    wd = os.path.join(root, "work_ddp")
+    steps = N_SYNTH_TRAIN // TRAIN_BATCH
+    evals = 3
+    launches = []
+    with one_rank_group():
+        res = counted_run("dist[cli train]", lambda: train_cli.main(
+            [FLAGSHIP, "--work-dir", wd, "--distributed", "--cfg-options",
+             *opts, "scheduler_config.max_epoch=1"]),
+            K1_STEP * (steps + evals), K1_STEP * steps, card, launches)
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss_total"] for line in f
+                      if '"train"' in line]
+        rel = abs(losses[0] - single_losses[0]) / abs(single_losses[0])
+        log(f"dist[cli train]: DDP, 1 rank: loss_total {losses} (the "
+            f"non-distributed run: {single_losses}; first step relative "
+            f"difference {rel}); eval {res['eval']['val']}")
+        if not rel <= 1e-6:
+            raise AssertionError("the distributed train CLI's first loss "
+                                 "differs from the non-distributed run's")
+        best = os.path.join(wd, "det_best")
+        got = counted_run("dist[cli test]", lambda: test_cli.main(
+            [FLAGSHIP, best, "--distributed", "--cfg-options", *opts]),
+            K1_STEP * evals, 0, card, launches)
+    want = test_cli.main([FLAGSHIP, best, "--cfg-options", *opts])
+    if got != want:
+        raise AssertionError(f"test CLI --distributed {got} != {want}")
+    log(f"dist[cli test]: det_best with --distributed: {got['val']}, the "
+        f"same as without it")
+
+    from simvg_tpu_torch.config import Config
+
+    wd = os.path.join(root, "work_fsdp8")
+    batch = Config.fromfile(FSDP8).data.samples_per_gpu
+    layers, steps, evals = 24, N_SYNTH_TRAIN // batch, 3 * N_SYNTH_VAL // batch
+    with one_rank_group():
+        res = counted_run("dist[fsdp8 cli train]", lambda: train_cli.main(
+            [FSDP8, "--work-dir", wd, "--distributed", "--cfg-options", *opts,
+             "scheduler_config.max_epoch=1"]),
+            layers * (2 * steps + evals), layers * steps, card, launches)
+        got = counted_run("dist[fsdp8 cli test]", lambda: test_cli.main(
+            [FSDP8, os.path.join(wd, "det_best"), "--distributed",
+             "--cfg-options", *opts]), layers * evals, 0, card, launches)
+    ep = res["epochs"][0]
+    log(f"dist[fsdp8 cli]: FSDP2, 1 rank: {steps} steps of {batch}, epoch "
+        f"{ep['seconds']:.2f} s ({ep['images_per_s']:.1f} images/s), eval "
+        f"{res['eval']['val']}; det_best {_dir_gib(wd + '/det_best'):.3f} "
+        f"GiB, latest {_dir_gib(wd + '/latest'):.3f} GiB; test CLI on "
+        f"det_best {got['val']} [{card}]")
+    if not (res["step"] == steps
+            and got["val"]["det_acc"] == res["eval"]["val"]["det_acc"]):
+        raise AssertionError(f"fsdp8 CLIs: step {res['step']}, test "
+                             f"{got['val']}, train {res['eval']['val']}")
+    return (sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches))
 
 
 def serving_phases(card, root, synth):
@@ -2496,7 +2785,7 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         synth = data_phase(card, root, step_ms)
-        cli_k1, cli_k2 = cli_phase(card, root, synth)
+        cli_k1, cli_k2, cli_losses = cli_phase(card, root, synth)
         grec_k1, grec_k2 = grec_phase(card, root)
         mixed_k1, mixed_k2 = mixed_phase(card, root)
         serving = serving_phases(card, root, synth)
@@ -2505,19 +2794,29 @@ def main() -> int:
         int8_phase(card, root, synth, counts)
         int8_k1, int8_k2 = (sum(c[i] for c in counts) for i in (0, 1))
         log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
+        t_dist = time.perf_counter()
+        dist_k1, dist_k2 = dist_cli_phase(card, root, synth, cli_losses)
+        t_dist = time.perf_counter() - t_dist
     finally:
         shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     counts = []
-    remat_phase(card, counts)
+    remat, large_state = remat_phase(card, counts)
     remat_k1, remat_k2 = (sum(c[i] for c in counts) for i in (0, 1))
     log(f"remat phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = []
+    dist_phase(card, remat, large_state, counts)
+    del large_state
+    dist_k1 += sum(c[0] for c in counts)
+    dist_k2 += sum(c[1] for c in counts)
+    log(f"dist phase: {time.perf_counter() - t0 + t_dist:.1f} s")
     log(f"launches on the main paths: K1 serve {serve_k1}, train {train_k1}, "
         f"cli {cli_k1}, grec {grec_k1}, mixed {mixed_k1}, "
         + ", ".join(f"{k} {v}" for k, v in serving.items())
-        + f", int8 {int8_k1}, remat {remat_k1}; K2 train {train_k2}, cli "
-        f"{cli_k2}, grec {grec_k2}, mixed {mixed_k2}, int8 {int8_k2}, remat "
-        f"{remat_k2}")
+        + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}; K2 train "
+        f"{train_k2}, cli {cli_k2}, grec {grec_k2}, mixed {mixed_k2}, int8 "
+        f"{int8_k2}, remat {remat_k2}, dist {dist_k2}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
@@ -2540,10 +2839,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
               k1_rows, serve_k1 + train_k1 + cli_k1 + grec_k1 + mixed_k1
-              + sum(serving.values()) + int8_k1 + remat_k1),
+              + sum(serving.values()) + int8_k1 + remat_k1 + dist_k1),
         entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
               k2_rows, train_k2 + cli_k2 + grec_k2 + mixed_k2 + int8_k2
-              + remat_k2),
+              + remat_k2 + dist_k2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,9 @@ def make_eval_step(model: torch.nn.Module,
     to_rgb}) the image is a uint8 BGR canvas normalised on the device."""
     model.eval()
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: FSDP2's all-gathered parameters must
+    # keep their version counters
+    @torch.no_grad()
     def eval_step(batch):
         model.eval()  # a train step in between leaves the model in train
         return eval_forward(model, batch, device_norm)

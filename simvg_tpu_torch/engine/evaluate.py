@@ -1,5 +1,5 @@
 """Evaluation loop (port of ``simvg_tpu/engine/evaluate.py::evaluate``,
-the box paths in one process).
+the box paths).
 
 Per batch: the eval step runs on the model's device; Prec@0.5 and mIoU
 (or, for GRefCOCO, the per-image boxes and scores that F1/N-acc need)
@@ -7,15 +7,21 @@ accumulate on the host over the ``batch_valid`` rows, so the duplicates
 that wrap-pad the last batch are not counted.  Batches may come from the
 port's loader, with the image already on the device.  Mask mIoU waits for
 the mask path (ROADMAP: masks).
+
+On data-parallel ranks each rank evaluates its shard of the split and the
+counters (Prec@0.5 hits, IoU sums, counts; GRefCOCO's correct images,
+counts and no-target TP/FN) are summed over the ranks before the division,
+as JAX's ``_allgather_sum``: every rank returns the whole split's metrics.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from simvg_tpu_torch.parallel.mesh import local
 from .eval import BRANCH_KEYS, make_eval_step
 from .metrics import detection_accuracy, grec_f1_nacc
 
@@ -32,6 +38,7 @@ def evaluate(
     log_fn: Optional[Callable[[str], None]] = None,
     log_interval: int = 50,
     max_batches: Optional[int] = None,
+    batch_sum: Optional[Callable] = None,
 ) -> Dict[str, float]:
     """Returns per-branch ``{branch}_det_acc`` / ``{branch}_miou``, their
     mean ``det_acc``, ``n_samples`` and ``miou`` (the mask mIoU, 0.0 for
@@ -44,9 +51,10 @@ def evaluate(
     host or the model's device) with the eval step's keys plus gt_boxes
     [B, M, 4] xyxy and batch_valid [B].  ``log_fn`` gets a progress line
     every ``log_interval`` batches; ``max_batches`` stops early (the
-    metrics then cover a subset)."""
+    metrics then cover a subset).  ``batch_sum`` (``Sharded.batch_sum``)
+    sums the counters over the data-parallel ranks."""
     step = eval_step or make_eval_step(model)
-    device = next(model.parameters()).device
+    device = local(next(model.parameters())).device
     branches = [name for name, _, _ in BRANCH_KEYS]
     acc = {b: {"iou_hits": 0.0, "iou_sum": 0.0, "n": 0} for b in branches}
     grec = {b: new_grec_lists() for b in branches}
@@ -79,7 +87,7 @@ def evaluate(
     out: Dict[str, float] = {}
     if is_grec:
         for b in branches:
-            m = grec_f1_nacc(**grec[b])
+            m = grec_summary(grec[b], batch_sum)
             out["n_samples"] = float(m["n"])
             out[f"{b}_F1_score"] = m["F1_score"]
             out[f"{b}_N_acc"] = m["N_acc"]
@@ -89,14 +97,38 @@ def evaluate(
         out["miou"] = float(np.mean([out[f"{b}_N_acc"] for b in branches]))
         return out
     for b in branches:
-        n = acc[b]["n"]
+        hits, iou_sum, n = _summed([acc[b]["iou_hits"], acc[b]["iou_sum"],
+                                    acc[b]["n"]], batch_sum)
         # both branches see every sample; count before the zero clamp
         out["n_samples"] = float(n)
-        out[f"{b}_det_acc"] = acc[b]["iou_hits"] / max(n, 1) * 100.0
-        out[f"{b}_miou"] = acc[b]["iou_sum"] / max(n, 1) * 100.0
+        out[f"{b}_det_acc"] = hits / max(n, 1) * 100.0
+        out[f"{b}_miou"] = iou_sum / max(n, 1) * 100.0
     out["det_acc"] = (out["decoder_det_acc"] + out["token_det_acc"]) / 2.0
     out["miou"] = 0.0
     return out
+
+
+def _summed(values: List[float],
+            batch_sum: Optional[Callable]) -> List[float]:
+    """``values`` summed over the ranks (in float64), or as they are."""
+    if batch_sum is None:
+        return values
+    return batch_sum(torch.tensor(values, dtype=torch.float64)).tolist()
+
+
+def grec_summary(acc: Dict, batch_sum: Optional[Callable] = None
+                 ) -> Dict[str, float]:
+    """``grec_f1_nacc`` of the per-image lists ``acc``; with ``batch_sum``
+    over every rank's images, from the summed counters (correct images,
+    images, no-target TP and FN)."""
+    m = grec_f1_nacc(**acc)
+    if batch_sum is None:
+        return m
+    correct, n, tp, fn = _summed([round(m["F1_score"] / 100.0 * m["n"]),
+                                  m["n"], m["TP"], m["FN"]], batch_sum)
+    return {"F1_score": correct / max(n, 1) * 100.0,
+            "N_acc": tp / (tp + fn) * 100.0 if tp != 0 else 0.0,
+            "n": n, "TP": tp, "FN": fn}
 
 
 def new_grec_lists() -> Dict[str, list]:

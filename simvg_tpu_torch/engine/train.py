@@ -10,7 +10,16 @@ are the Hungarian matchings (``ops/hungarian.py``).
 
 Train-mode randomness draws from one ``torch.Generator`` on the model's
 device that the step owns; it is seeded from (seed, step) every step, as
-the JAX step folds the step into its rng.
+the JAX step folds the step into its rng, and from the data-parallel rank,
+so that each rank draws its own dropout and drop-path masks (the ranks of
+one tensor-parallel group draw the same).
+
+On a mesh (``sharded``, ``parallel/mesh.py``) each rank runs its shard of
+the global batch: the criterion sums its batch statistics over the data
+axis, each rank back-propagates dp times its share of the global loss (the
+wrappers average the gradients over the ranks, which gives the global
+loss's gradient, as JAX's ``make_train_step(dp_size=dp)``), and the
+scalars returned are the global ones, equal on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from simvg_tpu_torch.losses.criterion import (normalize_targets,
 from simvg_tpu_torch.models.layers import set_generator
 from simvg_tpu_torch.models.model import decode_predictions
 from simvg_tpu_torch.ops.boxes import box_iou_aligned
+from simvg_tpu_torch.parallel.mesh import Sharded, local
 from .eval import BRANCH_KEYS, normalize_images_on_device
 from .train_state import Optimizer, TrainState, ema_update, global_norm
 
@@ -40,6 +50,18 @@ def _train_metrics(out, batch) -> Dict[str, torch.Tensor]:
         metrics[f"{name}_det_acc"] = (iou >= 0.5).float().mean() * 100.0
         metrics[f"{name}_miou"] = iou.mean() * 100.0
     return metrics
+
+
+def global_scalars(scalars: Dict[str, torch.Tensor], batch_sum: Callable,
+                    dp: int) -> Dict[str, torch.Tensor]:
+    """The global batch's scalars from the ranks' own, in one all-reduce:
+    the loss terms are the ranks' shares and add up; the distillation
+    weight is global already and the train metrics are means over equal
+    local batches, so both are averaged."""
+    keys = list(scalars)
+    summed = batch_sum(torch.stack([scalars[k].float() for k in keys]))
+    return {k: v if k.startswith("loss") and k != "loss_distill_w"
+            else v / dp for k, v in zip(keys, summed)}
 
 
 def train_losses(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
@@ -65,10 +87,10 @@ def make_train_step(
     distill_type: str = "hard_weighted",
     mlp_aux_loss: bool = False,
     ema_alpha: Optional[float] = None,
-    dp_size: int = 1,
     with_metrics: bool = True,
     return_predictions: bool = False,
     device_norm: Optional[Dict] = None,
+    sharded: Optional[Sharded] = None,
 ) -> Callable:
     """Returns ``train_step(state, batch, seed) -> (state, scalars)``.
 
@@ -81,11 +103,18 @@ def make_train_step(
     under ``"predictions"``, the last layer's (class logits, boxes) of both
     branches as device tensors, undecoded: the caller decodes them with
     ``decode_predictions`` on the steps it reads (GRefCOCO's train
-    F1/N-acc at the CLI's log lines)."""
+    F1/N-acc at the CLI's log lines).  ``sharded``: the layout of
+    ``model`` on a mesh (``shard_model``); the step then calls its
+    ``module``, and the state holds this rank's shards."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
-    generator = torch.Generator(device=params[0].device)
+    generator = torch.Generator(device=local(params[0]).device)
     set_generator(model, generator)
+    forward = model if sharded is None else sharded.module
+    dp = 1 if sharded is None else sharded.dp
+    rank = 0 if sharded is None else sharded.dp_rank
+    batch_sum = None if sharded is None else sharded.batch_sum
+    norm_groups = None if sharded is None else sharded.norm_groups(params)
 
     def _images(batch):
         if device_norm is None:
@@ -96,29 +125,41 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int):
-        generator.manual_seed((seed * 1_000_003 + state.step) % 2 ** 63)
+        generator.manual_seed((seed * 1_000_003 + state.step
+                               + rank * 0x9E3779B97F4A7C15) % 2 ** 63)
+        kw = {} if batch_sum is None else {"batch_sum": batch_sum}
         losses, out = train_losses(
-            model, batch, _images(batch),
+            forward, batch, _images(batch),
             branch_loss_weight=branch_loss_weight,
             prepare_target_mode=prepare_target_mode,
             distill_type=distill_type, mlp_aux_loss=mlp_aux_loss,
-            dp_size=dp_size)
-        grads = torch.autograd.grad(losses["loss_total"], params,
-                                    allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+            dp_size=dp, **kw)
+        for p in params:
+            p.grad = None
+        (losses["loss_total"] * dp if dp > 1
+         else losses["loss_total"]).backward()
+        if sharded is not None:
+            sharded.sync_grads(params)
+        shards = [local(p.detach()) for p in params]
+        grads = [torch.zeros_like(w) if p.grad is None else local(p.grad)
+                 for p, w in zip(params, shards)]
+        for p in params:
+            p.grad = None
 
         scalars = {k: v.detach() for k, v in losses.items()}
-        scalars["grad_norm"] = global_norm(grads)
-        state.opt_state = optimizer.apply(names, params, grads,
-                                          state.opt_state)
-        if state.ema_params is not None and ema_alpha is not None:
-            state.ema_step = ema_update(state.ema_params, params,
-                                        state.ema_step, ema_alpha)
-        state.step += 1
         with torch.no_grad():
             if with_metrics:
                 scalars.update(_train_metrics(out, batch))
+            if dp > 1:
+                scalars = global_scalars(scalars, batch_sum, dp)
+        scalars["grad_norm"] = global_norm(grads, norm_groups)
+        state.opt_state = optimizer.apply(names, shards, grads,
+                                          state.opt_state, norm_groups)
+        if state.ema_params is not None and ema_alpha is not None:
+            state.ema_step = ema_update(state.ema_params, shards,
+                                        state.ema_step, ema_alpha)
+        state.step += 1
+        with torch.no_grad():
             if return_predictions:
                 scalars["predictions"] = {
                     name: (out[ck][-1].detach(), out[bk][-1].detach())

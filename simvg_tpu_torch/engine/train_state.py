@@ -16,6 +16,10 @@ so a step launches a bounded number of kernels:
   eps).  ``torch.optim.Adam(amsgrad=True)`` keeps the max of the
   uncorrected nu and differs from step 2 on;
 - ``mu_dtype`` stores the first moment narrower; the arithmetic stays fp32.
+
+On a mesh (``parallel/mesh.py``) the update and the EMA run on each rank's
+local shards of the parameters, so under FSDP the moments and the EMA hold
+1/dp of every sharded leaf; the clip's norm is the whole gradient's.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import re
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from simvg_tpu_torch.parallel.mesh import local
 
 Schedule = Callable[[int], float]
 GROUPS = ("vis_enc", "lan_enc", "rest")
@@ -156,16 +162,18 @@ class Optimizer:
                         nu_max=zeros() if self.amsgrad else None)
 
     def apply(self, names: Sequence[str], params: Sequence[torch.Tensor],
-              grads: List[torch.Tensor], state: OptState) -> OptState:
+              grads: List[torch.Tensor], state: OptState,
+              norm_groups=None) -> OptState:
         """Updates ``params`` in place from ``grads`` (which it clobbers)
-        and returns the new state."""
+        and returns the new state.  ``norm_groups``: ``global_norm``'s, when
+        the tensors are shards."""
         frozen = [is_frozen(n, self.freeze_layer) for n in names]
         if any(frozen):
             for g, f in zip(grads, frozen):
                 if f:
                     g.zero_()
         if self.grad_norm_clip and self.grad_norm_clip > 0:
-            norm = global_norm(grads)
+            norm = global_norm(grads, norm_groups)
             scale = torch.where(norm < self.grad_norm_clip, 1.0,
                                 self.grad_norm_clip / norm)
             torch._foreach_mul_(grads, scale)
@@ -212,9 +220,27 @@ class Optimizer:
                 dst.copy_(src)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: Sequence[torch.Tensor],
+                groups=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+
+    ``groups``: for shards of a mesh, each tensor's process groups over
+    which its shards' square sums add up to the whole tensor's
+    (``Sharded.norm_groups``); a replicated tensor has none and counts
+    once.  Then the result is the whole gradient's norm on every rank."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if not groups or not any(groups):
+        return torch.linalg.vector_norm(norms)
+    import torch.distributed as dist
+
+    sq = norms ** 2
+    total = sq.new_zeros(())
+    for key in dict.fromkeys(groups):  # one all-reduce per kind of shard
+        part = sq[[i for i, g in enumerate(groups) if g == key]].sum()
+        for group in key:
+            dist.all_reduce(part, group=group)
+        total = total + part
+    return total.sqrt()
 
 
 def create_optimizer(
@@ -258,7 +284,9 @@ def create_optimizer(
 
 def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                        ema: bool = False) -> TrainState:
-    params = [p.detach() for p in model.parameters()]
+    """The state of a fresh run: zero moments and an EMA shadow the shape
+    of this rank's shards of the parameters."""
+    params = [local(p.detach()) for p in model.parameters()]
     return TrainState(
         step=0, opt_state=optimizer.init(params),
         ema_params=[p.clone() for p in params] if ema else None,
@@ -279,9 +307,9 @@ def ema_update(ema_params: List[torch.Tensor], params: Sequence[torch.Tensor],
 @contextlib.contextmanager
 def swapped_params(model: torch.nn.Module, tensors: Sequence[torch.Tensor]):
     """Runs the body with ``tensors`` (in ``model.parameters()`` order, e.g.
-    the EMA shadow) in the model's parameters, and puts the model's own
-    back after it."""
-    params = list(model.parameters())
+    the EMA shadow; this rank's shards on a mesh) in the model's
+    parameters, and puts the model's own back after it."""
+    params = [local(p.detach()) for p in model.parameters()]
     with torch.no_grad():
         saved = [p.detach().clone() for p in params]
         torch._foreach_copy_(params, list(tensors))

@@ -10,11 +10,20 @@ Matcher: detrex ``HungarianMatcher`` with ``ce_cost``, cost = 1 * -prob +
 5 * L1 + 2 * -GIoU.  ``num_boxes`` = max(global count, dp_size): the
 reference's per-rank clamp(all_reduce(count) / world, 1), divided per rank
 and DDP-averaged, gives the same gradients.
+
+Global-batch semantics on data-parallel ranks: JAX computes every loss
+over the global batch.  Each term is a sum over samples divided by a batch
+statistic, so a rank that divides its own samples' sums by the GLOBAL
+statistics gets its share of JAX's term, and the shares add up to it.
+``batch_sum`` sums a statistic over the data axis before it divides
+anything: the box count, the cross-entropy's weight sum and the
+distillation weight's numerator and denominator.  The Hungarian matchings
+stay per sample on each rank's host.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +69,11 @@ def normalize_targets(
                    valid=gt_valid.bool(),
                    weight=torch.ones(gt_valid.shape, dtype=torch.float32,
                                      device=gt_valid.device))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The single-process ``batch_sum``: the batch is the global batch."""
+    return t
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -112,12 +126,12 @@ def _per_query_nll(logits, col4row, targets: Targets, num_classes: int,
 
 
 def _ce_loss(logits, col4row, targets: Targets, num_classes: int,
-             eos_coef: float) -> torch.Tensor:
+             eos_coef: float, batch_sum: Callable = _local) -> torch.Tensor:
     """F.cross_entropy with the eos class weight: weighted mean over all
-    B*Q logits."""
+    B*Q logits (of the global batch)."""
     wnll, w, _ = _per_query_nll(logits, col4row, targets, num_classes,
                                 eos_coef)
-    return wnll.sum() / w.sum().clamp(min=1e-12)
+    return wnll.sum() / batch_sum(w.sum()).clamp(min=1e-12)
 
 
 def _focal_loss(logits, col4row, targets: Targets, num_classes: int,
@@ -189,6 +203,7 @@ def set_criterion(
     dp_size: int = 1,
     weight_dict: Optional[Dict[str, float]] = None,
     gt_count: Optional[torch.Tensor] = None,
+    batch_sum: Callable = _local,
 ) -> Dict[str, torch.Tensor]:
     """SetCriterion with aux losses and the head's weight_dict applied.
     Every decoder layer is matched independently, all layers in one host
@@ -204,7 +219,7 @@ def set_criterion(
         count = gt_count.float().sum()
     else:
         count = targets.valid.sum().float()
-    num_boxes = count.clamp(min=float(dp_size))
+    num_boxes = batch_sum(count).clamp(min=float(dp_size))
 
     pair_weight = loss_class_type == "weighted_ce_loss"
     col4row_all, row4col_all = hungarian_match(all_logits, all_boxes, targets)
@@ -219,7 +234,8 @@ def set_criterion(
         elif loss_class_type == "focal_loss":
             lc = _focal_loss(logits, col4row, targets, num_classes, num_boxes)
         else:
-            lc = _ce_loss(logits, col4row, targets, num_classes, eos_coef)
+            lc = _ce_loss(logits, col4row, targets, num_classes, eos_coef,
+                          batch_sum)
         lb, lg = _box_losses(boxes, col4row, targets, num_boxes, pair_weight)
         suffix = "" if layer == num_layers - 1 else f"_{layer}"
         lc = lc * weight_dict["loss_class"]
@@ -239,6 +255,7 @@ def prepare_soft_targets(
     targets_gt: Targets,
     prepare_target_mode: str = "score_iou_weighted",
     predict_threshold: float = 0.0,
+    batch_sum: Callable = _local,
 ):
     """Teacher-derived distillation targets.
 
@@ -248,7 +265,8 @@ def prepare_soft_targets(
     score_weighted: every teacher query above the score threshold becomes
     a target with weight = its score.
 
-    Returns (targets_pred, weights_distill: scalar mean weight)."""
+    Returns (targets_pred, weights_distill: scalar mean weight over the
+    global batch)."""
     teacher_logits = teacher_logits.detach()
     teacher_boxes = teacher_boxes.detach()
     scores = torch.softmax(teacher_logits.float(), dim=-1)[..., 0]
@@ -260,7 +278,9 @@ def prepare_soft_targets(
                                         device=scores.device),
                      boxes=teacher_boxes, valid=valid, weight=scores * valid)
         # the reference's mean over the full-length weight vectors
-        return tp, (tp.weight * tp.valid).sum() / (b * q)
+        num, den = batch_sum(torch.stack([(tp.weight * tp.valid).sum(),
+                                          scores.new_tensor(b * q)]))
+        return tp, num / den
 
     if prepare_target_mode != "score_iou_weighted":
         raise ValueError(f"unknown prepare_target_mode "
@@ -280,16 +300,18 @@ def prepare_soft_targets(
     targets_pred = Targets(labels=torch.zeros_like(targets_gt.labels),
                            boxes=t_box, valid=matched,
                            weight=torch.where(matched, weight, 0.0))
-    weights_distill = targets_pred.weight.sum() / matched.sum().clamp(min=1)
-    return targets_pred, weights_distill
+    num, den = batch_sum(torch.stack([targets_pred.weight.sum(),
+                                      matched.sum().float()]))
+    return targets_pred, num / den.clamp(min=1)
 
 
 def prepare_merge_targets(teacher_logits, teacher_boxes,
-                          targets_gt: Targets) -> Targets:
+                          targets_gt: Targets,
+                          batch_sum: Callable = _local) -> Targets:
     """"merge" branch targets: GT (weight 1) concatenated with the
     teacher's matched boxes (weight = score * IoU)."""
     tp, _ = prepare_soft_targets(teacher_logits, teacher_boxes, targets_gt,
-                                 "score_iou_weighted")
+                                 "score_iou_weighted", batch_sum=batch_sum)
     return Targets(
         labels=torch.cat([targets_gt.labels, tp.labels], 1),
         boxes=torch.cat([targets_gt.boxes, tp.boxes], 1),
@@ -311,13 +333,18 @@ def simvg_branch_losses(
     as_target_query_thr: float = 0.0,
     dp_size: int = 1,
     gt_count: Optional[torch.Tensor] = None,
+    batch_sum: Callable = _local,
 ) -> Dict[str, torch.Tensor]:
     """Branch loss orchestration (the reference head's forward_train).
 
     branch_loss_weight keys: "decoder", "balanced_distill" ({"token": w,
     "distill": w}), "token", "distill", "merge".  gt_count feeds num_boxes
     of every GT-target criterion call; distill targets keep their own
-    matched counts."""
+    matched counts.
+
+    On data-parallel ranks (``batch_sum`` summing over the data axis) each
+    term but ``loss_distill_w`` is this rank's share of the global term
+    (see the module docstring); ``loss_distill_w`` is global."""
     if distill_type == "soft" and "distill" in branch_loss_weight \
             and "balanced_distill" not in branch_loss_weight:
         raise NotImplementedError("distill_type='soft' is not ported yet")
@@ -333,7 +360,8 @@ def simvg_branch_losses(
     cls_tok = head_out["class_token"]
     box_tok = head_out["bbox_token"]
 
-    kw = dict(num_classes=num_classes, eos_coef=eos_coef, dp_size=dp_size)
+    kw = dict(num_classes=num_classes, eos_coef=eos_coef, dp_size=dp_size,
+              batch_sum=batch_sum)
     kw_gt = dict(kw, gt_count=gt_count)
 
     if "decoder" in branch_loss_weight:
@@ -352,7 +380,7 @@ def simvg_branch_losses(
         targets_pred, wd = prepare_soft_targets(
             cls_dec[-1], box_dec[-1], targets_gt,
             prepare_target_mode=prepare_target_mode,
-            predict_threshold=as_target_query_thr)
+            predict_threshold=as_target_query_thr, batch_sum=batch_sum)
         t = set_criterion(cls_tok_, box_tok_, targets_gt, **kw_gt)
         losses["loss_tgt"] = bw["token"] * t["total"] * (1.0 - wd)
         k = set_criterion(cls_tok_, box_tok_, targets_pred, **kw)
@@ -368,7 +396,7 @@ def simvg_branch_losses(
             targets_pred, _ = prepare_soft_targets(
                 cls_dec[-1], box_dec[-1], targets_gt,
                 prepare_target_mode=prepare_target_mode,
-                predict_threshold=as_target_query_thr)
+                predict_threshold=as_target_query_thr, batch_sum=batch_sum)
             if distill_type == "hard_weighted":
                 k = set_criterion(cls_tok_, box_tok_, targets_pred,
                                   loss_class_type="weighted_ce_loss", **kw)
@@ -381,7 +409,7 @@ def simvg_branch_losses(
 
     if "merge" in branch_loss_weight:
         targets_merge = prepare_merge_targets(cls_dec[-1], box_dec[-1],
-                                              targets_gt)
+                                              targets_gt, batch_sum)
         m = set_criterion(cls_tok, box_tok, targets_merge, **kw)
         losses["loss_merge"] = branch_loss_weight["merge"] * m["total"]
         total = total + losses["loss_merge"]

@@ -14,8 +14,10 @@ Ported: the main path of the flagship; vision-token pruning
 (``token_prune_keep``), the serving lever that keeps the top-K patch
 tokens by the CLS query's attention after one layer; int8 w8a8 on the 12
 multiway ``Linear``s of each layer (``quant``, ``ops/quant.py``); and
-activation checkpointing of each layer (``remat``, ``remat_policy``).
-Left out: ``scan_layers`` (a JAX compile device), ``seq_parallel``,
+activation checkpointing of each layer (``remat``, ``remat_policy``); and
+``seq_parallel``, the residual stream sharded over the sequence between
+the blocks when a tensor-parallel layout sets ``seq_mesh``
+(``parallel/mesh.py``).  Left out: ``scan_layers`` (a JAX compile device),
 ``attn_bias`` and the single-modality modes.
 """
 
@@ -70,6 +72,9 @@ class BEiT3Config:
     # parameter matmuls (JAX's dots_with_no_batch_dims_saveable)
     remat: bool = False
     remat_policy: str = "full"
+    # shard the residual stream over the sequence on the model axis of a
+    # tensor-parallel layout (a no-op on one device)
+    seq_parallel: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -168,9 +173,12 @@ class MultiwayAttention(nn.Module):
             return torch.cat(m(xs), dim=1)
 
         q, k = proj(self.q_proj), proj(self.k_proj)
+        # this rank's heads: all of them, or num_heads / model_parallel of
+        # them under tensor parallelism (column-parallel q/k/v)
+        heads = q.shape[-1] * cfg.num_heads // cfg.embed_dim
         out = multihead_attention(
             q, k, proj(self.v_proj),
-            num_heads=cfg.num_heads,
+            num_heads=heads,
             key_padding_mask=key_padding_mask,
             dropout_rate=cfg.attention_dropout,
             deterministic=not self.training,
@@ -218,15 +226,20 @@ class EncoderLayer(nn.Module):
         self.ffn = MultiwayFFN(cfg)
         self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, xs, key_padding_mask, return_cls_attn: bool = False):
-        hs = self.self_attn(self.self_attn_layer_norm(xs), key_padding_mask,
-                            return_cls_attn)
+    def forward(self, xs, key_padding_mask, return_cls_attn: bool = False,
+                seq=None):
+        """With ``seq`` (a ``SeqShard``) ``xs`` and the result are this
+        rank's sequence shards, and each block takes the whole sequence
+        after its LayerNorm."""
+        gather = seq.gather if seq is not None else (lambda h: h)
+        hs = self.self_attn(gather(self.self_attn_layer_norm(xs)),
+                            key_padding_mask, return_cls_attn)
         if return_cls_attn:
             hs, cls_attn = hs
         hs = self.drop_path(hs)
         xs = (xs[0] + hs[0], xs[1] + hs[1])
 
-        hs = self.drop_path(self.ffn(self.final_layer_norm(xs)))
+        hs = self.drop_path(self.ffn(gather(self.final_layer_norm(xs))))
         out = xs[0] + hs[0], xs[1] + hs[1]
         return (out, cls_attn) if return_cls_attn else out
 
@@ -242,7 +255,8 @@ def _save_param_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def remat_layer(layer: nn.Module, xs, pad, policy: str = "full"):
+def remat_layer(layer: nn.Module, xs, pad, policy: str = "full",
+                seq=None):
     """``layer(xs, pad)`` under activation checkpointing
     (``torch.utils.checkpoint``, non-reentrant): ``"full"`` keeps the
     layer's inputs only, ``"dots"`` also its parameter matmuls' outputs.
@@ -261,12 +275,12 @@ def remat_layer(layer: nn.Module, xs, pad, policy: str = "full"):
     def run(xs, pad):
         if not replay:  # the forward
             replay.append(True)
-            return layer(xs, pad)
+            return layer(xs, pad, seq=seq)
         now = [g.get_state() for g in gens]
         for g, state in zip(gens, saved):
             g.set_state(state)
         try:
-            return layer(xs, pad)
+            return layer(xs, pad, seq=seq)
         finally:
             for g, state in zip(gens, now):
                 g.set_state(state)
@@ -383,6 +397,9 @@ class BEiT3Encoder(nn.Module):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         self.cfg = cfg
         self.prune_layer = prune_layer_of(cfg)
+        # the model axis of a sequence-parallel layout (parallel/mesh.py
+        # shard_model), None otherwise
+        self.seq_mesh = None
         self.text_embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
         self.vision_embed = VisionEmbedding(cfg)
         self.encoder = _EncoderStack(cfg)
@@ -421,11 +438,17 @@ class BEiT3Encoder(nn.Module):
         pad = torch.cat([torch.zeros(b, split, dtype=torch.bool, device=dev),
                          pad_txt], dim=1)
         xs = (x_vis.to(dt), x_txt.to(dt))
+        seq = None
+        if self.seq_mesh is not None:
+            from simvg_tpu_torch.parallel.mesh import SeqShard
+
+            seq = SeqShard(self.seq_mesh, (split, t))
+            xs = seq.shard(xs)
         prune_idx = None
         for i, layer in enumerate(self.encoder.layers):
             if i != self.prune_layer:
-                xs = (remat_layer(layer, xs, pad, cfg.remat_policy) if remat
-                      else layer(xs, pad))
+                xs = (remat_layer(layer, xs, pad, cfg.remat_policy, seq)
+                      if remat else layer(xs, pad, seq=seq))
                 continue
             xs, cls_attn = layer(xs, pad, return_cls_attn=True)
             # rank the patch tokens (positions 1..split-1) by the CLS
@@ -441,6 +464,8 @@ class BEiT3Encoder(nn.Module):
                                          device=dev), pad_txt], dim=1)
 
         x_vis, text_feat = self.encoder.layer_norm(xs)
+        if seq is not None:
+            x_vis, text_feat = seq.gather((x_vis, text_feat))
         if return_prune_idx:
             return x_vis[:, 1:], text_feat, x_vis[:, 0], prune_idx
         return x_vis[:, 1:], text_feat, x_vis[:, 0]

@@ -17,11 +17,9 @@ from .beit3 import BEiT3Config
 from .heads.tgqs_head import TGQSHeadConfig
 from .model import SimVGConfig, SimVGModel
 
-# vis_enc keys that change the forward and are not ported, with the value
-# that leaves them off.  scan_layers only changes how JAX compiles the same
-# forward, and gelu_impl only picks JAX's erf form: the port reads neither
-# (but refuses scan_layers with token pruning, as the JAX encoder does).
-_NOT_PORTED = {"seq_parallel": False}
+# scan_layers only changes how JAX compiles the same forward, and gelu_impl
+# only picks JAX's erf form: the port reads neither (but refuses scan_layers
+# with token pruning, as the JAX encoder does).
 
 
 def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
@@ -37,10 +35,6 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
             "(ROADMAP: M20)")
     ve = dict(model_cfg.get("vis_enc") or {})
     head = dict(model_cfg.get("head") or {})
-    for key, off in _NOT_PORTED.items():
-        if ve.get(key, off) != off:
-            raise NotImplementedError(f"vis_enc.{key}={ve[key]!r} is not "
-                                      "ported")
     if ve.get("token_prune_keep") is not None and ve.get("scan_layers"):
         raise ValueError("token_prune_keep requires scan_layers=False (the "
                          "sequence length changes mid-stack)")
@@ -59,6 +53,7 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
         quant=ve.get("quant", "none"),
         remat=ve.get("remat", False),
         remat_policy=ve.get("remat_policy", "full"),
+        seq_parallel=ve.get("seq_parallel", False),
     )
     extra = {k: ve[k] for k in ("embed_dim", "num_heads", "ffn_dim",
                                 "num_layers") if k in ve}

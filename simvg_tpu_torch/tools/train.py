@@ -2,8 +2,10 @@
 
     python -m simvg_tpu_torch.tools.train CONFIG [--work-dir W]
         [--resume-from CKPT | --load-from CKPT | --finetune-from CKPT]
-        [--auto-resume] [--seed N] [--device cuda|cpu]
+        [--auto-resume] [--seed N] [--device cuda|cpu] [--distributed]
         [--cfg-options key=value ...]
+    torchrun --nproc_per_node N -m simvg_tpu_torch.tools.train CONFIG
+        --distributed ...
 
 The JAX CLI's order: datasets and loaders, the model, the ``pretrain``
 load when the file exists, the optimizer and schedule, the three load modes
@@ -19,9 +21,19 @@ branch at the log lines (``{branch}_F1``, ``{branch}_Nacc`` in
 ``metrics.jsonl``) and evaluate F1/N-acc; ``det_best`` keys on ``det_acc``
 (for GRefCOCO the mean F1), as in the JAX CLI.
 
-Not ported yet, each raising with its ROADMAP item: ``--distributed``,
-``fsdp``, ``model_parallel`` > 1 and ``seq_parallel`` (M16), ``with_mask``
-(masks).
+``--distributed`` runs one process per card (torchrun's environment, or
+the JAX launcher's; ``parallel/mesh.py``) on a ("data", "model") mesh of
+world / ``model_parallel`` by ``model_parallel``: DDP, or FSDP2 with
+``fsdp`` (leaves of ``fsdp_min_size`` elements and more sharded), and
+tensor parallelism on the model axis (with ``seq_parallel`` the residual
+stream sharded over the sequence).  Each rank loads its shard of every
+split (the global batch is ``samples_per_gpu`` x dp), the evaluation's
+counters are summed over the ranks, and rank 0 alone writes the log, the
+config, ``metrics.jsonl`` and the checkpoints, in the single-device format.
+Without ``--distributed`` the run is single-device, where ``fsdp`` and the
+model axis shard nothing.
+
+Not ported yet, raising with its ROADMAP item: ``with_mask`` (masks).
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.convert import load_pretrained_into_model
@@ -42,15 +55,18 @@ from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
 from simvg_tpu_torch.engine import (create_optimizer, create_train_state,
                                     evaluate, make_eval_step,
                                     make_train_step)
-from simvg_tpu_torch.engine.evaluate import grec_rows, new_grec_lists
-from simvg_tpu_torch.engine.metrics import grec_f1_nacc
+from simvg_tpu_torch.engine.evaluate import (grec_rows, grec_summary,
+                                             new_grec_lists)
 from simvg_tpu_torch.engine.train_state import (make_lr_schedule,
                                                 swapped_params)
 from simvg_tpu_torch.models import (build_model, decode_predictions,
                                     init_random_weights)
-from simvg_tpu_torch.utils.checkpoint import (latest_checkpoint,
+from simvg_tpu_torch.parallel import (FSDP_MIN_SIZE, create_mesh,
+                                      init_distributed, shard_model)
+from simvg_tpu_torch.utils.checkpoint import (full_named, latest_checkpoint,
                                               load_checkpoint,
-                                              load_opt_state,
+                                              load_model_state, load_named,
+                                              load_opt_state, model_state,
                                               opt_state_to_dict,
                                               save_checkpoint,
                                               wait_for_checkpoints)
@@ -72,7 +88,8 @@ def parse_args(argv=None):
     p.add_argument("--auto-resume", action="store_true",
                    help="resume from <work_dir>/latest if present")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet: M16)")
+                   help="one process per card, under torchrun (or the JAX "
+                        "launcher's COORDINATOR_ADDRESS environment)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -104,20 +121,49 @@ def disable_tf32() -> None:
 
 
 def check_ported(cfg, distributed: bool = False) -> None:
-    """Raises NotImplementedError, naming the ROADMAP item, for a setting
-    the port does not have yet."""
+    """Raises NotImplementedError for a combination the port does not
+    have: int8 layers or token pruning under tensor parallelism (a
+    ``--distributed`` run with ``model_parallel`` > 1)."""
     ve = cfg.model.get("vis_enc") or {}
-    if distributed:
-        raise NotImplementedError("--distributed is not ported yet "
-                                  "(ROADMAP: M16)")
-    if cfg.get("fsdp", False):
-        raise NotImplementedError("fsdp is not ported yet (ROADMAP: M16)")
-    if cfg.get("model_parallel", 1) > 1:
-        raise NotImplementedError("model_parallel > 1 is not ported yet "
-                                  "(ROADMAP: M16)")
-    if ve.get("seq_parallel"):
-        raise NotImplementedError("seq_parallel is not ported yet "
-                                  "(ROADMAP: M16)")
+    if distributed and cfg.get("model_parallel", 1) > 1 and (
+            ve.get("quant", "none") != "none"
+            or ve.get("token_prune_keep") is not None):
+        raise NotImplementedError("int8 layers and token pruning under "
+                                  "tensor parallelism are not ported")
+
+
+def setup_distributed(args, cfg, device: torch.device):
+    """(device, mesh) of the run: with ``--distributed`` this process's
+    card (or the CPU) and the ("data", "model") mesh over the process
+    group it joins; otherwise ``device`` and no mesh."""
+    if not args.distributed:
+        return device, None
+    local_rank = init_distributed(device.type)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+    return device, create_mesh(cfg.get("model_parallel", 1), device.type)
+
+
+def layout(model, mesh, cfg):
+    """The model on the mesh (``shard_model``), None without one."""
+    if mesh is None:
+        return None
+    return shard_model(model, mesh, fsdp=bool(cfg.get("fsdp", False)),
+                       fsdp_min_size=int(cfg.get("fsdp_min_size",
+                                                 FSDP_MIN_SIZE)))
+
+
+def layout_line(mesh, cfg) -> str:
+    if mesh is None:
+        return ("single device" + (" (fsdp and model_parallel shard "
+                                   "nothing here)"
+                                   if cfg.get("fsdp", False)
+                                   or cfg.get("model_parallel", 1) > 1
+                                   else ""))
+    return (f"mesh data {mesh['data'].size()} x model "
+            f"{mesh['model'].size()}, "
+            + ("fsdp" if cfg.get("fsdp", False) else
+               "ddp" if mesh["model"].size() == 1 else "tensor parallel"))
 
 
 def gt_settings(cfg):
@@ -129,15 +175,16 @@ def gt_settings(cfg):
     return is_grec, min(cfg.get("max_gt", 12 if is_grec else 1), nq)
 
 
-def grec_train_metrics(preds: Dict, batch: Dict,
-                       img_shape: torch.Tensor) -> Dict[str, float]:
+def grec_train_metrics(preds: Dict, batch: Dict, img_shape: torch.Tensor,
+                       batch_sum=None) -> Dict[str, float]:
     """The train batch's F1 and N-acc of each branch, on the host, from the
-    step's last-layer (class logits, boxes), decoded here."""
+    step's last-layer (class logits, boxes), decoded here; with
+    ``batch_sum`` over the global batch."""
     out = {}
     for name, (logits, boxes) in preds.items():
         acc = new_grec_lists()
         grec_rows(acc, decode_predictions(logits, boxes, img_shape), batch)
-        m = grec_f1_nacc(**acc)
+        m = grec_summary(acc, batch_sum)
         out[f"{name}_F1"] = m["F1_score"]
         out[f"{name}_Nacc"] = m["N_acc"]
     return out
@@ -174,20 +221,37 @@ def main(argv=None) -> Dict:
     cfg = Config.fromfile(args.config)
     cfg.merge_from_dict(parse_cfg_options(args.cfg_options))
     check_ported(cfg, args.distributed)
+    device, mesh = setup_distributed(args, cfg, device)
+    try:
+        return _train(args, cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device: torch.device, mesh) -> Dict:
     seed = args.seed if args.seed is not None else cfg.get("seed", 6666)
     if cfg.get("debug_nans", False):
         torch.autograd.set_detect_anomaly(True)
 
     work_dir = args.work_dir or cfg.get("work_dir") or osp.join(
         "work_dir", osp.splitext(osp.basename(args.config))[0])
+    # rank 0 alone writes: with a shared work_dir other ranks would
+    # interleave the log and metrics lines and race the checkpoint swaps
+    main_rank = mesh is None or dist.get_rank() == 0
+    dp = 1 if mesh is None else mesh["data"].size()
+    dp_rank = 0 if mesh is None else mesh["data"].get_local_rank()
     os.makedirs(work_dir, exist_ok=True)
     timestamp = time.strftime("%Y%m%d_%H%M%S")
     logger = get_root_logger(osp.join(work_dir,
-                                      f"{timestamp}_train_log.txt"))
-    cfg.dump(osp.join(work_dir, "config.py"))
+                                      f"{timestamp}_train_log.txt")
+                             if main_rank else None)
+    if main_rank:
+        cfg.dump(osp.join(work_dir, "config.py"))
     logger.info(f"work_dir: {work_dir}; device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
+                   if device.type == "cuda" else "")
+                + f"; {layout_line(mesh, cfg)}")
 
     # ---- data
     img_size = cfg.get("img_size", 640)
@@ -197,9 +261,10 @@ def main(argv=None) -> Dict:
                                       dataset_type=cfg.get("dataset"),
                                       seed=seed,
                                       normalize_on_device=norm_on_device)
+    shards = dict(shard_id=dp_rank, num_shards=dp)
     train_loader = build_loader_from_cfg(train_ds, cfg, train=True,
                                          canvas=img_size, max_gt=max_gt,
-                                         seed=seed, device=device)
+                                         seed=seed, device=device, **shards)
     logger.info(f"train: {len(train_ds)} samples, "
                 f"{len(train_loader)} steps/epoch")
     val_loaders = {}
@@ -211,7 +276,7 @@ def main(argv=None) -> Dict:
                                     normalize_on_device=norm_on_device)
         val_loaders[split] = build_loader_from_cfg(
             ds, cfg, train=False, canvas=img_size, max_gt=max_gt, seed=seed,
-            device=device)
+            device=device, **shards)
         logger.info(f"{split}: {len(ds)} samples")
     if len(train_loader) == 0:
         raise ValueError(
@@ -232,6 +297,9 @@ def main(argv=None) -> Dict:
         else:
             logger.warning(f"pretrain checkpoint {loss_cfg['pretrain']} not "
                            "found; training from random init")
+    sharded = layout(model, mesh, cfg)
+    # the layout of the state's shards, for the gathers of a save
+    on_mesh = None if mesh is None else [p for p in model.parameters()]
 
     # ---- optimizer / scheduler (reference keys)
     opt_cfg = cfg.get("optimizer_config", {})
@@ -282,8 +350,9 @@ def main(argv=None) -> Dict:
         logger=logger)
 
     device_norm = device_norm_of(cfg)
+    batch_sum = None if sharded is None else sharded.batch_sum
     train_step = make_train_step(
-        model, optimizer,
+        model, optimizer, sharded=sharded,
         branch_loss_weight=loss_cfg["branch_loss_weight"],
         prepare_target_mode=loss_cfg["prepare_target_mode"],
         distill_type=loss_cfg["distill_type"],
@@ -307,12 +376,22 @@ def main(argv=None) -> Dict:
     metrics_path = osp.join(work_dir, "metrics.jsonl")
 
     def emit_metrics(kind, payload):
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({"kind": kind, **payload}) + "\n")
+        if main_rank:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"kind": kind, **payload}) + "\n")
 
-    def ema_named():
-        return (dict(zip(names, state.ema_params))
-                if state.ema_params is not None else None)
+    def save(name, opt=False, **kw):
+        """Gathers the whole state to rank 0 (every rank takes part),
+        which writes it."""
+        items = dict(
+            params=model_state(model),
+            opt_state=(opt_state_to_dict(names, state.opt_state, on_mesh)
+                       if opt else None),
+            ema_params=(full_named(names, state.ema_params, on_mesh)
+                        if state.ema_params is not None else None))
+        if main_rank:
+            save_checkpoint(work_dir, name, step=state.step,
+                            ema_step=state.ema_step, **items, **kw)
 
     results: Dict = {"work_dir": work_dir, "eval": {}, "epochs": []}
     for epoch in range(start_epoch, max_epoch):
@@ -327,7 +406,8 @@ def main(argv=None) -> Dict:
                 s = {k: float(v) for k, v in scalars.items()}
                 if preds is not None:
                     s.update(grec_train_metrics(preds, batch,
-                                                dev_batch["img_shape"]))
+                                                dev_batch["img_shape"],
+                                                batch_sum))
                 msg = ", ".join(f"{k}: {v:.4f}" for k, v in s.items()
                                 if k.startswith("loss")
                                 or k.endswith(("det_acc", "_F1", "_Nacc")))
@@ -342,7 +422,7 @@ def main(argv=None) -> Dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ep_time = time.time() - t_ep
-        bs = cfg.data.get("samples_per_gpu", 32)
+        bs = cfg.data.get("samples_per_gpu", 32) * dp
         img_s = steps_per_epoch * bs / max(ep_time, 1e-9)
         logger.info(f"epoch {epoch + 1} done in {ep_time:.1f}s "
                     f"({img_s:.1f} img/s)")
@@ -354,7 +434,8 @@ def main(argv=None) -> Dict:
             for split, loader in val_loaders.items():
                 metrics = evaluate(model, loader, is_grec=is_grec,
                                    eval_step=eval_step, log_fn=logger.info,
-                                   log_interval=log_interval)
+                                   log_interval=log_interval,
+                                   batch_sum=batch_sum)
                 logger.info(f"eval[{split}] epoch {epoch + 1}: "
                             + fmt_metrics(metrics))
                 emit_metrics("eval", {"epoch": epoch + 1, "split": split,
@@ -363,7 +444,8 @@ def main(argv=None) -> Dict:
                 if state.ema_params is not None:
                     with swapped_params(model, state.ema_params):
                         m_ema = evaluate(model, loader, is_grec=is_grec,
-                                         eval_step=eval_step)
+                                         eval_step=eval_step,
+                                         batch_sum=batch_sum)
                     logger.info(f"eval[{split}][EMA] epoch {epoch + 1}: "
                                 + fmt_metrics(m_ema))
                     results["eval"][f"{split}[EMA]"] = m_ema
@@ -371,32 +453,19 @@ def main(argv=None) -> Dict:
                     splits[0] if splits else None)
                 if split == best_split and metrics["det_acc"] > best_acc:
                     best_acc = metrics["det_acc"]
-                    save_checkpoint(work_dir, "det_best",
-                                    params=model.state_dict(),
-                                    ema_params=ema_named(),
-                                    epoch=epoch + 1, step=state.step,
-                                    metrics=metrics,
-                                    ema_step=state.ema_step)
+                    save("det_best", epoch=epoch + 1, metrics=metrics)
 
         # "latest" (crash recovery) carries the optimizer state; the final
         # epoch always saves it (the two-stage load_from contract)
         latest_interval = cfg.get("latest_interval", 1)
         if ((epoch + 1) % max(latest_interval, 1) == 0
                 or epoch + 1 == max_epoch):
-            save_checkpoint(work_dir, "latest", params=model.state_dict(),
-                            opt_state=opt_state_to_dict(names,
-                                                        state.opt_state),
-                            ema_params=ema_named(), epoch=epoch + 1,
-                            step=state.step,
-                            metrics={"best_det_acc": best_acc},
-                            ema_step=state.ema_step)
+            save("latest", opt=True, epoch=epoch + 1,
+                 metrics={"best_det_acc": best_acc})
         save_interval = cfg.get("save_interval", -1)
         if save_interval and save_interval > 0 and (
                 epoch + 1) % save_interval == 0:
-            save_checkpoint(work_dir, f"epoch_{epoch + 1}",
-                            params=model.state_dict(),
-                            ema_params=ema_named(), epoch=epoch + 1,
-                            step=state.step, ema_step=state.ema_step)
+            save(f"epoch_{epoch + 1}", epoch=epoch + 1)
 
     wait_for_checkpoints()
     logger.info(f"training done; best val det_acc {best_acc:.2f}")
@@ -417,17 +486,18 @@ def restore(model: torch.nn.Module, state, *, resume_from=None,
       the checkpoint have one); the optimizer and the counters start anew;
     - ``finetune_from``: the weights, non-strictly (``load_non_strict``).
 
-    Updates ``model`` and ``state`` in place; returns (start epoch, best
+    Updates ``model`` and ``state`` in place (on a mesh, each rank its
+    part: every rank reads the checkpoint); returns (start epoch, best
     det_acc)."""
-    names = [n for n, _ in model.named_parameters()]
+    names, params = zip(*model.named_parameters())
     use_ema = state.ema_params is not None
     if resume_from:
         ck = load_checkpoint(resume_from, with_opt=True, with_ema=use_ema)
-        model.load_state_dict(ck["params"], strict=True)
+        load_model_state(model, ck["params"])
         if "opt_state" in ck:
-            load_opt_state(names, ck["opt_state"], state.opt_state)
+            load_opt_state(names, ck["opt_state"], state.opt_state, params)
         if "ema_params" in ck:
-            _copy_named(state.ema_params, names, ck["ema_params"])
+            load_named(state.ema_params, names, ck["ema_params"], params)
         start_epoch = ck["epoch"]
         state.step = (ck["step"] if ck["step"] is not None
                       else start_epoch * steps_per_epoch)
@@ -442,9 +512,9 @@ def restore(model: torch.nn.Module, state, *, resume_from=None,
         return start_epoch, float(ck["metrics"].get("best_det_acc", -1.0))
     if load_from:
         ck = load_checkpoint(load_from, with_ema=use_ema)
-        model.load_state_dict(ck["params"], strict=True)
+        load_model_state(model, ck["params"])
         if "ema_params" in ck:
-            _copy_named(state.ema_params, names, ck["ema_params"])
+            load_named(state.ema_params, names, ck["ema_params"], params)
         if logger:
             logger.info(f"loaded weights from {load_from}")
     elif finetune_from:
@@ -453,13 +523,6 @@ def restore(model: torch.nn.Module, state, *, resume_from=None,
         if logger:
             logger.info(f"finetuned from {finetune_from}")
     return 0, -1.0
-
-
-@torch.no_grad()
-def _copy_named(dst: List[torch.Tensor], names: List[str],
-                saved: Dict[str, torch.Tensor]) -> None:
-    for name, t in zip(names, dst):
-        t.copy_(saved[name])
 
 
 def load_non_strict(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
@@ -471,7 +534,7 @@ def load_non_strict(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
     mismatched = sorted(k for k in sd if k in own
                         and tuple(sd[k].shape) != tuple(own[k].shape))
     usable = {k: v for k, v in sd.items() if k in own and k not in mismatched}
-    res = model.load_state_dict(usable, strict=False)
+    res = load_model_state(model, usable, strict=False)
     if logger:
         logger.info(f"finetune load: missing keys "
                     f"{sorted(res.missing_keys)}; unexpected keys "

@@ -18,6 +18,13 @@ a checkpoint, so a kill at any point leaves the previous one loadable.
 Load modes (``tools/train.py``): ``--resume-from`` restores everything and
 the counters, ``--load-from`` the weights (and EMA), ``--finetune-from``
 the weights non-strictly, logging missing and unexpected keys.
+
+A run on a mesh (``parallel/mesh.py``) writes the same files: a save
+gathers the whole model, moments and EMA from the ranks' shards to rank 0
+(``model_state``, ``full_named``; collectives, so every rank calls them),
+which alone writes, and a load gives each rank its part of the whole
+tensors every rank reads (``load_model_state``, ``shard_of``).  So a
+checkpoint moves both ways between one device and any layout.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from simvg_tpu_torch.engine.train_state import OptState
+from simvg_tpu_torch.parallel.mesh import full_tensor, shard_of
 
 _lock = threading.Lock()
 _writer: Optional[ThreadPoolExecutor] = None
@@ -46,28 +55,95 @@ def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def opt_state_to_dict(names: Sequence[str], opt: OptState) -> Dict[str, Any]:
-    """An ``OptState`` (moments in parameter order) keyed by name."""
+def _writes() -> bool:
+    """Rank 0 writes (and every process outside a process group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def model_state(model: torch.nn.Module) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's whole state dict, on the host of rank 0 (None on the
+    other ranks): on a mesh gathered from the shards by
+    ``torch.distributed.checkpoint.state_dict``."""
+    if not dist.is_initialized():
+        return model.state_dict()
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions, get_model_state_dict)
+
+    sd = get_model_state_dict(model, options=StateDictOptions(
+        full_state_dict=True, cpu_offload=True))
+    return sd if _writes() else None
+
+
+def load_model_state(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                     strict: bool = True):
+    """Loads a whole state dict (every rank holds it) into ``model``; on a
+    mesh each rank keeps its part.  Returns the missing and unexpected
+    keys, as ``load_state_dict``."""
+    if not dist.is_initialized():
+        return model.load_state_dict(sd, strict=strict)
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions, set_model_state_dict)
+
+    return set_model_state_dict(model, sd, options=StateDictOptions(
+        full_state_dict=True, strict=strict))
+
+
+def full_named(names: Sequence[str], shards: Sequence[torch.Tensor],
+               params: Optional[Sequence[torch.Tensor]] = None
+               ) -> Optional[Dict[str, torch.Tensor]]:
+    """name -> the whole tensor, on the host, of each of this rank's
+    ``shards`` laid out as ``params`` (the moments, the EMA; the model's
+    parameters, on a mesh); None on the ranks other than 0.  One gather a
+    tensor.  Without ``params`` (one device): the tensors themselves."""
+    if params is None:
+        return dict(zip(names, shards))
+    out = {}
+    for name, t, p in zip(names, shards, params):
+        whole = full_tensor(t, p)
+        if _writes():
+            out[name] = whole.detach().to("cpu", copy=True)
+    return out if _writes() else None
+
+
+def opt_state_to_dict(names: Sequence[str], opt: OptState,
+                      params: Optional[Sequence[torch.Tensor]] = None
+                      ) -> Optional[Dict[str, Any]]:
+    """An ``OptState`` (moments in parameter order) keyed by name; with
+    ``params`` (the model's, on a mesh) the whole moments gathered to rank
+    0, None on the other ranks."""
     out: Dict[str, Any] = {"count": opt.count,
-                           "mu": dict(zip(names, opt.mu)),
-                           "nu": dict(zip(names, opt.nu))}
+                           "mu": full_named(names, opt.mu, params),
+                           "nu": full_named(names, opt.nu, params)}
     if opt.nu_max is not None:
-        out["nu_max"] = dict(zip(names, opt.nu_max))
-    return out
+        out["nu_max"] = full_named(names, opt.nu_max, params)
+    return out if params is None or _writes() else None
+
+
+@torch.no_grad()
+def load_named(dst: Sequence[torch.Tensor], names: Sequence[str],
+               saved: Dict[str, torch.Tensor],
+               params: Optional[Sequence[torch.Tensor]] = None) -> None:
+    """Copies ``saved[name]`` into each tensor of ``dst``; with ``params``
+    (the model's, on a mesh) this rank's part of it."""
+    for i, (name, t) in enumerate(zip(names, dst)):
+        t.copy_(saved[name] if params is None
+                else shard_of(saved[name], params[i]))
 
 
 @torch.no_grad()
 def load_opt_state(names: Sequence[str], saved: Dict[str, Any],
-                   opt: OptState) -> OptState:
-    """Copies a saved optimizer item into ``opt``'s tensors in place."""
+                   opt: OptState,
+                   params: Optional[Sequence[torch.Tensor]] = None
+                   ) -> OptState:
+    """Copies a saved optimizer item into ``opt``'s tensors in place (with
+    ``params``, this rank's parts of them)."""
     for key in ("mu", "nu", "nu_max"):
         dst = getattr(opt, key)
         if dst is None:
             continue
         if key not in saved:
             raise KeyError(f"checkpoint optimizer state has no {key!r}")
-        for name, t in zip(names, dst):
-            t.copy_(saved[key][name])
+        load_named(dst, names, saved[key], params)
     opt.count = int(saved["count"])
     return opt
 

@@ -8,9 +8,11 @@ the CPU with ``configs/smoke/tiny_synth.py`` and synthetic data.
   Prec@0.5, per branch, as JAX ``evaluate`` on the same split (M8's done
   condition), and on a GRefCOCO config the same F1/N-acc;
 - the port's gates accept every top-level config under ``configs/`` but
-  the two whose features are not ported yet;
-- both default to the card and raise without one; the options that are not
-  ported yet raise NotImplementedError naming their ROADMAP item, and
+  the one whose model is not ported yet;
+- both default to the card and raise without one; the M16 settings
+  (``--distributed``, ``fsdp``, ``model_parallel``, ``seq_parallel``) pass
+  the gates and train, the options that are not ported yet raise
+  NotImplementedError naming their ROADMAP item, and
   ``--quant-collection`` on a model without int8_static layers raises.
 """
 
@@ -106,14 +108,28 @@ def test_clis_default_to_the_card(tmp_path, synth):
       "'LoadImageAnnotationsFromFile', 'with_bbox': True, "
       "'with_mask': True}]"], "masks"),
 ])
-def test_unported_options_raise(tmp_path, synth, extra, item):
+def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
+    """The M16 settings pass the gates, build and train one epoch
+    (``--distributed`` in a 1-rank gloo group, DDP; the others on one
+    device, where fsdp and the model axis shard nothing); M20 and the
+    masks raise naming their ROADMAP item."""
+    from util_torch_port import free_port
+
     argv = [TINY, "--work-dir", str(tmp_path), "--device", "cpu"]
     if extra[0] == "--cfg-options":
         argv += ["--cfg-options", *synth, *extra[1:]]
     else:
         argv += extra + ["--cfg-options", *synth]
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(argv)
+    if item != "M16":
+        with pytest.raises(NotImplementedError, match=item):
+            train_cli.main(argv)
+        return
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    res = train_cli.main(argv + ["scheduler_config.max_epoch=1"])
+    assert res["step"] == 2 and res["eval"]["val"]["n_samples"] == 8
+    assert osp.isfile(tmp_path / "latest" / "meta.json")
 
 
 def test_quant_collection_raises(tmp_path, synth):
@@ -267,9 +283,10 @@ def test_test_cli_on_jax_weights_matches_jax_evaluate_grec(tmp_path):
 
 
 def test_port_gates_accept_the_shipped_configs():
-    """Config.fromfile, check_ported, build_model on the meta device, every
-    split's pipeline and dataset class, over every top-level config: all
-    pass but fsdp (M16) and the OneStageModel family (M20)."""
+    """Config.fromfile, check_ported (also as a ``--distributed`` run),
+    build_model on the meta device, every split's pipeline and dataset
+    class, over every top-level config: all pass but the OneStageModel
+    family (M20)."""
     import glob
 
     from simvg_tpu_torch.config import Config
@@ -284,7 +301,7 @@ def test_port_gates_accept_the_shipped_configs():
     for path in files:
         try:
             cfg = Config.fromfile(path)
-            train_cli.check_ported(cfg)
+            train_cli.check_ported(cfg, distributed=True)
             build_model(cfg.model, img_size=cfg.get("img_size", 640),
                         device="meta")
             for split in ["train"] + train_cli.eval_splits(cfg):
@@ -297,7 +314,5 @@ def test_port_gates_accept_the_shipped_configs():
         except NotImplementedError as e:
             refused[osp.basename(path)] = str(e)
     assert len(files) == 73
-    assert set(refused) == {"refcoco_onestage_fsdp8.py",
-                            "tiny_synth_onestage.py"}, refused
-    assert "M16" in refused["refcoco_onestage_fsdp8.py"]
+    assert set(refused) == {"tiny_synth_onestage.py"}, refused
     assert "M20" in refused["tiny_synth_onestage.py"]

@@ -94,9 +94,9 @@ def test_remat_gradients_equal_no_remat_with_drop_path(no_remat, policy,
     calls = []
     real = beit3.remat_layer
 
-    def counted(layer, xs, pad, layer_policy):
+    def counted(layer, xs, pad, layer_policy, seq=None):
         calls.append(layer_policy)
-        return real(layer, xs, pad, layer_policy)
+        return real(layer, xs, pad, layer_policy, seq)
 
     monkeypatch.setattr(beit3, "remat_layer", counted)
     got_loss, got = _grads(model, _batch(), seed=5)

@@ -94,3 +94,44 @@ def jax_params_from_port(jax_model, batch, state_dict):
     report = convert_simvg_full(sd, template)
     assert len(report) == len(jax.tree.leaves(template))
     return template
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(n, argv, timeout=240, env=None):
+    """Runs ``argv`` (after the interpreter) as ``n`` ranks of one gloo
+    group, with torchrun's environment, from the repo root; kills them all
+    when one fails or the time runs out, and raises with its output.
+    Returns each rank's (stdout, stderr)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(n):
+            e = dict(os.environ, **(env or {}), RANK=str(rank),
+                     LOCAL_RANK=str(rank), WORLD_SIZE=str(n),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     PYTHONPATH=repo, OMP_NUM_THREADS="1")
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], cwd=repo, env=e, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{err[-4000:]}"
+    return outs
