@@ -33,13 +33,24 @@ attention on the same weights and inputs, no further from it than
 BF16_REF_FACTOR times the bf16 model with plain attention, and every
 attention call of those runs to float32 attention on the call's own inputs,
 no further from it than CALL_FACTOR times the kernels' plain versions.
-Then the data path
-and the CLIs run on synthetic JPEGs: the flagship's train CLI, test CLI and
-a resume; the GRefCOCO config (grefcoco_onestage.py, 10 queries, F1/N-acc)
-through both CLIs, with a GRefCOCO batch held against plain attention and
-the step's host Hungarian time; the Mixed pretraining config
-(pretrain-cocoall.py, 512 px, S=277) through the train CLI.  Then the
-serving entry points: the flagship pruned to keep 300 patches after layer
+Then "options": the flagship with only_decoder=False (a 6-layer DetrEncoder
+over the 400 patch tokens) and soft distillation, its eval forward at batch
+8 and AdamW, SGD and RMSProp each for 1 + 3 train steps at batch 32, held
+by the bf16 rule (outputs, every loss term with the soft distillation's,
+the gradients, every K1/K2 call), each optimizer's update on the card, clip
+on, against the CPU's (1e-6 of each tensor's max), the steps' medians and
+peak memory, the DetrEncoder's forward ms and the soft route's host
+Hungarian round trips.  Then the data path and the CLIs run on synthetic
+JPEGs: the flagship's train CLI, test CLI and a resume; "masks": the
+flagship with the multi-task pipeline (with_mask, SampleMaskVertices) on
+annotations with a mask each, through the train and test CLIs, a loader
+batch's mask meta against its samples, evaluate with pred_masks (the GT:
+mask mIoU 100; shifted: the IoU computed in the phase), host ms per sample
+with masks and without; the GRefCOCO config (grefcoco_onestage.py, 10
+queries, F1/N-acc) through both CLIs, with a GRefCOCO batch held against
+plain attention and the step's host Hungarian time; the Mixed pretraining
+config (pretrain-cocoall.py, 512 px, S=277) through the train CLI.  Then
+the serving entry points: the flagship pruned to keep 300 patches after layer
 4 (K1 at S=321 after the prune point; held to float32 on the float32
 model's kept indices; keep=400 against the unpruned model; latency pruned
 and unpruned at batch 8 and 32), its serving forward through torch.export
@@ -71,7 +82,8 @@ weights: one batch's loss terms and gradients bit for bit the unwrapped
 model's, held to float32 (the gradients and loss_total by the bf16 rule,
 every K1/K2 call too), K1/K2 a step, step time and peak memory
 beside the unwrapped model's, and one NCCL all-reduce of evaluation
-counters.  K1/K2 launches are counted from 0 around each path.
+counters.
+K1/K2 launches are counted from 0 around each path.
 
 Every phase raises on failure; there is no CPU path.
 
@@ -609,7 +621,8 @@ def make_train_step_for(cfg, model, loss_cfg, norm, **step_kw):
         freeze_layer=loss_cfg["freeze_layer"],
         optimizer_type=opt.get("type", "Adam"),
         scheduler_type=sch.get("type", "MultiStepLRWarmUp"),
-        scheduler_kw=dict(sch), amsgrad=opt.get("amsgrad", True))
+        scheduler_kw=dict(sch), amsgrad=opt.get("amsgrad", True),
+        weight_decay=opt.get("weight_decay", 0.0))
     ema = bool(cfg.get("ema", False))
     step = make_train_step(
         model, optimizer, branch_loss_weight=loss_cfg["branch_loss_weight"],
@@ -767,8 +780,10 @@ def hold_train_against_plain(name, cfg, state, batch, loss_cfg, norm):
         model = build_flagship(cfg, impl, dtype, state)[0]
         dropout_off(model)
         with fixed_matching(matching) as moved, \
-                recorded_attention() as new_calls:
+                recorded_attention() as new_calls, \
+                recorded_soft_terms() as soft:
             runs[label] = losses_and_grads(model, batch, loss_cfg, norm)
+        runs[label][0].update(soft)
         calls += new_calls
         if dtype == torch.bfloat16:
             flips[label] = moved
@@ -944,7 +959,7 @@ def fixed_matching(matching):
     """With an empty list ``matching``, records every Hungarian matching of
     the criterion into it; else replays it, call for call.  Yields
     [targets that the solver's own matching moves, targets] of a replay."""
-    from simvg_tpu_torch.losses import criterion
+    from simvg_tpu_torch.losses import criterion, distill
 
     assign = criterion.hungarian_assign
     record, replay = not matching, iter(list(matching))
@@ -960,37 +975,69 @@ def fixed_matching(matching):
         moved[1] += int((ref[1] >= 0).sum())
         return ref
 
-    criterion.hungarian_assign = fixed
+    criterion.hungarian_assign = distill.hungarian_assign = fixed
     try:
         yield moved
     finally:
-        criterion.hungarian_assign = assign
+        criterion.hungarian_assign = distill.hungarian_assign = assign
 
 
 @contextlib.contextmanager
 def timed_hungarian():
     """Yields a list that gets (host ms, (col4row, row4col)) of every
-    Hungarian matching call of the criterion; the ms cover the copy of the
+    Hungarian matching call of the criterion and of the soft distillation
+    (``calls.soft`` lists the latter's ms); the ms cover the copy of the
     costs, the solve and the copy back, after a sync, so the wait for the
     device's forward is left out."""
     import torch
-    from simvg_tpu_torch.losses import criterion
+    from simvg_tpu_torch.losses import criterion, distill
 
     assign = criterion.hungarian_assign
-    calls = []
 
-    def timed(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = assign(*args, **kw)
-        calls.append(((time.perf_counter() - t0) * 1e3, out))
-        return out
+    class Calls(list):
+        soft: list
 
-    criterion.hungarian_assign = timed
+    calls = Calls()
+    calls.soft = []
+
+    def timed(sink):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = assign(*args, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            calls.append((ms, out))
+            sink.append(ms)
+            return out
+        return call
+
+    criterion.hungarian_assign = timed([])
+    distill.hungarian_assign = timed(calls.soft)
     try:
         yield calls
     finally:
-        criterion.hungarian_assign = assign
+        criterion.hungarian_assign = distill.hungarian_assign = assign
+
+
+@contextlib.contextmanager
+def recorded_soft_terms():
+    """Yields a dict that gets the soft distillation's loss terms
+    (``loss_{cls,bbox,iou}_distill*``) of the criterion's calls inside the
+    block, as floats."""
+    from simvg_tpu_torch.losses import criterion
+
+    soft, terms = criterion.soft_distill_losses, {}
+
+    def record(*args, **kw):
+        out = soft(*args, **kw)
+        terms.update({k: v.item() for k, v in out.items() if k != "total"})
+        return out
+
+    criterion.soft_distill_losses = record
+    try:
+        yield terms
+    finally:
+        criterion.soft_distill_losses = soft
 
 
 def time_train(steps, batches):
@@ -2714,6 +2761,328 @@ def dist_cli_phase(card, root, opts, single_losses):
     return (sum(k1 for k1, _ in launches), sum(k2 for _, k2 in launches))
 
 
+MULTI_TASK = os.path.join(REPO, "configs", "_base_", "datasets", "multi-task",
+                          "refcoco-unc.py")
+OPTIMIZERS = {"AdamW": {"weight_decay": 0.05}, "SGD": {}, "RMSProp": {}}
+OPTION_STEPS = 3  # counted train steps an optimizer, after one warm-up
+# the options: the DETR encoder over the image memory and soft distillation
+OPTIONS_CONFIG = """_base_ = [{flagship!r}]
+model = dict(head=dict(
+    only_decoder=False,
+    branch_loss_weight=dict(_delete_=True, decoder=1, token=1, distill=1),
+    distill_type="soft"))
+"""
+OPT_UPDATE_REL = 1e-6  # card vs CPU update, of each tensor's max |value|
+NORM_REL = 1e-6  # the card's clip norm against float64's, relative
+
+
+def options_phase(card, root, flagship_ms, launches):
+    """The flagship with ``only_decoder=False`` (a 6-layer DetrEncoder over
+    the 400 patch tokens, 256 wide) and soft distillation at full width:
+    the eval forward at batch 8 held by the bf16 rule; AdamW, SGD and
+    RMSProp each for one warm-up and OPTION_STEPS counted train steps at
+    batch 32 (bf16 compute, fp32 params), K1/K2 counted from 0 around each,
+    with the step median, peak memory and the soft route's host Hungarian
+    round trips; the bf16 rule on one batch's loss terms (the soft terms
+    among them) and gradients (the encoder's among them) and on every K1/K2
+    call; each optimizer's update on the card, clip on, against the same
+    update on the CPU clipped by the float64 norm, and the card's global
+    norm against float64's (the CPU's printed beside them, F8); the
+    DetrEncoder's ms a forward at batch 32."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.engine import create_optimizer
+    from simvg_tpu_torch.engine.train_state import global_norm
+
+    path = os.path.join(root, "options.py")
+    with open(path, "w") as f:
+        f.write(OPTIONS_CONFIG.format(flagship=FLAGSHIP))
+    cfg = Config.fromfile(path)
+    model, loss_cfg = build_flagship(cfg, "pallas", torch.bfloat16)
+    encoder = model.head.transformer.encoder
+    if len(encoder.layers) != 6 or loss_cfg["distill_type"] != "soft":
+        raise AssertionError("the options config did not take")
+    log(f"options: flagship + DetrEncoder ({len(encoder.layers)} layers, "
+        f"{sum(p.numel() for p in encoder.parameters())} params) + soft "
+        f"distillation, branch_loss_weight {loss_cfg['branch_loss_weight']}")
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    vocab = model.cfg.beit3.vocab_size
+    reqs = make_requests(np.random.default_rng(SEED + 7), 1, BATCH, vocab,
+                         cfg.max_token, cfg.img_size)
+    _, times, metrics = counted_run(
+        "options[eval]", lambda: serve(model, reqs, norm), K1_STEP, 0, card,
+        launches)
+    if metrics["n_samples"] != BATCH:
+        raise AssertionError(f"options eval counted {metrics}")
+    log(f"options[eval]: batch {BATCH}, {times[0]:.2f} ms through evaluate")
+    compare_with_plain(cfg, model, reqs, norm)
+
+    batches = [to_device(b, TRAIN_KEYS) for b in make_requests(
+        np.random.default_rng(SEED + 8), OPTION_STEPS + 1, TRAIN_BATCH, vocab,
+        cfg.max_token, cfg.img_size)]
+    rng = torch.Generator().manual_seed(SEED)
+    clip = cfg.get("grad_norm_clip", 0.15)
+    for name, extra in OPTIMIZERS.items():
+        ocfg = copy.deepcopy(cfg)
+        ocfg.optimizer_config.update(type=name, **extra)
+        step, state = make_train_step_for(ocfg, model, loss_cfg, norm)
+        state, _ = step(state, batches[0], SEED)  # warm-up
+        ms, history = [], []
+
+        def counted():
+            with timed_hungarian() as calls:
+                for batch in batches[1:]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    history.append(step(state, batch, SEED)[1])
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            return calls
+
+        calls = counted_run(f"options[{name}]", counted,
+                            K1_STEP * OPTION_STEPS, K1_STEP * OPTION_STEPS,
+                            card, launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bad = [k for h in history for k, v in h.items()
+               if k != "predictions" and not torch.isfinite(v).all()]
+        if bad or not history[0]["loss_kd"].item() > 0:
+            raise AssertionError(f"options[{name}]: non-finite {bad}")
+        ms.sort()
+        log(f"options[{name}] train step, batch {TRAIN_BATCH}, bf16: median "
+            f"{ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max {ms[-1]:.3f}; "
+            f"the flagship's Adam step {flagship_ms:.3f} ms in this run), "
+            f"peak {peak:.2f} GiB; Hungarian host round trips a step "
+            f"{len(calls) / OPTION_STEPS} ({len(calls.soft) / OPTION_STEPS} "
+            f"of the soft route: {sum(calls.soft) / OPTION_STEPS:.3f} host "
+            f"ms a step; all {sum(m for m, _ in calls) / OPTION_STEPS:.3f} "
+            f"ms) [{card}]; loss_total "
+            f"{[h['loss_total'].item() for h in history]}")
+        del state, step
+        torch.cuda.empty_cache()
+
+        # one update on the card, clip on, against the same update on the
+        # CPU; the CPU's float32 sum of squares over the 49M elements of the
+        # text embedding is off by ~1e-3 (F8, ROADMAP), so the CPU clips by
+        # the float64 norm, as optax's clip_by_global_norm scales, and runs
+        # the optimizer with its clip off on the clipped gradients
+        names, params = zip(*[(n, p.detach().float().cpu())
+                              for n, p in model.named_parameters()])
+        grads = [torch.randn(p.shape, generator=rng) * 1e-3 for p in params]
+        norms = [global_norm([g.to(dev) for g in grads]).item()
+                 for dev in ("cuda", "cpu")]
+        exact = sum(g.double().pow(2).sum().item() for g in grads) ** 0.5
+        log(f"options[{name}] global norm of the {len(grads)} gradients: "
+            f"card {norms[0]!r}, CPU {norms[1]!r}, float64 {exact!r} "
+            f"(relative errors {abs(norms[0] - exact) / exact:.2e}, "
+            f"{abs(norms[1] - exact) / exact:.2e}; bound on the card's "
+            f"{NORM_REL}), clip {clip}")
+        if not (abs(norms[0] - exact) / exact <= NORM_REL and exact > clip):
+            raise AssertionError(f"{name}: the card's global norm is off, or "
+                                 "the clip would not act")
+        opt, ref = (create_optimizer(
+            ocfg.lr, STEPS_PER_EPOCH, optimizer_type=name, amsgrad=True,
+            grad_norm_clip=c, **extra) for c in (clip, 0.0))
+        norm64 = torch.tensor(exact, dtype=torch.float32)
+        scale = torch.where(norm64 < clip, 1.0, clip / norm64)
+        out = {}
+        for dev, o in (("cuda", opt), ("cpu", ref)):
+            p = [t.to(dev, copy=True) for t in params]
+            g = [t.to(dev, copy=True) for t in grads]
+            if dev == "cpu":
+                torch._foreach_mul_(g, scale)
+            o.apply(names, p, g, o.init(p))
+            out[dev] = p
+        rel = [((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)).item() for a, b in zip(out["cuda"], out["cpu"])]
+        worst = max(rel)
+        i = rel.index(worst)
+        d = (out["cuda"][i].cpu() - out["cpu"][i]).abs().flatten()
+        j = int(d.argmax())
+        log(f"options[{name}] one update of {len(params)} fp32 tensors, card "
+            f"vs CPU: max |difference| / max |tensor| {worst:.3e} (bound "
+            f"{OPT_UPDATE_REL}) at {names[i]}: card "
+            f"{out['cuda'][i].flatten()[j].item()!r}, CPU "
+            f"{out['cpu'][i].flatten()[j].item()!r}, before "
+            f"{params[i].flatten()[j].item()!r}, grad "
+            f"{grads[i].flatten()[j].item()!r}, max |tensor| "
+            f"{out['cpu'][i].abs().max().item()!r}")
+        if not worst <= OPT_UPDATE_REL:
+            raise AssertionError(f"{name}: the card's update differs from "
+                                 "the CPU's")
+        del out, params, grads
+
+    hold_train_against_plain("options", cfg, model.state_dict(), batches[1],
+                             loss_cfg, norm)
+    memory = torch.randn(TRAIN_BATCH, 400, 256, device="cuda",
+                         dtype=torch.bfloat16)
+    pos = torch.randn_like(memory)
+    pad = torch.zeros(TRAIN_BATCH, 400, dtype=torch.bool, device="cuda")
+    pad[:, 380:] = True
+    with torch.inference_mode():
+        enc_ms = cuda_ms(lambda: encoder(memory, query_pos=pos,
+                                         key_padding_mask=pad), 10)
+    log(f"options: DetrEncoder forward, batch {TRAIN_BATCH}, 400 tokens, "
+        f"bf16: {enc_ms:.3f} ms [{card}]")
+    del model
+    torch.cuda.empty_cache()
+
+
+MASK_SHIFT = 3  # columns the shifted-mask producer moves each GT mask
+
+
+def masks_phase(card, root, opts, launches):
+    """The mask path at 640 px on the synthetic JPEGs: the data phase's
+    annotations with a ``mask`` each (concave polygons, two-part crowd
+    polygons, RLE rings), the flagship model with the multi-task pipeline
+    (configs/_base_/datasets/multi-task/refcoco-unc.py: with_bbox and
+    with_mask, SampleMaskVertices, the word-vocab tokenizer) through the
+    train CLI (1 epoch) and the test CLI on its det_best, K1/K2 counted;
+    a loader batch's meta and its samples' vertices against the same
+    samples through the CPU route; ``evaluate`` with a step that adds
+    ``pred_masks``: the GT masks (mask mIoU 100) and masks shifted by
+    MASK_SHIFT columns (the IoU computed here); host ms per sample with
+    masks and without."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                              build_loader_from_cfg)
+    from simvg_tpu_torch.engine import evaluate
+    from simvg_tpu_torch.ops import rle as rle_ops
+    from simvg_tpu_torch.tools import test as test_cli
+    from simvg_tpu_torch.tools import train as train_cli
+    from simvg_tpu_torch.tools.make_synth_data import add_masks
+
+    ann = next(o.split("=", 1)[1] for o in opts if "annsfile" in o)
+    masked = os.path.join(root, "instances_masks.json")
+    shutil.copy(ann, masked)
+    add_masks(masked)
+    mopts = [o.split("=")[0] + "=" + masked if "annsfile" in o else o
+             for o in opts]
+    base = Config.fromfile(MULTI_TASK)
+    path = os.path.join(root, "masks.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{FLAGSHIP!r}]\n"
+                f"train_pipeline = {base.train_pipeline!r}\n"
+                f"test_pipeline = {base.test_pipeline!r}\n"
+                "data = dict(" + ", ".join(
+                    f"{s}=dict(pipeline={p}_pipeline)" for s, p in
+                    (("train", "train"), ("val", "test"), ("testA", "test"),
+                     ("testB", "test"))) + ")\n")
+    cfg = Config.fromfile(path)
+    cfg.merge_from_dict(parse_cfg_options(mopts))
+    wd = os.path.join(root, "masks_work")
+    steps, evals = N_SYNTH_TRAIN // TRAIN_BATCH, 3
+
+    res = counted_run("masks[train CLI]", lambda: train_cli.main(
+        [path, "--work-dir", wd, "--cfg-options", *mopts,
+         "scheduler_config.max_epoch=1"]),
+        K1_STEP * (steps + evals), K1_STEP * steps, card, launches)
+    got = counted_run("masks[test CLI]", lambda: test_cli.main(
+        [path, os.path.join(wd, "det_best"), "--cfg-options", *mopts]),
+        K1_STEP * evals, 0, card, launches)
+    if got["val"]["det_acc"] != res["eval"]["val"]["det_acc"]:
+        raise AssertionError(f"masks: test CLI {got['val']} against the "
+                             f"train CLI's {res['eval']['val']}")
+    log(f"masks[CLIs]: {res['step']} steps, eval {res['eval']['val']}; test "
+        f"CLI on det_best the same det_acc")
+
+    # a loader batch on the card against the same samples computed here
+    ds = build_dataset_from_cfg(cfg.data.train, dataset_type=cfg.dataset,
+                                seed=cfg.seed, normalize_on_device=True)
+    loader = build_loader_from_cfg(ds, cfg, train=True, canvas=cfg.img_size,
+                                   seed=cfg.seed, device="cuda")
+    idx, _ = loader._index_batches()[0]
+    idx = (idx * loader.bs)[:loader.bs]
+    batch = next(iter(loader))
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in idx]
+    mask_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
+    again = [ds[i] for i in idx[:4]]
+    for m, s, s2 in zip(batch["meta"], samples, samples[:4] + [None] * 64):
+        if m["gt_mask_rle"] != s["gt_mask_rle"] or \
+                m["is_crowd"] != s["is_crowd"]:
+            raise AssertionError("masks: the loader's meta differs from "
+                                 "the sample")
+        if s2 is not None and not all(np.array_equal(s[k], s2[k]) for k in (
+                "gt_mask_vertices", "mass_center", "gt_mask")):
+            raise AssertionError("masks: a sample's vertices differ between "
+                                 "two reads")
+    plain = build_dataset_from_cfg(
+        Config.fromfile(FLAGSHIP).data.train | {
+            "annsfile": masked, "imgsfile": cfg.data.train.imgsfile},
+        dataset_type=cfg.dataset, seed=cfg.seed, normalize_on_device=True)
+    t0 = time.perf_counter()
+    for i in idx:
+        plain[i]
+    box_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
+    crowd = sorted({s["is_crowd"] for s in samples})
+    log(f"masks[host]: {len(idx)} samples, meta and vertices as computed "
+        f"directly (is_crowd values {crowd}); host ms per sample with masks "
+        f"{mask_ms:.2f}, the flagship's box-only pipeline {box_ms:.2f} "
+        f"[{card}]")
+
+    # evaluate with a step that adds pred_masks
+    from simvg_tpu_torch.engine import make_eval_step
+    from simvg_tpu_torch.models import build_model, init_random_weights
+
+    model, _ = build_model(cfg.model, img_size=cfg.img_size,
+                           dtype=torch.bfloat16)
+    init_random_weights(model, SEED)
+    norm = next(dict(op, to_rgb=True) for op in cfg.data.val.pipeline
+                if op["type"] == "Normalize")
+    norm.pop("type")
+    step = make_eval_step(model, device_norm=norm)
+    vds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset,
+                                 seed=cfg.seed, normalize_on_device=True)
+    vloader = build_loader_from_cfg(vds, cfg, train=False,
+                                    canvas=cfg.img_size, seed=cfg.seed,
+                                    device="cuda")
+    for shift in (0, MASK_SHIFT):
+        want, current = [], {}
+
+        def batches():
+            for b in vloader:
+                current.update(meta=b["meta"], valid=b["batch_valid"])
+                yield b
+
+        def with_masks(device_batch):
+            preds = step(device_batch)
+            masks = []
+            for m, valid in zip(current["meta"], current["valid"]):
+                gt = rle_ops.decode(m["gt_mask_rle"])
+                pred = np.roll(gt, shift, axis=1)
+                masks.append(rle_ops.encode(pred))
+                inter = float((gt & pred).sum())
+                den = float(pred.sum() if m["is_crowd"] else (gt | pred).sum())
+                if valid:
+                    want.append(inter / den if den else 0.0)
+            for p in preds.values():
+                p["pred_masks"] = masks
+            return preds
+
+        out = counted_run(
+            f"masks[evaluate, shift {shift}]",
+            lambda: evaluate(model, batches(), eval_step=with_masks),
+            K1_STEP * len(vloader), 0, card, launches)
+        if len(want) != out["n_samples"] or not want:
+            raise AssertionError(f"masks: {len(want)} IoUs for "
+                                 f"{out['n_samples']} samples")
+        expect = float(np.mean(want)) * 100.0
+        log(f"masks[evaluate], pred_masks = GT shifted {shift} columns: "
+            f"decoder_mask_miou {out['decoder_mask_miou']}, token "
+            f"{out['token_mask_miou']}, miou {out['miou']} (computed here: "
+            f"{expect}), acc@0.5 {out['decoder_mask_acc@0.5']}")
+        if not (abs(out["miou"] - expect) <= 1e-9 * max(expect, 1.0)
+                and (shift or out["miou"] == 100.0)):
+            raise AssertionError(f"masks: evaluate's mask mIoU {out['miou']}"
+                                 f", expected {expect}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def serving_phases(card, root, synth):
     """The serving entry points: "prune", "export", "serve", "demo" and
     "inference", each path's K1 launches counted from 0 around it.
@@ -2781,11 +3150,24 @@ def main() -> int:
     k2_rows = check_k2(gen, card)
     serve_k1 = serve_flagship(card)
     train_k1, train_k2, step_ms = train_flagship(card)
-    check_jpeg(card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        # the slice-9 phases run before the earlier slices' checks: no phase
+        # leaves state that a later one sees (phase_order.py prints the
+        # GRefCOCO check's weights, batch and distances after each)
+        t0 = time.perf_counter()
+        counts = []
+        options_phase(card, root, step_ms, counts)
+        options_k1, options_k2 = (sum(c[i] for c in counts) for i in (0, 1))
+        log(f"options phase: {time.perf_counter() - t0:.1f} s")
+        check_jpeg(card)
         synth = data_phase(card, root, step_ms)
         cli_k1, cli_k2, cli_losses = cli_phase(card, root, synth)
+        t0 = time.perf_counter()
+        counts = []
+        masks_phase(card, root, synth, counts)
+        masks_k1, masks_k2 = (sum(c[i] for c in counts) for i in (0, 1))
+        log(f"masks phase: {time.perf_counter() - t0:.1f} s")
         grec_k1, grec_k2 = grec_phase(card, root)
         mixed_k1, mixed_k2 = mixed_phase(card, root)
         serving = serving_phases(card, root, synth)
@@ -2812,11 +3194,13 @@ def main() -> int:
     dist_k2 += sum(c[1] for c in counts)
     log(f"dist phase: {time.perf_counter() - t0 + t_dist:.1f} s")
     log(f"launches on the main paths: K1 serve {serve_k1}, train {train_k1}, "
-        f"cli {cli_k1}, grec {grec_k1}, mixed {mixed_k1}, "
+        f"options {options_k1}, cli {cli_k1}, grec {grec_k1}, mixed "
+        f"{mixed_k1}, masks {masks_k1}, "
         + ", ".join(f"{k} {v}" for k, v in serving.items())
         + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}; K2 train "
-        f"{train_k2}, cli {cli_k2}, grec {grec_k2}, mixed {mixed_k2}, int8 "
-        f"{int8_k2}, remat {remat_k2}, dist {dist_k2}")
+        f"{train_k2}, options {options_k2}, cli {cli_k2}, grec {grec_k2}, "
+        f"mixed {mixed_k2}, masks {masks_k2}, int8 {int8_k2}, remat "
+        f"{remat_k2}, dist {dist_k2}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
@@ -2838,11 +3222,12 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
-              k1_rows, serve_k1 + train_k1 + cli_k1 + grec_k1 + mixed_k1
-              + sum(serving.values()) + int8_k1 + remat_k1 + dist_k1),
+              k1_rows, serve_k1 + train_k1 + options_k1 + cli_k1 + grec_k1
+              + mixed_k1 + masks_k1 + sum(serving.values()) + int8_k1
+              + remat_k1 + dist_k1),
         entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
-              k2_rows, train_k2 + cli_k2 + grec_k2 + mixed_k2 + int8_k2
-              + remat_k2 + dist_k2),
+              k2_rows, train_k2 + options_k2 + cli_k2 + grec_k2 + mixed_k2
+              + masks_k2 + int8_k2 + remat_k2 + dist_k2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

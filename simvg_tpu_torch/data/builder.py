@@ -9,8 +9,9 @@
 - ``DefaultFormatBundle``/``CollectData`` are no-ops: static-shape
   collation replaces them.
 
-``SampleMaskVertices`` (masks) and ``VGTRAugment`` (the legacy VGTR family)
-are not ported yet and raise.
+``SampleMaskVertices`` samples the mask's contour on the host;
+``VGTRAugment`` (the legacy VGTR family, M20) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .datasets import BaseDataset, build_dataset
 from .loader import DataLoader
 
 _NOOP_TYPES = {"DefaultFormatBundle", "CollectData"}
-_NOT_PORTED = {"SampleMaskVertices": "masks", "VGTRAugment": "M20"}
+_NOT_PORTED = {"VGTRAugment": "M20"}
 
 
 def build_pipeline(pipeline_cfg, normalize_on_device: bool = False
@@ -51,6 +52,8 @@ def build_pipeline(pipeline_cfg, normalize_on_device: bool = False
                 tfs.append(T.Normalize(**op))
         elif kind == "Pad":
             tfs.append(T.Pad(**op))
+        elif kind == "SampleMaskVertices":
+            tfs.append(T.SampleMaskVertices(**op))
         elif kind in _NOT_PORTED:
             raise NotImplementedError(f"pipeline op {kind!r} is not ported "
                                       f"yet (ROADMAP: {_NOT_PORTED[kind]})")

@@ -20,7 +20,9 @@ As in the JAX module:
 What differs: ``_load_image`` returns the file's bytes and the image's
 (h, w) from the JPEG header (EXIF orientation applied), not decoded pixels;
 the loader decodes on its device (``data/jpeg.py``, ``data/image_ops.py``).
-Masks are not ported yet (ROADMAP: masks) and raise.
+With ``with_mask`` the annotation's ``mask`` (polygons, or an RLE dict)
+becomes ``gt_mask`` (a uint8 host bitmap), ``gt_mask_rle`` and ``is_crowd``
+(1 for a polygon of several parts), through the port's ``ops/rle.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import random
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from simvg_tpu_torch.ops import rle as rle_ops
 
 from .jpeg import jpeg_geometry
 from .tokenization import build_tokenizer, build_word_vocab
@@ -81,9 +85,6 @@ class BaseDataset:
         assert which_set in VALID_SETS, which_set
         if not (with_bbox or with_mask):
             raise ValueError("set with_bbox and/or with_mask on the load op")
-        if with_mask:
-            raise NotImplementedError("masks are not ported yet (ROADMAP: "
-                                      "masks)")
         self.which_set = which_set
         self.imgsfile = imgsfile
         self.max_token = max_token
@@ -173,7 +174,25 @@ class BaseDataset:
 
         if self.with_bbox:
             self._load_bbox(s, ann, expr_idx)
+        if self.with_mask:
+            self._load_mask(s, ann)
         return self.pipeline(s)
+
+    def _load_mask(self, s: dict, ann: dict):
+        """Polygon-or-RLE GT mask -> bitmap, RLE and is_crowd."""
+        mask = ann["mask"]
+        h, w = s["ori_shape"][:2]
+        is_crowd = 0
+        if isinstance(mask, list):  # polygon(s)
+            rles = rle_ops.frPyObjects(mask, h, w)
+            if len(rles) > 1:
+                is_crowd = 1
+            r = rle_ops.merge(rles)
+        else:
+            r = mask
+        s["gt_mask"] = rle_ops.decode(r)
+        s["gt_mask_rle"] = r
+        s["is_crowd"] = is_crowd
 
     def _load_bbox(self, s: dict, ann: dict, expr_idx: int):
         """xywh -> xyxy, clipped to the image."""

@@ -26,7 +26,8 @@ normalisation to the step) on ``device``; numpy text_ids [B,T] i32,
 text_padding_mask [B,T] i32, img_shape [B,2] i32, scale_factor [B,4] f32,
 gt_boxes [B,max_gt,4] f32, gt_labels [B,max_gt] i32, gt_valid [B,max_gt]
 bool, gt_count [B] i32, batch_valid [B] bool; meta: a list of per-sample
-dicts (filename, expression, ori_shape, img_shape, target, gt_bbox_all).
+dicts (filename, expression, ori_shape, img_shape, target, gt_mask_rle,
+is_crowd, gt_bbox_all).
 """
 
 from __future__ import annotations
@@ -89,6 +90,8 @@ def collate(samples: List[dict], canvas: int, max_gt: int = 1,
             "ori_shape": s.get("ori_shape"),
             "img_shape": s.get("img_shape"),
             "target": s.get("target"),
+            "gt_mask_rle": s.get("gt_mask_rle"),
+            "is_crowd": s.get("is_crowd"),
             "gt_bbox_all": (
                 np.asarray(
                     gb if isinstance(gb, list) else [gb], np.float64

@@ -12,16 +12,26 @@ A sample is a plain dict, with the JAX module's keys except ``img``:
 ``img_bytes`` (the JPEG file), ``img_shape``/``ori_shape``/``pad_shape``
 ((h, w, 3) tuples, as ``img.shape`` gives them there), ``scale_factor``,
 ``gt_bbox``, ``pixel_ops``, and after ``Normalize`` ``img_norm_cfg``.
-Masks are not ported yet (ROADMAP: masks); the dataset refuses
-``with_mask``.
+
+A mask (``with_mask``: ``gt_mask``, a small uint8 host array, and its RLE
+``gt_mask_rle``) stays on the host: it feeds host RLE and the vertex
+sampler.  It follows every geometric op as the JAX module's does, resized
+with ``cv2.INTER_NEAREST``'s index rule (``ops/raster.py``), cropped and
+padded in numpy, its RLE re-encoded after each op.  ``SampleMaskVertices``
+takes the mass centre and the vertices of the mask's largest contour with
+``ops/raster.py``'s copy of OpenCV's contour functions.
 """
 
 from __future__ import annotations
 
+import math
 import random
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from simvg_tpu_torch.ops import raster
+from simvg_tpu_torch.ops import rle as rle_ops
 
 
 def _rescale_size(w: int, h: int, scale: float) -> Tuple[int, int]:
@@ -33,6 +43,16 @@ def _resize_to(s: dict, new_w: int, new_h: int) -> None:
     """Records a bilinear resize of the current image to (new_h, new_w)."""
     s["pixel_ops"].append(("resize", (new_h, new_w)))
     s["img_shape"] = (new_h, new_w, 3)
+
+
+def _resize_mask(s: dict, wh) -> None:
+    """Resizes the GT bitmap mask (nearest) and refreshes its RLE."""
+    s["gt_mask"] = raster.resize_nearest(s["gt_mask"], wh)
+    s["gt_mask_rle"] = rle_ops.encode(s["gt_mask"])
+
+
+def _has_mask(s: dict) -> bool:
+    return bool(s.get("with_mask")) and "gt_mask" in s
 
 
 def _imrescale(s: dict, scale: float) -> None:
@@ -75,6 +95,8 @@ class Resize:
                 s["gt_bbox"] = [b * sf for b in gb]
             else:
                 s["gt_bbox"] = gb * sf
+        if _has_mask(s):
+            _resize_mask(s, (new_w, new_h))
         return s
 
 
@@ -120,6 +142,11 @@ class Pad:
             th, tw = ((h + d - 1) // d) * d, ((w + d - 1) // d) * d
         s["pad_shape"] = (th, tw, 3)
         s["pad_val"] = self.pad_val
+        if _has_mask(s):
+            m = np.zeros((th, tw), s["gt_mask"].dtype)
+            m[:h, :w] = s["gt_mask"]
+            s["gt_mask"] = m
+            s["gt_mask_rle"] = rle_ops.encode(m)
         return s
 
 
@@ -155,6 +182,14 @@ class LargeScaleJitter:
         area = (gt[2] - gt[0]) * (gt[3] - gt[1])
         return float(overlap / max(area, 1e-12))
 
+    @staticmethod
+    def _mask_cover(crop: np.ndarray, gt_mask: np.ndarray) -> float:
+        """Fraction of the mask's area inside the crop rectangle: the
+        mask-only (with_bbox=False) crop-acceptance criterion."""
+        x0, y0, x1, y1 = np.maximum(crop, 0.0).astype(np.int64)
+        inside = float(gt_mask[y0:y1, x0:x1].sum())
+        return inside / max(float(gt_mask.sum()), 1e-12)
+
     def __call__(self, s: dict) -> dict:
         h, w = s["ori_shape"][:2]
         # per-sample deterministic stream when the dataset provides one
@@ -165,6 +200,9 @@ class LargeScaleJitter:
         fit_scale = self.out_max_size / max(h, w)
         _imrescale(s, rand_scale * fit_scale)
         new_h, new_w = s["img_shape"][:2]
+        if _has_mask(s):
+            s["gt_mask"] = raster.resize_nearest(s["gt_mask"],
+                                                 (new_w, new_h))
 
         gt_bbox = s.get("gt_bbox")
         multi = isinstance(gt_bbox, list)
@@ -179,9 +217,14 @@ class LargeScaleJitter:
 
         if rand_scale > 1.0:
             w_out, h_out = _rescale_size(w, h, fit_scale)
-            # a GRefCOCO no-target sample (empty bbox list) has nothing
-            # to keep: any crop is acceptable (full-image reference box)
-            if multi and len(gt_bbox) == 0:
+            # the crop-acceptance criterion: bbox coverage when boxes
+            # exist, else mask coverage; a GRefCOCO no-target sample (empty
+            # bbox list) has nothing to keep: any crop is acceptable
+            # (full-image reference box)
+            use_mask = not s.get("with_bbox") and _has_mask(s)
+            if use_mask:
+                ref_box = None
+            elif multi and len(gt_bbox) == 0:
                 ref_box = np.asarray([0.0, 0.0, new_w, new_h])
             else:
                 ref_box = gt_bbox[0] if multi else gt_bbox
@@ -197,7 +240,8 @@ class LargeScaleJitter:
                         [offset[0], offset[1], offset[0] + w_out,
                          offset[1] + h_out]
                     )
-                    iou = self._crop_cover(crop, ref_box)
+                    iou = (self._mask_cover(crop, s["gt_mask"]) if use_mask
+                           else self._crop_cover(crop, ref_box))
                     history.append((crop, offset))
                     if iou > best_iou:
                         best_iou = iou
@@ -210,6 +254,8 @@ class LargeScaleJitter:
                     # give up: rescale back to the keep-ratio fit, which
                     # the downstream Pad/collate canvas can hold
                     _resize_to(s, w_out, h_out)
+                    if _has_mask(s):
+                        _resize_mask(s, (w_out, h_out))
                     back = np.asarray(
                         [w_out / new_w, h_out / new_h,
                          w_out / new_w, h_out / new_h], np.float64)
@@ -231,6 +277,8 @@ class LargeScaleJitter:
             x0, y0, x1, y1 = (int(c) for c in crop.astype(np.uint32))
             y1, x1 = min(y1, new_h), min(x1, new_w)
             s["pixel_ops"].append(("crop", (y0, y1, x0, x1)))
+            if _has_mask(s):
+                s["gt_mask"] = s["gt_mask"][y0:y1, x0:x1]
             new_h, new_w = max(y1 - y0, 0), max(x1 - x0, 0)
             s["img_shape"] = (new_h, new_w, 3)
             shift = np.asarray(
@@ -244,6 +292,8 @@ class LargeScaleJitter:
 
         if s.get("with_bbox"):
             s["gt_bbox"] = self._clip(gt_bbox, new_w, new_h, multi)
+        if _has_mask(s):
+            s["gt_mask_rle"] = rle_ops.encode(s["gt_mask"])
         s["pad_shape"] = s["img_shape"]
         s["scale_factor"] = np.asarray(
             [new_w / w, new_h / h, new_w / w, new_h / h], np.float32
@@ -261,6 +311,83 @@ class LargeScaleJitter:
         return [clip_one(b) for b in gt_bbox] if multi else clip_one(
             gt_bbox
         )
+
+
+class SampleMaskVertices:
+    """The contour vertex sampler of SeqTR: the mass centre of the mask's
+    largest contour and num_ray contour points, [2, num_ray] padded with -1.
+    With center_sampling and the centre inside the contour, the points are
+    the farthest contour hits at evenly spaced ray angles (+-5 degrees of
+    fallback); otherwise an even stride over the contour, whose point order
+    and start pixel are OpenCV's."""
+
+    def __init__(self, center_sampling: bool = False, num_ray: int = 18):
+        if num_ray <= 0:
+            raise ValueError(f"num_ray must be positive, got {num_ray}")
+        self.center_sampling = center_sampling
+        self.num_ray = num_ray
+
+    def __call__(self, s: dict) -> dict:
+        if not s.get("with_mask"):
+            raise ValueError("SampleMaskVertices needs with_mask")
+        mask = np.ascontiguousarray(s["gt_mask"], np.uint8)
+        center, contour, keep = self._mass_center(mask)
+        s["gt_mask_vertices"] = self._sample(
+            center, contour, keep, s.get("pad_shape", mask.shape)[:2])
+        s["mass_center"] = center
+        return s
+
+    def _mass_center(self, mask):
+        contours = raster.find_contours(mask)
+        if not contours:
+            return np.asarray([-1.0, -1.0]), np.zeros((0, 2)), False
+        contour = max(contours, key=raster.contour_area)
+        m00, m10, m01 = raster.contour_moments(contour)
+        if m00 > 0.0:
+            return np.asarray([m10 / m00, m01 / m00]), contour, True
+        return np.asarray([-1.0, -1.0]), contour, False
+
+    def _sample(self, center, contour, keep, max_shape):
+        verts = np.full((2, self.num_ray), -1, np.float32)
+        if not keep:
+            return verts
+        n = contour.shape[0]
+        if n <= self.num_ray:
+            verts[:, :n] = contour.T
+            return verts
+        inside = raster.point_polygon_test(
+            contour, tuple(float(c) for c in center)) > 0
+        if self.center_sampling and inside:
+            dx = contour[:, 0] - center[0]
+            dy = contour[:, 1] - center[1]
+            ang = np.arctan2(dy, dx) * 180 / np.pi
+            ang[ang < 0] += 360
+            ang = ang.astype(np.uint32)
+            dist = np.sqrt(dx ** 2 + dy ** 2)
+            hit_ang, hit_dist = [], []
+            # exactly num_ray evenly spaced rays
+            ray_angles = (np.linspace(0, 360, self.num_ray, endpoint=False)
+                          .astype(np.int64))
+            for a in ray_angles:
+                for inc in (0, 1, -1, 2, -2, 3, -3, 4, -4, 5, -5):
+                    aa = a + inc
+                    if (ang == aa).any():
+                        hit_ang.append(aa)
+                        hit_dist.append(dist[ang == aa].max())
+                        break
+            rad = np.asarray(hit_ang) / 180 * np.pi
+            vx = center[0] + np.asarray(hit_dist) * np.cos(rad)
+            vy = center[1] + np.asarray(hit_dist) * np.sin(rad)
+        else:
+            stride = math.ceil(n / self.num_ray)
+            vx = contour[::stride, 0]
+            vy = contour[::stride, 1]
+        if max_shape is not None:
+            vx = np.clip(vx, 0, max_shape[1] - 1)
+            vy = np.clip(vy, 0, max_shape[0] - 1)
+        pts = np.vstack((vx, vy)).astype(np.float32)
+        verts[:, :pts.shape[1]] = pts
+        return verts
 
 
 class Compose:

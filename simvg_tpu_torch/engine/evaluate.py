@@ -1,16 +1,19 @@
-"""Evaluation loop (port of ``simvg_tpu/engine/evaluate.py::evaluate``,
-the box paths).
+"""Evaluation loop (port of ``simvg_tpu/engine/evaluate.py::evaluate``).
 
 Per batch: the eval step runs on the model's device; Prec@0.5 and mIoU
 (or, for GRefCOCO, the per-image boxes and scores that F1/N-acc need)
 accumulate on the host over the ``batch_valid`` rows, so the duplicates
 that wrap-pad the last batch are not counted.  Batches may come from the
-port's loader, with the image already on the device.  Mask mIoU waits for
-the mask path (ROADMAP: masks).
+port's loader, with the image already on the device.  When a branch's
+predictions carry ``pred_masks`` (per-image RLE dicts or binary masks; no
+SimVG head emits them, as in JAX) and the batch's meta carries
+``gt_mask_rle``, the aligned mask IoU and its hits at ``MASK_THRS``
+accumulate too.
 
 On data-parallel ranks each rank evaluates its shard of the split and the
 counters (Prec@0.5 hits, IoU sums, counts; GRefCOCO's correct images,
-counts and no-target TP/FN) are summed over the ranks before the division,
+counts and no-target TP/FN, the mask IoU sums, hits and counts) are summed
+over the ranks before the division,
 as JAX's ``_allgather_sum``: every rank returns the whole split's metrics.
 """
 
@@ -21,12 +24,14 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from simvg_tpu_torch.ops import rle as rle_ops
 from simvg_tpu_torch.parallel.mesh import local
 from .eval import BRANCH_KEYS, make_eval_step
 from .metrics import detection_accuracy, grec_f1_nacc
 
 # the keys the eval step consumes; gt boxes and batch_valid stay on host
 DEVICE_KEYS = ("image", "text_ids", "text_padding_mask", "img_shape")
+MASK_THRS = (0.5, 0.6, 0.7, 0.8, 0.9)
 
 
 def evaluate(
@@ -41,8 +46,10 @@ def evaluate(
     batch_sum: Optional[Callable] = None,
 ) -> Dict[str, float]:
     """Returns per-branch ``{branch}_det_acc`` / ``{branch}_miou``, their
-    mean ``det_acc``, ``n_samples`` and ``miou`` (the mask mIoU, 0.0 for
-    the box-only SimVG heads, as in the JAX package).  With ``is_grec``:
+    mean ``det_acc``, ``n_samples`` and ``miou``: the mean over the branches
+    of ``{branch}_mask_miou`` (with ``{branch}_mask_acc@t``) where a branch
+    predicted masks, else 0.0, as for the box-only SimVG heads in the JAX
+    package.  With ``is_grec``:
     per-branch ``{branch}_F1_score`` / ``{branch}_N_acc`` over the full
     target lists of ``meta["gt_bbox_all"]`` and ``meta["target"]``, their
     means as ``det_acc`` and ``miou``, and ``n_samples``.
@@ -57,6 +64,8 @@ def evaluate(
     device = local(next(model.parameters())).device
     branches = [name for name, _, _ in BRANCH_KEYS]
     acc = {b: {"iou_hits": 0.0, "iou_sum": 0.0, "n": 0} for b in branches}
+    # per branch: mask IoU sum, count, hits at each of MASK_THRS
+    masks = {b: np.zeros(2 + len(MASK_THRS)) for b in branches}
     grec = {b: new_grec_lists() for b in branches}
     n_batches = len(loader) if hasattr(loader, "__len__") else None
     if max_batches is not None and n_batches is not None:
@@ -81,6 +90,8 @@ def evaluate(
                 a["iou_hits"] += m["det_acc"] / 100.0 * m["n"]
                 a["iou_sum"] += m["miou"] / 100.0 * m["n"]
                 a["n"] += m["n"]
+                if preds[b].get("pred_masks") is not None:
+                    mask_rows(masks[b], preds[b]["pred_masks"], batch, valid)
         if log_fn is not None and (bi + 1) % max(log_interval, 1) == 0:
             log_fn(f"eval [{bi + 1}/{n_batches}]")
 
@@ -104,8 +115,34 @@ def evaluate(
         out[f"{b}_det_acc"] = hits / max(n, 1) * 100.0
         out[f"{b}_miou"] = iou_sum / max(n, 1) * 100.0
     out["det_acc"] = (out["decoder_det_acc"] + out["token_det_acc"]) / 2.0
-    out["miou"] = 0.0
+    mask_mious = []
+    for b in branches:
+        iou_sum, n, *hits = _summed(masks[b].tolist(), batch_sum)
+        if n > 0:
+            out[f"{b}_mask_miou"] = iou_sum / n * 100.0
+            for t, h in zip(MASK_THRS, hits):
+                out[f"{b}_mask_acc@{t}"] = h / n * 100.0
+            mask_mious.append(out[f"{b}_mask_miou"])
+    out["miou"] = float(np.mean(mask_mious)) if mask_mious else 0.0
     return out
+
+
+def mask_rows(acc: np.ndarray, pred_masks, batch: Dict,
+              valid: np.ndarray) -> None:
+    """Adds the ``valid`` rows' aligned mask IoU against
+    ``meta["gt_mask_rle"]`` (crowd GT by ``meta["is_crowd"]``) to ``acc``:
+    [IoU sum, count, hits at each of MASK_THRS]."""
+    for i, meta in enumerate(batch["meta"]):
+        gt, pred = meta.get("gt_mask_rle"), pred_masks[i]
+        if not valid[i] or gt is None or pred is None:
+            continue
+        if not isinstance(pred, dict):
+            pred = rle_ops.encode(np.asarray(
+                pred.cpu() if isinstance(pred, torch.Tensor) else pred,
+                np.uint8))
+        iou = float(rle_ops.iou([pred], [gt],
+                                [int(meta.get("is_crowd") or 0)])[0, 0])
+        acc += [iou, 1.0] + [float(iou >= t) for t in MASK_THRS]
 
 
 def _summed(values: List[float],

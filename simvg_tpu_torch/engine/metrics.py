@@ -1,6 +1,7 @@
-"""Evaluation metrics (copies of the numpy ``detection_accuracy`` and
-``grec_f1_nacc`` of ``simvg_tpu/engine/metrics.py``; the JAX package's
-``engine`` imports JAX and optax, which the port does not load).
+"""Evaluation metrics (copies of the numpy ``detection_accuracy``,
+``mask_accuracy`` and ``grec_f1_nacc`` of ``simvg_tpu/engine/metrics.py``;
+the JAX package's ``engine`` imports JAX and optax, which the port does not
+load).
 
 ``grec_f1_nacc`` is the GRefCOCO protocol: predictions filtered at score
 >= 0.7, greedily matched to the targets by highest GIoU (>= 0.5); an image
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from simvg_tpu_torch.ops import rle as rle_ops
 
 
 def _iou_aligned(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -59,6 +62,23 @@ def detection_accuracy(
         "miou": float(iou.mean() * 100.0),
         "n": int(iou.size),
     }
+
+
+def mask_accuracy(
+    pred_rles: Sequence,  # per-image predicted RLE
+    gt_rles: Sequence,  # per-image GT RLE
+    is_crowd: Optional[Sequence[int]] = None,
+    thresholds: Sequence[float] = (0.5, 0.6, 0.7, 0.8, 0.9),
+) -> Dict[str, float]:
+    """Aligned mask IoU in percent (``miou``) and ``acc@t`` for each
+    threshold t."""
+    ious = np.diag(rle_ops.iou(list(pred_rles), list(gt_rles),
+                               list(is_crowd) if is_crowd else None))
+    out = {"miou": float(ious.mean() * 100.0) if len(ious) else 0.0}
+    for t in thresholds:
+        out[f"acc@{t}"] = (float((ious >= t).mean() * 100.0) if len(ious)
+                           else 0.0)
+    return out
 
 
 def grec_f1_nacc(

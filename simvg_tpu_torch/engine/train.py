@@ -3,10 +3,11 @@
 One step: the forward in train mode on the device-normalised batch, the
 SimVG branch losses with Hungarian matching, the backward (through the
 attention kernels K1/K2 when ``attn_impl="pallas"`` on the card), the
-freeze mask, the global-norm clip, the Adam/amsgrad update in place on the
-model's parameters and the optional EMA.  The loss terms, ``grad_norm`` and
-the train metrics come back as device scalars; the only host round trips
-are the Hungarian matchings (``ops/hungarian.py``).
+freeze mask, the global-norm clip, the optimizer's update (Adam/amsgrad,
+AdamW, SGD or RMSProp) in place on the model's parameters and the optional
+EMA.  The loss terms, ``grad_norm`` and the train metrics come back as
+device scalars; the only host round trips are the Hungarian matchings
+(``ops/hungarian.py``).
 
 Train-mode randomness draws from one ``torch.Generator`` on the model's
 device that the step owns; it is seeded from (seed, step) every step, as

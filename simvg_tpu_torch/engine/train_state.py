@@ -15,7 +15,14 @@ so a step launches a bounded number of kernels:
   nu_hat) over the BIAS-CORRECTED nu_hat, update mu_hat / (sqrt(nu_max) +
   eps).  ``torch.optim.Adam(amsgrad=True)`` keeps the max of the
   uncorrected nu and differs from step 2 on;
-- ``mu_dtype`` stores the first moment narrower; the arithmetic stays fp32.
+- ``mu_dtype`` stores the first moment narrower; the arithmetic stays fp32;
+- AdamW, SGD and RMSProp follow optax with the arguments JAX's
+  ``create_optimizer`` passes, not ``torch.optim``: AdamW is Adam without
+  amsgrad (even when the config asks for it) plus ``weight_decay * p`` on
+  every leaf before the learning rate; SGD is ``t = g + momentum * t`` (no
+  dampening, no Nesterov, no weight decay); RMSProp is optax's default
+  (decay 0.9, eps 1e-8 inside the square root whatever the config's eps,
+  not centred), scaled by the learning rate, then the momentum trace.
 
 On a mesh (``parallel/mesh.py``) the update and the EMA run on each rank's
 local shards of the parameters, so under FSDP the moments and the EMA hold
@@ -122,15 +129,27 @@ def is_frozen(name: str, freeze_layer: int) -> bool:
     return m is not None and int(m.group(1)) < freeze_layer
 
 
+OPTIMIZERS = ("Adam", "AdamW", "SGD", "RMSProp")
+# optax.rmsprop's defaults, which JAX's create_optimizer does not override
+RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8
+
+
 @dataclasses.dataclass
 class OptState:
-    """Moments in the order of ``model.named_parameters()``; ``count`` is
-    the number of updates taken (optax's count)."""
+    """The optimizer's per-parameter state, in the order of
+    ``model.named_parameters()``, under optax's names: ``mu``/``nu``
+    (Adam, AdamW), ``nu_max`` (amsgrad), ``trace`` (SGD, RMSProp's
+    momentum), ``nu`` (RMSProp); None where the optimizer keeps none.
+    ``count`` is the number of updates taken (optax's count)."""
 
     count: int
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
-    nu_max: Optional[List[torch.Tensor]]
+    mu: Optional[List[torch.Tensor]] = None
+    nu: Optional[List[torch.Tensor]] = None
+    nu_max: Optional[List[torch.Tensor]] = None
+    trace: Optional[List[torch.Tensor]] = None
+
+
+STATE_KEYS = ("mu", "nu", "nu_max", "trace")
 
 
 @dataclasses.dataclass
@@ -143,8 +162,9 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """Adam (optionally amsgrad) over three LR groups, with the freeze mask
-    and the global-norm clip in front: optax's chain."""
+    """``kind`` (Adam, optionally amsgrad; AdamW; SGD; RMSProp) over three
+    LR groups, with the freeze mask and the global-norm clip in front:
+    optax's chain."""
 
     schedules: Dict[str, Schedule]
     amsgrad: bool = True
@@ -154,12 +174,20 @@ class Optimizer:
     grad_norm_clip: float = 0.15
     freeze_layer: int = -1
     mu_dtype: Optional[torch.dtype] = None
+    kind: str = "Adam"
+    weight_decay: float = 0.0
+    momentum: float = 0.9
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         zeros = lambda dt=None: [torch.zeros_like(p, dtype=dt)  # noqa: E731
                                  for p in params]
+        if self.kind == "SGD":
+            return OptState(count=0, trace=zeros())
+        if self.kind == "RMSProp":
+            return OptState(count=0, nu=zeros(), trace=zeros())
         return OptState(count=0, mu=zeros(self.mu_dtype), nu=zeros(),
-                        nu_max=zeros() if self.amsgrad else None)
+                        nu_max=zeros() if self.kind == "Adam"
+                        and self.amsgrad else None)
 
     def apply(self, names: Sequence[str], params: Sequence[torch.Tensor],
               grads: List[torch.Tensor], state: OptState,
@@ -179,23 +207,29 @@ class Optimizer:
             torch._foreach_mul_(grads, scale)
 
         count = state.count + 1
-        bc1 = 1.0 - self.b1 ** count
-        bc2 = 1.0 - self.b2 ** count
         for group in GROUPS:
             idx = [i for i, n in enumerate(names)
                    if group_label(n) == group and not frozen[i]]
             if not idx:
                 continue
             lr = self.schedules[group](state.count)
-            self._adam([params[i] for i in idx], [grads[i] for i in idx],
-                       [state.mu[i] for i in idx], [state.nu[i] for i in idx],
-                       None if state.nu_max is None
-                       else [state.nu_max[i] for i in idx], bc1, bc2, lr)
+            pick = lambda xs: None if xs is None else [  # noqa: E731
+                xs[i] for i in idx]
+            p, g = pick(params), pick(grads)
+            if self.kind == "SGD":
+                self._sgd(p, g, pick(state.trace), lr)
+            elif self.kind == "RMSProp":
+                self._rmsprop(p, g, pick(state.nu), pick(state.trace), lr)
+            else:
+                self._adam(p, g, pick(state.mu), pick(state.nu),
+                           pick(state.nu_max), count, lr)
         state.count = count
         return state
 
     @torch.no_grad()
-    def _adam(self, p, g, mu_store, nu, nu_max, bc1, bc2, lr):
+    def _adam(self, p, g, mu_store, nu, nu_max, count, lr):
+        """optax's scale_by_adam / scale_by_amsgrad; AdamW adds
+        ``weight_decay * p`` before the learning rate."""
         if self.mu_dtype is None:
             mu = mu_store
             torch._foreach_mul_(mu, self.b1)
@@ -206,18 +240,41 @@ class Optimizer:
         torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-        mu_hat = torch._foreach_div(mu, bc1)
-        nu_hat = torch._foreach_div(nu, bc2)
+        mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** count)
+        nu_hat = torch._foreach_div(nu, 1.0 - self.b2 ** count)
         if nu_max is not None:
             torch._foreach_maximum_(nu_max, nu_hat)
             nu_hat = nu_max
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu_hat, denom)
+        if self.kind == "AdamW":
+            torch._foreach_add_(upd, p, alpha=self.weight_decay)
         torch._foreach_add_(p, upd, alpha=-lr)
         if self.mu_dtype is not None:
             for dst, src in zip(mu_store, mu):
                 dst.copy_(src)
+
+    @torch.no_grad()
+    def _sgd(self, p, g, trace, lr):
+        """optax.sgd: t = g + momentum * t, then -lr * t."""
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, g)
+        torch._foreach_add_(p, trace, alpha=-lr)
+
+    @torch.no_grad()
+    def _rmsprop(self, p, g, nu, trace, lr):
+        """optax.rmsprop: nu = decay * nu + (1 - decay) g^2, u = -lr * g *
+        rsqrt(nu + eps), then the momentum trace t = u + momentum * t."""
+        torch._foreach_mul_(nu, RMSPROP_DECAY)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - RMSPROP_DECAY)
+        scale = torch._foreach_add(nu, RMSPROP_EPS)
+        torch._foreach_rsqrt_(scale)
+        upd = torch._foreach_mul(scale, g)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, upd)
+        torch._foreach_add_(p, trace)
 
 
 def global_norm(tensors: Sequence[torch.Tensor],
@@ -260,14 +317,16 @@ def create_optimizer(
     scheduler_type: str = "MultiStepLRWarmUp",
     scheduler_kw: Optional[Dict] = None,
     amsgrad: bool = True,
+    weight_decay: float = 0.0,
+    momentum: float = 0.9,
     mu_dtype: Optional[str] = None,
 ) -> Optimizer:
-    """The Adam optimizer of ``simvg_tpu.engine.train_state.
-    create_optimizer``, with its arguments; every shipped config's.  AdamW,
-    SGD and RMSProp are not ported yet."""
-    if optimizer_type != "Adam":
-        raise NotImplementedError(f"optimizer {optimizer_type!r} is not "
-                                  "ported")
+    """The optimizer of ``simvg_tpu.engine.train_state.create_optimizer``,
+    with its arguments: Adam (amsgrad), AdamW (``weight_decay``; amsgrad
+    ignored), SGD and RMSProp (``momentum``; eps, betas and weight decay
+    ignored), as optax builds them there."""
+    if optimizer_type not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer_type!r}")
     bases = {"vis_enc": lr / 10.0 if lr_vis_enc is None else lr_vis_enc,
              "lan_enc": lr if lr_lan_enc is None else lr_lan_enc,
              "rest": lr}
@@ -279,7 +338,8 @@ def create_optimizer(
     return Optimizer(
         schedules=schedules, amsgrad=amsgrad, b1=betas[0], b2=betas[1],
         eps=eps, grad_norm_clip=grad_norm_clip, freeze_layer=freeze_layer,
-        mu_dtype=getattr(torch, mu_dtype) if mu_dtype else None)
+        mu_dtype=getattr(torch, mu_dtype) if mu_dtype else None,
+        kind=optimizer_type, weight_decay=weight_decay, momentum=momentum)
 
 
 def create_train_state(model: torch.nn.Module, optimizer: Optimizer,

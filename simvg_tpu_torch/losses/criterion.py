@@ -3,8 +3,9 @@
 
 Padded, batched targets ([B, T] with a validity mask) as in the JAX
 package; the Hungarian matching goes to the host once per
-``set_criterion`` call, with every decoder layer's costs stacked, and once
-per teacher match in ``prepare_soft_targets`` (``ops/hungarian.py``).
+``set_criterion`` call, with every decoder layer's costs stacked, once
+per teacher match in ``prepare_soft_targets`` and once per soft
+distillation call (``distill.py``) (``ops/hungarian.py``).
 
 Matcher: detrex ``HungarianMatcher`` with ``ce_cost``, cost = 1 * -prob +
 5 * L1 + 2 * -GIoU.  ``num_boxes`` = max(global count, dp_size): the
@@ -34,6 +35,7 @@ from simvg_tpu_torch.ops.boxes import (
     generalized_box_iou_pairwise,
 )
 from simvg_tpu_torch.ops.hungarian import hungarian_assign
+from .distill import soft_distill_losses
 
 
 class Targets(NamedTuple):
@@ -344,10 +346,10 @@ def simvg_branch_losses(
 
     On data-parallel ranks (``batch_sum`` summing over the data axis) each
     term but ``loss_distill_w`` is this rank's share of the global term
-    (see the module docstring); ``loss_distill_w`` is global."""
-    if distill_type == "soft" and "distill" in branch_loss_weight \
-            and "balanced_distill" not in branch_loss_weight:
-        raise NotImplementedError("distill_type='soft' is not ported yet")
+    (see the module docstring); ``loss_distill_w`` is global.
+
+    ``distill_type="soft"`` (the non-balanced "distill" branch only) takes
+    ``distill.soft_distill_losses`` against the decoder's last layer."""
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
 
@@ -392,7 +394,12 @@ def simvg_branch_losses(
             t = set_criterion(cls_tok_, box_tok_, targets_gt, **kw_gt)
             losses["loss_tgt"] = branch_loss_weight["token"] * t["total"]
             total = total + losses["loss_tgt"]
-        if "distill" in branch_loss_weight:
+        if "distill" in branch_loss_weight and distill_type == "soft":
+            k = soft_distill_losses(cls_tok_, box_tok_, cls_dec[-1],
+                                    box_dec[-1], batch_sum=batch_sum)
+            losses["loss_kd"] = branch_loss_weight["distill"] * k["total"]
+            total = total + losses["loss_kd"]
+        elif "distill" in branch_loss_weight:
             targets_pred, _ = prepare_soft_targets(
                 cls_dec[-1], box_dec[-1], targets_gt,
                 prepare_target_mode=prepare_target_mode,

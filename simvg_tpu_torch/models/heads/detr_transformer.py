@@ -1,5 +1,5 @@
-"""Post-norm DETR decoder layers (port of
-``simvg_tpu/models/heads/detr_transformer.py``, decoder parts).
+"""Post-norm DETR encoder and decoder layers (port of
+``simvg_tpu/models/heads/detr_transformer.py``).
 
 - attention = ``nn.MultiheadAttention`` semantics: packed q/k/v projection
   (``in_proj_weight``/``in_proj_bias``), output projection, prob dropout;
@@ -15,8 +15,10 @@ Parameter names follow the reference's detrex state dict
 The head's attention returns its weights, so it always takes the plain
 path of ``multihead_attention``; ``recorded_cross_attention`` hands the
 last decoder layer's cross-attention weights to the caller (the inference
-CLI's ``--with-attn``) without changing any output.  ``DetrEncoder`` is not on the flagship
-path (``only_decoder=True``) and is not ported yet.
+CLI's ``--with-attn``) without changing any output.  ``DetrEncoder``
+runs over the image memory when the head has ``only_decoder=False``;
+like the decoder's, its attention is the plain path (JAX's is not a
+Pallas kernel either).
 """
 
 from __future__ import annotations
@@ -104,6 +106,51 @@ class DetrFFN(nn.Module):
         for layer in self.layers:
             h = layer(h)
         return x + h
+
+
+class DetrEncoderLayer(nn.Module):
+    """("self_attn","norm","ffn","norm") post-norm layer; ``query_pos`` is
+    added to q and k, not to v."""
+
+    def __init__(self, embed_dim: int, num_heads: int, feedforward_dim: int,
+                 attn_dropout: float, ffn_dropout: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.attentions = nn.ModuleList(
+            [DetrAttention(embed_dim, num_heads, attn_dropout, dtype)])
+        self.ffns = nn.ModuleList(
+            [DetrFFN(embed_dim, feedforward_dim, ffn_dropout, dtype)])
+        self.norms = nn.ModuleList(LayerNorm(embed_dim) for _ in range(2))
+
+    def forward(self, x, query_pos, key_padding_mask):
+        dt = self.dtype
+        x = self.attentions[0](x, x, x, query_pos, query_pos,
+                               key_padding_mask)
+        x = self.norms[0](x).to(dt)
+        x = self.ffns[0](x)
+        return self.norms[1](x).to(dt)
+
+
+class DetrEncoder(nn.Module):
+    """DetrTransformerEncoder with no final norm, as the reference config
+    has none."""
+
+    def __init__(self, embed_dim: int = 256, num_heads: int = 8,
+                 feedforward_dim: int = 2048, num_layers: int = 6,
+                 attn_dropout: float = 0.1, ffn_dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            DetrEncoderLayer(embed_dim, num_heads, feedforward_dim,
+                             attn_dropout, ffn_dropout, dtype)
+            for _ in range(num_layers))
+
+    def forward(self, x, query_pos=None, key_padding_mask=None):
+        for layer in self.layers:
+            x = layer(x, query_pos, key_padding_mask)
+        return x
 
 
 class DetrDecoderLayer(nn.Module):

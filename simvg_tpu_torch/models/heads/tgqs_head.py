@@ -21,7 +21,7 @@ from simvg_tpu_torch.ops.sine_embed import (
     sine_position_embedding_2d,
 )
 from ..layers import Linear
-from .detr_transformer import DetrDecoder
+from .detr_transformer import DetrDecoder, DetrEncoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,19 +78,20 @@ class MLP(nn.Module):
 
 
 class _Transformer(nn.Module):
-    """Holds the decoder under the reference's ``transformer.decoder``."""
+    """Holds the decoder and, with ``only_decoder=False``, the encoder under
+    the reference's ``transformer.decoder`` / ``transformer.encoder``."""
 
-    def __init__(self, decoder: DetrDecoder):
+    def __init__(self, decoder: DetrDecoder,
+                 encoder: "DetrEncoder | None" = None):
         super().__init__()
+        if encoder is not None:
+            self.encoder = encoder
         self.decoder = decoder
 
 
 class TGQSKDDETRHead(nn.Module):
     def __init__(self, cfg: TGQSHeadConfig):
         super().__init__()
-        if not cfg.only_decoder:
-            raise NotImplementedError(
-                "only_decoder=False needs DetrEncoder, not ported yet")
         self.cfg = cfg
         e, dt = cfg.embed_dim, cfg.dtype
         self.class_embed_decoder = Linear(e, cfg.num_classes + 1, dt)
@@ -110,10 +111,14 @@ class TGQSKDDETRHead(nn.Module):
         if cfg.num_token_mlp_layers > 0:
             self.mlp = MLP(e, e, e, cfg.num_token_mlp_layers,
                            return_intermediate=True, dtype=dt)
+        # the encoder has 8 heads and a 2048-wide FFN whatever the config
+        # says, as in JAX
         self.transformer = _Transformer(DetrDecoder(
             e, 8, 2048, cfg.num_decoder_layers, cfg.attn_dropout,
             cfg.ffn_dropout, post_norm=True, return_intermediate=True,
-            dtype=dt))
+            dtype=dt), None if cfg.only_decoder else DetrEncoder(
+            e, 8, 2048, cfg.num_encoder_layers, cfg.attn_dropout,
+            cfg.ffn_dropout, dtype=dt))
 
     def _token_heads(self):
         if self.cfg.share_predicthead:
@@ -177,12 +182,15 @@ class TGQSKDDETRHead(nn.Module):
         # ---- decoder branch
         ld = cfg.num_decoder_layers
         if branches != "token":
+            memory = x.reshape(b, h * w, e)
+            mem_pos = pos_embed.reshape(b, h * w, e)
+            mem_mask = img_pad_mask.reshape(b, h * w)
+            if not cfg.only_decoder:
+                memory = self.transformer.encoder(
+                    memory, query_pos=mem_pos, key_padding_mask=mem_mask)
             hidden_states = self.transformer.decoder(
-                torch.zeros_like(query_embed),
-                x.reshape(b, h * w, e),
-                query_pos=query_embed,
-                key_pos=pos_embed.reshape(b, h * w, e),
-                key_padding_mask=img_pad_mask.reshape(b, h * w),
+                torch.zeros_like(query_embed), memory, query_pos=query_embed,
+                key_pos=mem_pos, key_padding_mask=mem_mask,
             )  # [L_dec, B, Q, E]
             class_decoder = self.class_embed_decoder(hidden_states)
             bbox_decoder = torch.sigmoid(

@@ -19,6 +19,9 @@ expressions.
   never written (the ``img_source`` filter must drop it before any read),
   and a ``val_refcoco_unc`` split (Mixed pretraining).
 
+``add_masks`` gives every record of a refcoco-style annotation file a
+``mask``, for the segmentation and multi-task pipelines.
+
 The JPEG files are encoded by ``data/jpeg.py``: nvJPEG on the card
 (default), cv2 with ``--device cpu``.
 """
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from simvg_tpu_torch.data.jpeg import encode
+from simvg_tpu_torch.ops import rle as rle_ops
 
 
 _GREEN = (0, 255, 0)  # BGR
@@ -178,6 +182,43 @@ def make_mixed_style(root: str, n_per_source: int = 4, n_val: int = 4,
     with open(path, "w") as f:
         json.dump(anns, f)
     return roots, path
+
+
+def _box_mask(x: float, y: float, bw: float, bh: float, kind: int, h: int,
+              w: int):
+    """A ``mask`` annotation inside the box (x, y, bw, bh), by ``kind``: 0 a
+    concave L-shaped polygon, 1 two polygons (a crowd mask), 2 an RLE ring
+    (a hole), 3 the box as a polygon.  Vertices at fractional positions."""
+    x0, y0, x1, y1 = x + 0.3, y + 0.4, x + bw - 0.3, y + bh - 0.2
+    xm, ym = (x0 + x1) / 2, (y0 + y1) / 2
+    if kind == 0:
+        return [[x0, y0, x1, y0, x1, ym, xm, ym, xm, y1, x0, y1]]
+    if kind == 1:
+        return [[x0, y0, xm - 1, y0, x0, y1],
+                [xm + 1, y1, x1, y1, x1, y0 + 2]]
+    if kind == 2:
+        m = np.zeros((h, w), np.uint8)
+        m[int(y0):int(y1) + 1, int(x0):int(x1) + 1] = 1
+        m[int(ym - bh / 5):int(ym + bh / 5) + 1,
+          int(xm - bw / 5):int(xm + bw / 5) + 1] = 0
+        r = rle_ops.encode(m)
+        return {"size": r["size"], "counts": r["counts"].decode()}
+    return [[x0, y0, x1, y0, x1, y1, x0, y1]]
+
+
+def add_masks(annsfile: str) -> str:
+    """Gives every record of ``annsfile`` a ``mask`` inside its box (the
+    kinds of ``_box_mask`` in turn) and rewrites the file; returns it."""
+    with open(annsfile) as f:
+        anns = json.load(f)
+    i = 0
+    for records in anns.values():
+        for a in records:
+            a["mask"] = _box_mask(*a["bbox"], i % 4, a["height"], a["width"])
+            i += 1
+    with open(annsfile, "w") as f:
+        json.dump(anns, f)
+    return annsfile
 
 
 def smooth_image(h: int, w: int, seed: int = 0) -> np.ndarray:

@@ -33,7 +33,11 @@ config, ``metrics.jsonl`` and the checkpoints, in the single-device format.
 Without ``--distributed`` the run is single-device, where ``fsdp`` and the
 model axis shard nothing.
 
-Not ported yet, raising with its ROADMAP item: ``with_mask`` (masks).
+The optimizer is the config's ``optimizer_config.type`` (Adam, AdamW with
+``weight_decay``, SGD, RMSProp), as JAX's CLI builds it; a pipeline with
+``with_mask`` carries ``gt_mask_rle`` and ``is_crowd`` into evaluation.
+Not ported yet, raising with its ROADMAP item: the legacy OneStageModel
+family and ``VGTRAugment`` (M20).
 """
 
 from __future__ import annotations
@@ -322,6 +326,7 @@ def _train(args, cfg, device: torch.device, mesh) -> Dict:
         scheduler_type=sch_cfg.get("type", "MultiStepLRWarmUp"),
         scheduler_kw=dict(sch_cfg),
         amsgrad=opt_cfg.get("amsgrad", True),
+        weight_decay=opt_cfg.get("weight_decay", 0.0),
         mu_dtype=opt_cfg.get("mu_dtype"),
     )
     use_ema = bool(cfg.get("ema", False))

@@ -5,8 +5,9 @@ Layout, as the JAX package writes it: ``<work_dir>/<name>/`` holds one item
 each for ``params``, ``opt_state`` and ``ema_params`` (here a ``torch.save``
 of host tensors keyed by the port's state-dict names) and ``meta.json``
 (epoch, step, ema_step, metrics, the item list).  The optimizer item holds
-optax's ``count`` and the Adam moments ``mu``, ``nu`` (and ``nu_max`` with
-amsgrad), each keyed by parameter name.
+optax's ``count`` and, under optax's names, each keyed by parameter name,
+the optimizer's state: ``mu``, ``nu`` (Adam, AdamW; and ``nu_max`` with
+amsgrad), ``trace`` (SGD), ``nu`` and ``trace`` (RMSProp).
 
 A save copies every tensor to the host first, then writes on a background
 thread, as orbax's asynchronous saves do: the items go to
@@ -40,7 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from simvg_tpu_torch.engine.train_state import OptState
+from simvg_tpu_torch.engine.train_state import STATE_KEYS, OptState
 from simvg_tpu_torch.parallel.mesh import full_tensor, shard_of
 
 _lock = threading.Lock()
@@ -111,11 +112,10 @@ def opt_state_to_dict(names: Sequence[str], opt: OptState,
     """An ``OptState`` (moments in parameter order) keyed by name; with
     ``params`` (the model's, on a mesh) the whole moments gathered to rank
     0, None on the other ranks."""
-    out: Dict[str, Any] = {"count": opt.count,
-                           "mu": full_named(names, opt.mu, params),
-                           "nu": full_named(names, opt.nu, params)}
-    if opt.nu_max is not None:
-        out["nu_max"] = full_named(names, opt.nu_max, params)
+    out: Dict[str, Any] = {"count": opt.count}
+    for key in STATE_KEYS:
+        if getattr(opt, key) is not None:
+            out[key] = full_named(names, getattr(opt, key), params)
     return out if params is None or _writes() else None
 
 
@@ -137,7 +137,7 @@ def load_opt_state(names: Sequence[str], saved: Dict[str, Any],
                    ) -> OptState:
     """Copies a saved optimizer item into ``opt``'s tensors in place (with
     ``params``, this rank's parts of them)."""
-    for key in ("mu", "nu", "nu_max"):
+    for key in STATE_KEYS:
         dst = getattr(opt, key)
         if dst is None:
             continue

@@ -9,7 +9,10 @@ pixels within distance 1 of the box's edges, as ``cv2.rectangle`` draws it
 (round caps: the four outer corner pixels stay unset).  There is no font
 either, so the expression, the boxes and the scores go into ``<out>.json``
 beside each image instead of ``cv2.putText`` onto it.  ``imshow_expr_mask``
-waits for the mask path (ROADMAP: masks).
+blends each mask's colour into the image (``cv2.addWeighted``'s rounding)
+and draws the mask's outer outline with the pixels ``cv2.drawContours``
+sets at thickness 2; the outline's pixels come from the host's copy of
+OpenCV's contour and line geometry (``ops/raster.py``).
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ from __future__ import annotations
 import json
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from simvg_tpu_torch.data.jpeg import encode
+from simvg_tpu_torch.ops import raster
+from simvg_tpu_torch.ops import rle as rle_ops
 
 PRED_COLOR = (0, 0, 255)  # red in BGR
 GT_COLOR = (255, 0, 0)  # blue in BGR
@@ -108,6 +114,37 @@ def imshow_expr_bbox(img: torch.Tensor, pred_bbox, out_file: str,
                   "image_hw": list(img.shape[:2])}
         with open(out_file + ".json", "w") as f:
             json.dump(record, f)
+    return img
+
+
+def imshow_expr_mask(img: torch.Tensor, pred_mask_rle, out_file: str,
+                     gt_mask_rle=None, alpha: float = 0.45) -> torch.Tensor:
+    """A copy of the uint8 BGR [h, w, 3] ``img`` with the predicted mask
+    (red) and ``gt_mask_rle`` (blue), COCO RLE dicts, each blended in at
+    ``alpha`` and outlined; written to ``out_file`` as a JPEG when given."""
+    img = img.clone()
+    h, w = img.shape[:2]
+
+    def overlay(r, color):
+        m = rle_ops.decode(r)
+        if m.shape != (h, w):
+            m = raster.resize_nearest(m, (w, h))
+        inside = torch.from_numpy(m.astype(bool)).to(img.device)
+        c = torch.tensor(color, dtype=torch.uint8, device=img.device)
+        layer = img.clone()
+        layer[inside] = c
+        img.copy_((layer.float() * alpha + img.float() * (1.0 - alpha))
+                  .round().clamp(0, 255).to(torch.uint8))
+        edge = raster.contour_outline((h, w), raster.find_contours(
+            m.astype(np.uint8), external=True, simple=True))
+        img[torch.from_numpy(edge).to(img.device)] = c
+
+    if pred_mask_rle is not None:
+        overlay(pred_mask_rle, PRED_COLOR)
+    if gt_mask_rle is not None:
+        overlay(gt_mask_rle, GT_COLOR)
+    if out_file:
+        write_jpeg(img, out_file)
     return img
 
 

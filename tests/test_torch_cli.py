@@ -104,17 +104,20 @@ def test_clis_default_to_the_card(tmp_path, synth):
     (["--cfg-options", "model_parallel=2"], "M16"),
     (["--cfg-options", "model.vis_enc.seq_parallel=True"], "M16"),
     (["--cfg-options", "model.type=OneStageModel"], "M20"),
-    (["--cfg-options", "data.train.pipeline=[{'type': "
-      "'LoadImageAnnotationsFromFile', 'with_bbox': True, "
-      "'with_mask': True}]"], "masks"),
+    ([], "masks"),
 ])
 def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
     """The M16 settings pass the gates, build and train one epoch
     (``--distributed`` in a 1-rank gloo group, DDP; the others on one
-    device, where fsdp and the model axis shard nothing); M20 and the
-    masks raise naming their ROADMAP item."""
+    device, where fsdp and the model axis shard nothing); M20 raises naming
+    its ROADMAP item; "masks" (ported) trains one epoch of a config whose
+    pipelines set ``with_mask`` (the train one with SampleMaskVertices) on
+    masked annotations, and its evaluation's batches carry each sample's
+    ``gt_mask_rle`` and ``is_crowd`` in their meta."""
     from util_torch_port import free_port
 
+    if item == "masks":
+        return _train_with_masks(tmp_path, synth, monkeypatch)
     argv = [TINY, "--work-dir", str(tmp_path), "--device", "cpu"]
     if extra[0] == "--cfg-options":
         argv += ["--cfg-options", *synth, *extra[1:]]
@@ -130,6 +133,95 @@ def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
     res = train_cli.main(argv + ["scheduler_config.max_epoch=1"])
     assert res["step"] == 2 and res["eval"]["val"]["n_samples"] == 8
     assert osp.isfile(tmp_path / "latest" / "meta.json")
+
+
+MASK_CONFIG = """_base_ = [{tiny!r}]
+train_pipeline = [
+    dict(type="LoadImageAnnotationsFromFile", max_token=10, with_bbox=True,
+         with_mask=True, use_token_type="beit3"),
+    dict(type="Resize", img_scale=(64, 64), keep_ratio=False),
+    dict(type="Pad", size_divisor=32),
+    dict(type="SampleMaskVertices", num_ray=18, center_sampling=True),
+]
+val_pipeline = [
+    dict(type="LoadImageAnnotationsFromFile", max_token=10, with_bbox=True,
+         with_mask=True, use_token_type="beit3"),
+    dict(type="Resize", img_scale=(64, 64), keep_ratio=False),
+    dict(type="Pad", size_divisor=32),
+]
+data = dict(train=dict(pipeline=train_pipeline),
+            val=dict(pipeline=val_pipeline))
+"""
+
+
+def _train_with_masks(tmp_path, synth, monkeypatch):
+    import shutil
+
+    from simvg_tpu_torch.tools.make_synth_data import add_masks
+
+    ann = next(o.split("=", 1)[1] for o in synth
+               if o.startswith("data.train.annsfile="))
+    masked = str(tmp_path / "instances_masks.json")
+    shutil.copy(ann, masked)
+    add_masks(masked)
+    opts = [o if "annsfile" not in o else o.split("=")[0] + "=" + masked
+            for o in synth]
+    config = tmp_path / "tiny_masks.py"
+    config.write_text(MASK_CONFIG.format(tiny=TINY))
+    metas = []
+    real = train_cli.evaluate
+
+    def recorded(model, loader, **kw):
+        def batches():
+            for batch in loader:
+                metas.extend(batch["meta"])
+                yield batch
+        return real(model, list(batches()), **kw)
+
+    monkeypatch.setattr(train_cli, "evaluate", recorded)
+    res = train_cli.main([str(config), "--work-dir", str(tmp_path / "run"),
+                          "--device", "cpu", "--cfg-options", *opts,
+                          "scheduler_config.max_epoch=1"])
+    assert res["step"] == 2 and res["eval"]["val"]["n_samples"] == 8
+    assert len(metas) >= 8
+    with open(masked) as f:
+        val = json.load(f)["val"]
+    crowd = [int(isinstance(a["mask"], list) and len(a["mask"]) > 1)
+             for a in val]
+    for m in metas[:8]:
+        assert set(m["gt_mask_rle"]) == {"size", "counts"}
+        assert m["gt_mask_rle"]["size"] == [64, 64]
+    assert sorted(m["is_crowd"] for m in metas[:8]) == sorted(crowd)
+    got = test_cli.main([str(config), str(tmp_path / "run" / "det_best"),
+                         "--device", "cpu", "--cfg-options", *opts])
+    assert got["val"]["det_acc"] == res["eval"]["val"]["det_acc"]
+
+
+@pytest.mark.parametrize("optimizer_type", ["AdamW", "SGD", "RMSProp"])
+def test_options_through_both_clis(tmp_path, synth, optimizer_type):
+    """The DETR encoder, soft distillation and each of the other optimizers
+    through the train CLI (one epoch) and the test CLI on its det_best,
+    which gives the det_acc the train CLI's evaluation saved."""
+    opts = [*synth, "scheduler_config.max_epoch=1",
+            "model.head.only_decoder=False",
+            "model.head.num_encoder_layers=1",
+            "model.head.distill_type=soft",
+            "model.head.branch_loss_weight={'decoder': 1.0, 'token': 1.0, "
+            "'distill': 1.0}",
+            f"optimizer_config.type={optimizer_type}",
+            "optimizer_config.weight_decay=0.05"]
+    wd = tmp_path / "run"
+    res = train_cli.main([TINY, "--work-dir", str(wd), "--device", "cpu",
+                          "--cfg-options", *opts])
+    assert res["step"] == 2
+    with open(wd / "metrics.jsonl") as f:
+        train = [json.loads(line) for line in f if '"train"' in line]
+    assert all(np.isfinite(m["loss_kd"]) for m in train)
+    ck = torch.load(wd / "latest" / "params", map_location="cpu")
+    assert any(k.startswith("head.transformer.encoder.layers.0.") for k in ck)
+    got = test_cli.main([TINY, str(wd / "det_best"), "--device", "cpu",
+                         "--cfg-options", *opts])
+    assert got["val"]["det_acc"] == res["eval"]["val"]["det_acc"]
 
 
 def test_quant_collection_raises(tmp_path, synth):
@@ -316,3 +408,40 @@ def test_port_gates_accept_the_shipped_configs():
     assert len(files) == 73
     assert set(refused) == {"tiny_synth_onestage.py"}, refused
     assert "M20" in refused["tiny_synth_onestage.py"]
+
+
+def test_port_gates_accept_the_mask_bases_under_the_flagship():
+    """The four segmentation and multi-task dataset bases (with_mask,
+    SampleMaskVertices, the word-vocab tokenizer), each under the flagship
+    model: every split's pipeline builds and its dataset class is found."""
+    import glob
+
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.data.builder import build_pipeline
+    from simvg_tpu_torch.data.datasets import build_dataset
+    from simvg_tpu_torch.data.transforms import SampleMaskVertices
+    from simvg_tpu_torch.models import build_model
+
+    flagship = Config.fromfile(osp.join(
+        REPO, "configs", "single", "ViT-base", "refcoco",
+        "refcoco_onestage.py"))
+    bases = sorted(glob.glob(osp.join(REPO, "configs", "_base_", "datasets",
+                                      "*", "*.py")))
+    bases = [b for b in bases if "segmentation" in b or "multi-task" in b]
+    assert len(bases) == 8
+    for path in bases:
+        cfg = Config.fromfile(path)
+        train_cli.check_ported(flagship)
+        build_model(flagship.model, device="meta")
+        for split in ("train", "val", "testA", "testB", "test"):
+            if split not in cfg.data:
+                continue
+            tfs, load = build_pipeline(cfg.data[split]["pipeline"])
+            assert load["with_mask"], (path, split)
+            assert any(isinstance(t, SampleMaskVertices) for t in tfs) == \
+                (split == "train"), (path, split)
+            with pytest.raises(FileNotFoundError):
+                build_dataset(cfg.data[split]["type"], imgsfile="",
+                              annsfile=osp.join(REPO, "no_such_dir", "a.json"),
+                              with_mask=True,
+                              with_bbox=load.get("with_bbox", False))

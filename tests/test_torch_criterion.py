@@ -7,6 +7,8 @@ summation order only; the Hungarian assignments are identical,
 tests/test_torch_hungarian.py).  Two shapes: the flagship's (1 query, one
 target a sample, 3 decoder layers) and a GRefCOCO-like one (10 queries, up
 to 3 targets a sample, an invalid slot and a label-1 no-target row).
+The soft distillation route goes through the same comparison
+(``distill_type="soft"``).
 """
 
 import numpy as np
@@ -143,11 +145,22 @@ def test_no_target_rows_are_dropped_from_gt_losses():
     assert float(lt["loss_kd"]) == 0.0
 
 
-def test_soft_distill_is_not_ported():
-    out, gt, _ = _inputs("flagship", seed=4)
-    with pytest.raises(NotImplementedError, match="soft"):
-        tc.simvg_branch_losses(
-            {k: torch.from_numpy(v) for k, v in out.items()},
-            _targets("torch", gt, tc),
-            branch_loss_weight={"decoder": 1.0, "distill": 1.0},
-            distill_type="soft")
+@pytest.mark.parametrize("shape", ["flagship", "grec"])
+def test_soft_distill_is_not_ported(shape):
+    """The soft route (named for the refusal it replaced):
+    ``simvg_branch_losses(distill_type="soft")`` against JAX's, every key
+    at 1e-5, in one Hungarian host round trip for the soft matching beside
+    the decoder's and the token branch's."""
+    out, gt, count = _inputs(shape, seed=4)
+    kw = dict(branch_loss_weight={"decoder": 1.0, "token": 1.0,
+                                  "distill": 0.5}, distill_type="soft")
+    lj = jc.simvg_branch_losses({k: jnp.asarray(v) for k, v in out.items()},
+                                _targets("jax", gt, jc),
+                                gt_count=jnp.asarray(count), **kw)
+    before = tc.hungarian_assign.round_trips
+    lt = tc.simvg_branch_losses(
+        {k: torch.from_numpy(v) for k, v in out.items()},
+        _targets("torch", gt, tc), gt_count=torch.from_numpy(count), **kw)
+    _assert_losses(lt, lj)
+    assert float(lt["loss_kd"]) > 0
+    assert tc.hungarian_assign.round_trips == before + 3

@@ -438,3 +438,33 @@ def test_remat_with_k1_k2_gives_the_gradients_of_no_remat(gen, policy):
     for a, b in zip(got, want):
         assert (a is None and b is None) or torch.equal(a, b)
     assert rpeak < peak
+
+
+@pytest.mark.parametrize("optimizer_type", ["AdamW", "SGD", "RMSProp"])
+def test_optimizer_updates_on_the_card_match_the_cpu(gen, optimizer_type):
+    """3 updates of AdamW, SGD and RMSProp over the 3 LR groups with a
+    frozen encoder layer and the clip, on the card and on the CPU from the
+    same float32 parameters and gradients: within 1e-6 of each tensor's
+    max."""
+    from simvg_tpu_torch.engine.train_state import create_optimizer
+
+    names = ["vis_enc.beit3.encoder.layers.0.w",
+             "vis_enc.beit3.encoder.layers.1.w", "lan_enc.w", "head.w",
+             "head.b"]
+    shapes = [(64, 48), (4096,), (33, 7), (300, 20), (20,)]
+    cpu = torch.Generator().manual_seed(1)
+    params = [torch.randn(s, generator=cpu) for s in shapes]
+    grads = [[torch.randn(s, generator=cpu) * scale for s in shapes]
+             for scale in (0.01, 3.0, 0.1)]
+    opt = create_optimizer(1e-2, 2, warmup_epochs=2, freeze_layer=1,
+                           optimizer_type=optimizer_type, weight_decay=0.05)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = [t.to(dev, copy=True) for t in params]
+        state = opt.init(p)
+        for g in grads:
+            opt.apply(names, p, [t.to(dev, copy=True) for t in g], state)
+        out[dev] = p
+    for name, a, b in zip(names, out["cuda"], out["cpu"]):
+        err = (a.cpu() - b).abs().max() / b.abs().max()
+        assert err <= 1e-6, (name, err.item())

@@ -225,6 +225,9 @@ def test_tokenizer_copy_matches_jax(spm_file, kind):
 
 
 def test_unported_datasets_and_ops_raise(synth):
+    """VGTRAugment (M20) raises; with_mask builds (the mask path,
+    tests/test_torch_masks.py) and, as JAX's dataset, needs a ``mask`` in
+    each annotation, which the box-only synthetic data lacks."""
     cfg = Config.fromfile(TINY)
     cfg.merge_from_dict(_opts(synth))
     vgtr = [dict(type="LoadImageAnnotationsFromFile", with_bbox=True),
@@ -234,9 +237,11 @@ def test_unported_datasets_and_ops_raise(synth):
                                dataset_type=cfg.dataset)
     pipe = [dict(type="LoadImageAnnotationsFromFile", with_bbox=True,
                  with_mask=True)]
-    with pytest.raises(NotImplementedError, match="masks"):
-        build_dataset_from_cfg(dict(cfg.data.val, pipeline=pipe),
-                               dataset_type=cfg.dataset)
+    ds = build_dataset_from_cfg(dict(cfg.data.val, pipeline=pipe),
+                                dataset_type=cfg.dataset)
+    assert ds.with_mask and ds.with_bbox
+    with pytest.raises(KeyError, match="mask"):
+        ds[0]
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (120, 160), (240, 320)])

@@ -1,7 +1,8 @@
 """The port's random init (``init_random_weights``) against JAX ``model.init``,
 and the CLIs' TF32 setting, on the CPU.
 
-- init: on ``configs/smoke/tiny_synth.py`` every parameter's mean and std lie
+- init: on ``configs/smoke/tiny_synth.py``, and on it with the DETR encoder
+  (``only_decoder=False``), every parameter's mean and std lie
   within sampling error (6 standard errors) of the matching tensor of JAX
   ``model.init`` after ``export_simvg_full``; constant tensors (LayerNorm
   scales, biases, ``mask_token``) are equal exactly; the draw is made on a
@@ -27,8 +28,14 @@ TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
 N_SE = 6.0  # standard errors of the sampling allowed for mean and std
 
 
-@pytest.fixture(scope="module")
-def jax_init_sd():
+# head settings of the two trees held to JAX: the config's, and the DETR
+# encoder over the image memory (only_decoder=False, 2 layers)
+HEADS = {"tiny_synth": {},
+         "encoder": {"only_decoder": False, "num_encoder_layers": 2}}
+
+
+@pytest.fixture(scope="module", params=sorted(HEADS))
+def jax_init_sd(request):
     import jax
     import jax.numpy as jnp
 
@@ -36,6 +43,7 @@ def jax_init_sd():
     from simvg_tpu.models.builder import build_model as jax_build
 
     cfg = JaxConfig.fromfile(TINY)
+    cfg.model.head.update(HEADS[request.param])
     model, _ = jax_build(cfg.model, img_size=cfg.img_size, dtype=jnp.float32)
     t = cfg.max_token
     params = jax.jit(model.init)(
@@ -44,22 +52,24 @@ def jax_init_sd():
         text_ids=jnp.ones((1, t), jnp.int32),
         text_padding_mask=jnp.zeros((1, t), jnp.int32),
         img_shape=jnp.full((1, 2), cfg.img_size, jnp.int32))
-    return export_simvg_full(jax.tree.map(np.asarray, params))
+    return request.param, export_simvg_full(jax.tree.map(np.asarray, params))
 
 
-def _built(device="cpu"):
+def _built(device="cpu", **head):
     cfg = Config.fromfile(TINY)
+    cfg.model.head.update(head)
     model, _ = build_model(cfg.model, img_size=cfg.img_size, device=device)
     return model.to_empty(device="cpu") if device == "meta" else model
 
 
-def _port(seed=0, device="cpu"):
-    return init_random_weights(_built(device), seed)
+def _port(seed=0, device="cpu", **head):
+    return init_random_weights(_built(device, **head), seed)
 
 
 def test_init_statistics_match_jax_model_init(jax_init_sd):
+    heads, jax_init_sd = jax_init_sd
     sd = {k: v.numpy().astype(np.float64)
-          for k, v in _port().state_dict().items()}
+          for k, v in _port(**HEADS[heads]).state_dict().items()}
     assert set(sd) == set(jax_init_sd)
     bad = []
     for k, want in jax_init_sd.items():

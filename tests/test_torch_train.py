@@ -1,9 +1,10 @@
 """simvg_tpu_torch's train step, optimizer and stochastic layers held
 against simvg_tpu's.
 
-- Optimizer: amsgrad, Adam, the clip, the freeze mask, mu_dtype,
-  the schedules and the EMA against ``create_optimizer`` / ``ema_update``
-  on identical gradients over 5 steps, at 1e-6.
+- Optimizer: amsgrad, Adam, AdamW, SGD, RMSProp, the clip, the freeze
+  mask, mu_dtype, the schedules and the EMA against ``create_optimizer`` /
+  ``ema_update`` on identical gradients over 5 steps, at 1e-6; each new
+  optimizer's state through a checkpoint round trip.
 - Train step: the tiny config of tests/test_train_step.py (32 px, patch
   16, D=32, 4 heads, 2 layers, drop-path and head dropout 0, so that no
   random draw enters), in float32, the same weights and batch through JAX
@@ -16,7 +17,9 @@ against simvg_tpu's.
   either package, and a gradient near 1e-6 still carries that noise into
   its update, so the bound is 1e-5: 1% of one step's lr (1e-3).  A
   GRefCOCO-shaped variant has 10 queries, up to 3
-  targets a sample, an invalid slot and a label-1 no-target row.
+  targets a sample, an invalid slot and a label-1 no-target row; an
+  "options" variant takes the DETR encoder (``only_decoder=False``, 2
+  layers), soft distillation and SGD.
 - Stochastic layers: keep rate, 1/keep scaling, one drop-path mask per
   sample for both segments, and the same masks from the same seed.
 """
@@ -38,6 +41,7 @@ from simvg_tpu.losses.criterion import simvg_branch_losses as jax_losses
 from simvg_tpu_torch.engine import train_state as ts
 
 BLW = {"decoder": 1.0, "balanced_distill": {"token": 2.0, "distill": 1.0}}
+SOFT_BLW = {"decoder": 1.0, "token": 1.0, "distill": 1.0}
 TINY_BEIT3 = dict(img_size=32, patch_size=16, embed_dim=32, num_heads=4,
                   ffn_dim=64, num_layers=2, vocab_size=64,
                   drop_path_rate=0.0)
@@ -143,10 +147,82 @@ def test_ema_matches_jax_over_5_steps():
                                rtol=0, atol=1e-6)
 
 
+OTHER_OPTIMIZERS = {
+    # amsgrad=True is given and ignored, as JAX's create_optimizer does
+    "AdamW": dict(weight_decay=0.05, amsgrad=True),
+    "SGD": dict(weight_decay=0.05),  # optax.sgd takes no weight decay
+    "RMSProp": dict(eps=1e-3),  # optax's eps=1e-8, not the config's
+}
+
+
+def _run_optimizer(opt, names, params, grads, state=None):
+    state = opt.init(params) if state is None else state
+    for g in grads:
+        state = opt.apply(names, params, [torch.from_numpy(x.copy())
+                                          for x in g], state)
+    return state
+
+
 @pytest.mark.parametrize("optimizer_type", ["SGD", "RMSProp", "AdamW"])
 def test_sgd_is_not_ported(optimizer_type):
-    with pytest.raises(NotImplementedError):
-        ts.create_optimizer(1e-3, 10, optimizer_type=optimizer_type)
+    """AdamW, SGD and RMSProp (named for the refusal they replaced) against
+    JAX's ``create_optimizer`` (optax) over 5 steps on the 3 LR groups, with
+    ``freeze_layer``, the clip on both sides of its bound and the warm-up
+    schedule: every parameter within 1e-6, the frozen layer unmoved."""
+    kw = dict(lr=1e-2, steps_per_epoch=2, warmup_epochs=2, freeze_layer=1,
+              optimizer_type=optimizer_type,
+              **OTHER_OPTIMIZERS[optimizer_type])
+    r = np.random.default_rng(3)
+    init = [r.normal(size=s).astype(np.float32) for _, _, s in _LEAVES]
+    grads = [[(r.normal(size=s) * scale).astype(np.float32)
+              for _, _, s in _LEAVES] for scale in (0.01, 2.0, 0.02, 5.0, 1.0)]
+    tx = jax_create_optimizer(**kw)
+    params_j = _jax_tree(init)
+    opt_j = tx.init(params_j)
+    for g in grads:
+        upd, opt_j = tx.update(_jax_tree(g), opt_j, params_j)
+        params_j = jax.tree.map(lambda p, u: p + u, params_j, upd)
+    opt = ts.create_optimizer(**kw)
+    names = [n for _, n, _ in _LEAVES]
+    params_t = [torch.from_numpy(x.copy()) for x in init]
+    state = _run_optimizer(opt, names, params_t, grads)
+    assert state.count == 5
+    for n, a, b in zip(names, params_t, _jax_leaves(params_j)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-6,
+                                   err_msg=n)
+    np.testing.assert_array_equal(params_t[0].numpy(), init[0])
+
+
+@pytest.mark.parametrize("optimizer_type", ["SGD", "RMSProp", "AdamW"])
+def test_optimizer_state_round_trips_a_checkpoint(optimizer_type, tmp_path):
+    """3 steps, a save of the optimizer state under optax's names and a
+    load into a fresh state, 2 more steps: bit for bit the run without the
+    round trip."""
+    from simvg_tpu_torch.utils.checkpoint import (load_opt_state,
+                                                  opt_state_to_dict)
+
+    want = {"AdamW": {"mu", "nu"}, "SGD": {"trace"},
+            "RMSProp": {"nu", "trace"}}[optimizer_type]
+    opt = ts.create_optimizer(1e-2, 2, optimizer_type=optimizer_type,
+                              **OTHER_OPTIMIZERS[optimizer_type])
+    r = np.random.default_rng(4)
+    init = [r.normal(size=s).astype(np.float32) for _, _, s in _LEAVES]
+    grads = [[r.normal(size=s).astype(np.float32) for _, _, s in _LEAVES]
+             for _ in range(5)]
+    names = [n for _, n, _ in _LEAVES]
+    straight = [torch.from_numpy(x.copy()) for x in init]
+    _run_optimizer(opt, names, straight, grads)
+    resumed = [torch.from_numpy(x.copy()) for x in init]
+    state = _run_optimizer(opt, names, resumed, grads[:3])
+    saved = opt_state_to_dict(names, state)
+    assert set(saved) == want | {"count"}
+    torch.save(saved, tmp_path / "opt_state")
+    fresh = load_opt_state(names, torch.load(tmp_path / "opt_state"),
+                           opt.init(resumed))
+    assert fresh.count == 3
+    _run_optimizer(opt, names, resumed, grads[3:], fresh)
+    for n, a, b in zip(names, resumed, straight):
+        assert torch.equal(a, b), n
 
 
 # --------------------------------------------------------------- train step
@@ -154,7 +230,7 @@ def test_sgd_is_not_ported(optimizer_type):
 
 def _batch(variant, b=4, img=32, t=6, seed=0):
     r = np.random.default_rng(seed)
-    tmax = 1 if variant == "refcoco" else 3
+    tmax = 3 if variant == "grec" else 1
     xy = r.uniform(2, 12, (b, tmax, 2))
     wh = r.uniform(4, 12, (b, tmax, 2))
     pad = np.zeros((b, t), np.int32)
@@ -185,18 +261,28 @@ def _models(variant):
     from simvg_tpu_torch.models.model import (SimVGConfig as TConfig,
                                               SimVGModel as TModel)
 
-    head = dict(TINY_HEAD, num_queries=1 if variant == "refcoco" else 10)
+    head = dict(TINY_HEAD, num_queries=1 if variant != "grec" else 10)
+    if variant == "options":  # the DETR encoder over the image memory
+        head.update(only_decoder=False, num_encoder_layers=2)
     return (SimVGModel(SimVGConfig(beit3=BEiT3Config(**TINY_BEIT3),
                                    head=TGQSHeadConfig(**head))),
             TModel(TConfig(beit3=TBEiT3Config(**TINY_BEIT3),
                            head=THeadConfig(**head))))
 
 
-def _torch_grads(model, batch):
+def _loss_kw(variant):
+    """The loss settings of a variant: the flagship's balanced
+    distillation, or for "options" soft distillation beside the token
+    branch's GT loss."""
+    if variant == "options":
+        return dict(branch_loss_weight=SOFT_BLW, distill_type="soft")
+    return dict(branch_loss_weight=BLW)
+
+
+def _torch_grads(model, batch, variant):
     from simvg_tpu_torch.engine.train import train_losses
 
-    loss, _ = train_losses(model, batch, batch["image"],
-                           branch_loss_weight=BLW)
+    loss, _ = train_losses(model, batch, batch["image"], **_loss_kw(variant))
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(loss["loss_total"], params,
                                 allow_unused=True)
@@ -204,21 +290,22 @@ def _torch_grads(model, batch):
             for n, p, g in zip(names, params, grads)}
 
 
-def _jax_grads(model, params, batch):
+def _jax_grads(model, params, batch, variant):
     def loss_fn(p):
         out = model.apply(p, **{k: batch[k] for k in (
             "image", "text_ids", "text_padding_mask", "img_shape")},
             deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)})
         targets = jax_targets(batch["gt_boxes"], batch["gt_labels"],
                               batch["gt_valid"], batch["img_shape"])
-        return jax_losses(out, targets, branch_loss_weight=BLW)["loss_total"]
+        return jax_losses(out, targets, **_loss_kw(variant))["loss_total"]
 
     return jax.jit(jax.grad(loss_fn))(params)
 
 
-@pytest.fixture(scope="module", params=["refcoco", "grec"])
+@pytest.fixture(scope="module", params=["refcoco", "grec", "options"])
 def three_steps(request):
-    """Both packages from the same weights through 3 steps on one batch."""
+    """Both packages from the same weights through 3 steps on one batch;
+    "options" takes the DETR encoder, soft distillation and SGD."""
     from simvg_tpu_torch.convert import export_simvg_full, load_jax_params
     from simvg_tpu_torch.engine import (create_optimizer, create_train_state,
                                         make_train_step)
@@ -232,18 +319,20 @@ def three_steps(request):
         jax.random.PRNGKey(0), **{k: jb[k] for k in (
             "image", "text_ids", "text_padding_mask", "img_shape")}))
     load_jax_params(tm, params)
-    grads_j = export_simvg_full(jax.tree.map(np.asarray,
-                                             _jax_grads(jm, params, jb)))
-    grads_t = _torch_grads(tm, tb)
+    grads_j = export_simvg_full(jax.tree.map(
+        np.asarray, _jax_grads(jm, params, jb, variant)))
+    grads_t = _torch_grads(tm, tb, variant)
 
     kw = dict(lr=1e-3, steps_per_epoch=1000)
+    if variant == "options":
+        kw["optimizer_type"] = "SGD"
     tx = jax_create_optimizer(**kw)
     state_j = jax_create_train_state(params, tx, ema=True)
-    step_j = jax.jit(jax_make_train_step(jm, tx, branch_loss_weight=BLW,
-                                         ema_alpha=0.99))
+    step_j = jax.jit(jax_make_train_step(jm, tx, ema_alpha=0.99,
+                                         **_loss_kw(variant)))
     opt = create_optimizer(**kw)
     state_t = create_train_state(tm, opt, ema=True)
-    step_t = make_train_step(tm, opt, branch_loss_weight=BLW, ema_alpha=0.99)
+    step_t = make_train_step(tm, opt, ema_alpha=0.99, **_loss_kw(variant))
     scalars = []
     for _ in range(3):
         state_j, sj = step_j(state_j, jb, jax.random.PRNGKey(1))
@@ -355,3 +444,4 @@ def test_head_dropout_draws_from_the_step_generator():
 
     assert torch.equal(run(5), run(5))
     assert not torch.equal(run(5), run(6))
+

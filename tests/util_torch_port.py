@@ -35,22 +35,25 @@ def assert_int8_close(got, want, err_msg=""):
     assert diff.mean() <= INT8_MEAN_ATOL, (err_msg, diff.mean())
 
 
-def jax_tiny_model():
+def jax_tiny_model(**head):
+    """The tiny JAX model; ``head`` overrides TINY_HEAD's settings."""
     from simvg_tpu.models import SimVGConfig, SimVGModel
     from simvg_tpu.models.beit3 import BEiT3Config
     from simvg_tpu.models.heads.tgqs_head import TGQSHeadConfig
 
     return SimVGModel(SimVGConfig(beit3=BEiT3Config(**TINY_BEIT3),
-                                  head=TGQSHeadConfig(**TINY_HEAD)))
+                                  head=TGQSHeadConfig(**TINY_HEAD, **head)))
 
 
-def torch_tiny_model():
+def torch_tiny_model(**head):
+    """The port's tiny model in eval mode; ``head`` as jax_tiny_model's."""
     from simvg_tpu_torch.models.beit3 import BEiT3Config
     from simvg_tpu_torch.models.heads.tgqs_head import TGQSHeadConfig
     from simvg_tpu_torch.models.model import SimVGConfig, SimVGModel
 
-    return SimVGModel(SimVGConfig(beit3=BEiT3Config(**TINY_BEIT3),
-                                  head=TGQSHeadConfig(**TINY_HEAD))).eval()
+    return SimVGModel(SimVGConfig(
+        beit3=BEiT3Config(**TINY_BEIT3),
+        head=TGQSHeadConfig(**TINY_HEAD, **head))).eval()
 
 
 def np_batch(b=3, t=6, seed=0):
