@@ -3083,6 +3083,324 @@ def masks_phase(card, root, opts, launches):
     torch.cuda.empty_cache()
 
 
+ONESTAGE = os.path.join(REPO, "configs", "smoke", "tiny_synth_onestage.py")
+# the OneStageModel family at the JAX modules' own widths (no shipped config
+# sets them): DarkNet53 with the reference darknet.py's blocks (1, 2, 8, 8,
+# 4) and widths (64 ... 1024) at 640 px, the bidirectional GRU encoder
+# (embedding 300, hidden 512, "original" output) over the tiny config's
+# 1000-word table, the fusion 256 wide with 8 heads, and the DETR head at
+# its defaults (100 queries, 6 encoder and 6 decoder layers) on the
+# fusion's 256 channels
+ONESTAGE_FULL = """_base_ = [{tiny!r}]
+img_size = 640
+max_token = 20
+model = dict(
+    vis_enc=dict(_delete_=True, type="DarkNet53"),
+    lan_enc=dict(_delete_=True, type="LSTM", vocab_size=1000),
+    fusion=dict(_delete_=True, type="SimpleFusionv2"),
+    head=dict(_delete_=True, type="DETRHead", in_channels=256,
+              branch_loss_weight=dict(decoder=1.0)),
+)
+"""
+ONESTAGE_STEPS = 3  # counted bf16 train steps, after one warm-up
+# The card's float32 step (TF32 off) on one batch of BATCH against the
+# CPU's: the head's outputs, the loss terms and every gradient, each as
+# its distance from the same step in float64 on the CPU (max |difference|
+# over the float64 tensor's max |value|).  The card may be at most
+# ONESTAGE_FACTOR times as far from float64 as the CPU, plus ONESTAGE_FLOOR.
+# Against each other the two float32 steps differ by up to 1.7e-4 on the
+# outputs and 14% on the backbone's GroupNorm gradients (H100 80GB HBM3):
+# each GroupNorm's input gradient sums to 0 over its group, so a
+# parameter's gradient upstream of one is a sum of terms that cancel, and
+# float32 rounding is what is left of it.  The card's own float64 step
+# must equal the CPU's within ONESTAGE_F64 of each tensor's max, so the
+# card's code path is held to the CPU's where rounding cannot hide a fault.
+# That needs the float64 model to stay float64 end to end
+# (tests/test_torch_onestage.py::test_float64_step_stays_float64); the two
+# float64 steps are then 2.0e-8 apart on the backbone's conv weight
+# gradients (H100 80GB HBM3), four orders under the card's float32 4e-4
+ONESTAGE_FACTOR = 2.0
+ONESTAGE_FLOOR = 1e-5
+ONESTAGE_F64 = 1e-7
+
+
+def onestage_phase(card, root, synth, launches):
+    """The OneStageModel family at full width (ONESTAGE_FULL) on random
+    flax-style weights from SEED and text from the word-vocab tokenizer
+    over the synthetic annotations: the fp32 forward, loss terms and
+    gradients of one batch of BATCH on the card and the CPU (dropout
+    off), each held to the CPU's float64 step by the ONESTAGE_FACTOR rule,
+    and the card's float64 step to the CPU's within ONESTAGE_F64; the bf16
+    train step at batch TRAIN_BATCH (one warm-up, ONESTAGE_STEPS counted:
+    median ms, peak memory) and the eval step at batch BATCH and
+    TRAIN_BATCH; then ``tiny_synth_onestage.py`` through the port's train CLI (1 epoch) and
+    test CLI on the synthetic JPEGs.  No K1 or K2 is on this path."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.data.tokenization import (build_tokenizer,
+                                                   build_word_vocab)
+    from simvg_tpu_torch.engine import (make_eval_step,
+                                        normalize_images_on_device)
+    from simvg_tpu_torch.models import build_model, init_random_weights
+    from simvg_tpu_torch.tools import test as test_cli
+    from simvg_tpu_torch.tools import train as train_cli
+
+    path = os.path.join(root, "onestage_full.py")
+    with open(path, "w") as f:
+        f.write(ONESTAGE_FULL.format(tiny=ONESTAGE))
+    cfg = Config.fromfile(path)
+    ann = next(o.split("=", 1)[1] for o in synth
+               if o.startswith("data.train.annsfile="))
+    with open(ann) as f:
+        anns = json.load(f)
+    tok = build_tokenizer("default", token2idx=build_word_vocab(anns))
+    exprs = [e for a in anns["train"] for e in a["expressions"]]
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+
+    def requests(seed, n, batch):
+        reqs = make_requests(np.random.default_rng(seed), n, batch, 2,
+                             cfg.max_token, cfg.img_size)
+        for i, r in enumerate(reqs):
+            ids = np.stack([tok.encode(exprs[(i * batch + j) % len(exprs)],
+                                       cfg.max_token)[0]
+                            for j in range(batch)]).astype(np.int64)
+            r.update(text_ids=ids, text_padding_mask=(ids == 0).astype(
+                np.int64))
+        return reqs
+
+    def model_on(device, dtype):
+        model, loss_cfg = build_model(cfg.model, img_size=cfg.img_size,
+                                      dtype=dtype, device=device)
+        return init_random_weights(model, SEED), loss_cfg
+
+    # 1. float32 on the card and on the CPU, each against the CPU's float64
+    (batch,) = requests(SEED + 30, 1, BATCH)
+    got = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64), ("cuda", torch.float64)):
+        t0 = time.perf_counter()
+        model, loss_cfg = model_on(dev, dtype)
+        dropout_off(model.to(dtype))
+        b = {k: torch.as_tensor(batch[k]).to(dev) for k in TRAIN_KEYS}
+        image = normalize_images_on_device(b["image"], norm["mean"],
+                                           norm["std"], True, b["img_shape"])
+        with torch.no_grad():
+            out = model.eval()(image, b["text_ids"], b["text_padding_mask"])
+        losses, grads = losses_and_grads(model, b, loss_cfg, norm)
+        got[dev, dtype] = dict(
+            {f"out {k}": out[k].double().cpu() for k in ("class_decoder",
+                                                         "bbox_decoder")},
+            **{f"loss {k}": torch.tensor(v, dtype=torch.float64)
+               for k, v in losses.items()},
+            **{f"grad {n}": g.double().cpu() for n, g in grads.items()})
+        log(f"onestage[{str(dtype)[6:]} {dev}]: forward, loss and "
+            f"gradients of a batch of {BATCH} in "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del model, grads
+    if loss_cfg["prepare_target_mode"] != "score_iou_weighted":
+        raise AssertionError(f"loss settings {loss_cfg}")
+    on_card, on_cpu, ref, card64 = (got[k] for k in (
+        ("cuda", torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64), ("cuda", torch.float64)))
+    n_params = sum(v.numel() for k, v in ref.items() if k[:4] == "grad")
+    top = max(v.abs().max().item() for k, v in ref.items() if k[:4] == "grad")
+
+    def scale(k):  # a gradient that is 0 in exact arithmetic (the frozen
+        # word table, the fusion's key bias) is measured against the largest
+        s = ref[k].abs().max().item()
+        return top if k[:4] == "grad" and s < 1e-6 * top else max(s, 1e-30)
+
+    rows = {k: tuple((a[k] - b[k]).abs().max().item() / scale(k)
+                     for a, b in ((on_card, ref), (on_cpu, ref),
+                                  (on_card, on_cpu), (card64, ref)))
+            for k in ref}
+    bad = {k: r for k, r in rows.items()
+           if not (r[0] <= ONESTAGE_FACTOR * r[1] + ONESTAGE_FLOOR
+                   and r[3] <= ONESTAGE_F64)}
+    worst = sorted(rows.items(), key=lambda kv: -kv[1][2])[:5]
+    worst64 = sorted(rows.items(), key=lambda kv: -kv[1][3])[:3]
+    losses = {k[5:]: v.item() for k, v in on_cpu.items() if k[:4] == "loss"}
+    log(f"onestage[fp32 card vs CPU]: {n_params} params, loss terms "
+        f"{losses}; "
+        f"card float64 vs CPU float64: at most "
+        f"{max(r[3] for r in rows.values()):.2e} (bound {ONESTAGE_F64}; "
+        + ", ".join(f"{k} {r[3]:.2e}" for k, r in worst64) + "); "
+        f"distance from the CPU's float64 (card, CPU; rule card <= "
+        f"{ONESTAGE_FACTOR} x CPU + {ONESTAGE_FLOOR}): outputs "
+        + ", ".join(f"{k[4:]} {rows[k][0]:.2e}, {rows[k][1]:.2e}"
+                    for k in rows if k[:3] == "out")
+        + f"; worst card/CPU ratio "
+        f"{max(r[0] / max(r[1], 1e-30) for r in rows.values()):.3f}; "
+        f"largest card-CPU distances: "
+        + ", ".join(f"{k} {r[2]:.2e} (float64: {r[0]:.2e}, {r[1]:.2e})"
+                    for k, r in worst))
+    if bad:
+        raise AssertionError(f"onestage: the card's step against the CPU's "
+                             f"float64 (card fp32, CPU fp32, card-CPU fp32, "
+                             f"card fp64): {sorted(bad.items())[:6]}")
+    del got, on_card, on_cpu, ref, card64
+
+    # 2. bf16 train and eval steps on the card
+    model, loss_cfg = model_on("cuda", torch.bfloat16)
+    step, state = make_train_step_for(cfg, model, loss_cfg, norm)
+    batches = [to_device(b, TRAIN_KEYS) for b in requests(
+        SEED + 31, ONESTAGE_STEPS + 1, TRAIN_BATCH)]
+    state, _ = step(state, batches[0], SEED)  # warm-up
+    ms, history = [], []
+
+    def counted():
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            history.append(step(state, b, SEED)[1])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    counted_run("onestage[train]", counted, 0, 0, card, launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(torch.isfinite(v).all() for h in history for v in h.values()):
+        raise AssertionError(f"onestage train step: non-finite {history}")
+    ms.sort()
+    log(f"onestage[train] bf16 step, batch {TRAIN_BATCH}: median "
+        f"{ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max {ms[-1]:.3f}), "
+        f"peak {peak:.2f} GiB [{card}]; loss_total "
+        f"{[h['loss_total'].item() for h in history]}, grad_norm "
+        f"{[h['grad_norm'].item() for h in history]}")
+    del state, step
+    torch.cuda.empty_cache()
+    eval_step = make_eval_step(model, device_norm=norm)
+    eval_ms = {}
+    for bs in (BATCH, TRAIN_BATCH):
+        b = {k: v[:bs] for k, v in batches[1].items()}
+        preds = eval_step(b)
+        if not all(torch.isfinite(t.float()).all() for p in preds.values()
+                   for t in p.values()):
+            raise AssertionError("onestage eval: non-finite predictions")
+        eval_ms[bs] = counted_run(f"onestage[eval b={bs}]",
+                                  lambda: cuda_ms(lambda: eval_step(b), 10),
+                                  0, 0, card, launches)
+    log(f"onestage[eval] bf16 forward with both branches decoded: "
+        + ", ".join(f"batch {bs} {v:.3f} ms" for bs, v in eval_ms.items())
+        + f" [{card}]")
+    del model, eval_step, batches
+    torch.cuda.empty_cache()
+
+    # 3. the tiny config through the CLIs on the synthetic JPEGs
+    opts = [o for o in synth if o.startswith(("data.train.", "data.val."))]
+    wd = os.path.join(root, "onestage_work")
+    res = counted_run("onestage[train CLI]", lambda: train_cli.main(
+        [ONESTAGE, "--work-dir", wd, "--cfg-options", *opts,
+         "scheduler_config.max_epoch=1"]), 0, 0, card, launches)
+    got = counted_run("onestage[test CLI]", lambda: test_cli.main(
+        [ONESTAGE, os.path.join(wd, "det_best"), "--cfg-options", *opts]),
+        0, 0, card, launches)
+    if got["val"] != res["eval"]["val"]:
+        raise AssertionError(f"onestage test CLI {got['val']} against the "
+                             f"train CLI's evaluation {res['eval']['val']}")
+    log(f"onestage[CLIs]: tiny_synth_onestage.py, {res['step']} steps, "
+        f"epoch {res['epochs'][0]['seconds']:.2f} s [{card}]; test CLI on "
+        f"det_best: {got['val']} (the train CLI's evaluation)")
+
+
+def tools_phase(card, root, synth, launches):
+    """The config-facing tools on the flagship at full width, on the CLI
+    phase's det_best and the synthetic JPEGs: vis_cam (decoder branch) and
+    heatmap write their files with finite maps; attn_visual's maps equal
+    the eval step's recorded attention bit for bit; parameters prints the
+    flagship's 230,155,276; encoder_ablation's table at batch TRAIN_BATCH.
+    K1 is counted around each (K1_STEP an encoder forward), K2 must not
+    run."""
+    import io
+
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                              build_loader_from_cfg)
+    from simvg_tpu_torch.engine import make_eval_step
+    from simvg_tpu_torch.engine.evaluate import DEVICE_KEYS
+    from simvg_tpu_torch.models.heads.detr_transformer import (
+        recorded_cross_attention)
+    from simvg_tpu_torch.tools import (attn_visual, encoder_ablation,
+                                       heatmap, parameters, vis_cam)
+    from simvg_tpu_torch.tools.test import serving_model
+
+    det_best = os.path.join(root, "work", "det_best")
+    out = os.path.join(root, "tools")
+
+    def run(name, fn, k1):
+        return counted_run(f"tools[{name}]", fn, k1, 0, card, launches)
+
+    cam = run("vis_cam", lambda: vis_cam.main(
+        [FLAGSHIP, det_best, "--branch", "decoder", "--num", "4",
+         "--output-dir", os.path.join(out, "cam"), "--cfg-options", *synth]),
+        K1_STEP)
+    files = sorted(os.listdir(os.path.join(out, "cam")))
+    if len(files) != 4 or not np.isfinite(cam).all() or not cam.max() > 0:
+        raise AssertionError(f"vis_cam: {files}, max {cam.max()}")
+    log(f"tools[vis_cam]: {len(files)} CAMs of {cam.shape}, max "
+        f"{cam.max():.3e}")
+
+    imgdir = os.path.join(root, "synth", "images")
+    jpeg = os.path.join(imgdir, sorted(os.listdir(imgdir))[0])
+    hm = run("heatmap", lambda: heatmap.main(
+        [FLAGSHIP, det_best, "--image-path", jpeg, "--text",
+         "the green box", "--save-dir", os.path.join(out, "heatmap")]),
+        2 * K1_STEP)
+    if not (os.path.getsize(hm["out_file"]) > 0
+            and np.isfinite(hm["box"]).all()
+            and np.isfinite(hm["cam"]).all()):
+        raise AssertionError(f"heatmap: {hm}")
+
+    maps = run("attn_visual", lambda: attn_visual.main(
+        [FLAGSHIP, det_best, "--num", "2", "--output-dir",
+         os.path.join(out, "attn"), "--cfg-options", *synth]), K1_STEP)
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict(parse_cfg_options(synth))
+    model = serving_model(cfg, det_best, torch.device("cuda"))
+    ds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset)
+    loader = build_loader_from_cfg(ds, cfg, train=False,
+                                   canvas=cfg.img_size, device="cuda")
+    batch = to_device(next(iter(loader)), DEVICE_KEYS)
+
+    def held():
+        got = attn_visual.cross_attention_maps(model, batch)
+        with recorded_cross_attention(model.head.transformer.decoder) as w:
+            make_eval_step(model)(batch)
+        return got, w[-1].float().mean(dim=1)
+
+    got, want = run("attn_visual vs eval step", held, 2 * K1_STEP)
+    last = got[f"layers_{len(got) - 1}"]
+    if not torch.equal(last, want) or len(maps) != len(got):
+        raise AssertionError("attn_visual's maps differ from the eval "
+                             "step's recorded attention: "
+                             f"{(last - want).abs().max()}")
+    log(f"tools[attn_visual]: {len(maps)} layers' maps of "
+        f"{tuple(maps['layers_0'].shape)}, the last layer's equal to the eval "
+        f"step's recorded attention bit for bit")
+    del model
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        totals = parameters.main([FLAGSHIP])
+    if sum(totals.values()) != 230_155_276 or "230.155M" not in buf.getvalue():
+        raise AssertionError(f"parameters: {sum(totals.values())}")
+    log("tools[parameters]: " + buf.getvalue().strip().splitlines()[-1])
+
+    iters = 10
+    rows = run("encoder_ablation", lambda: encoder_ablation.main(
+        ["--batch", str(TRAIN_BATCH), "--iters", str(iters)]),
+        5 * K1_STEP * (iters + 2))  # every row but plain_attn and attn_off
+    log("tools[encoder_ablation] [" + card + "]: " + "; ".join(
+        f"{r['name']} b={r['batch']} {r['ms']:.3f} ms (host "
+        f"{r['host_ms']:.3f}) {r['images_per_s']:.1f} images/s"
+        + (f" {r['vs_k1'] * 100:+.1f}% vs k1" if "vs_k1" in r else "")
+        for r in rows))
+
+
 def serving_phases(card, root, synth):
     """The serving entry points: "prune", "export", "serve", "demo" and
     "inference", each path's K1 launches counted from 0 around it.
@@ -3179,6 +3497,17 @@ def main() -> int:
         t_dist = time.perf_counter()
         dist_k1, dist_k2 = dist_cli_phase(card, root, synth, cli_losses)
         t_dist = time.perf_counter() - t_dist
+        # the slice-10 phases run after every check that shares the
+        # synthetic JPEGs, so none of those moves; the remat and dist
+        # phases after them compare models within the phase
+        new = {}
+        for name, fn in (("onestage", onestage_phase),
+                         ("tools", tools_phase)):
+            t0 = time.perf_counter()
+            counts = []
+            fn(card, root, synth, counts)
+            new[name] = tuple(sum(c[i] for c in counts) for i in (0, 1))
+            log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3197,10 +3526,12 @@ def main() -> int:
         f"options {options_k1}, cli {cli_k1}, grec {grec_k1}, mixed "
         f"{mixed_k1}, masks {masks_k1}, "
         + ", ".join(f"{k} {v}" for k, v in serving.items())
-        + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}; K2 train "
+        + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}, onestage "
+        f"{new['onestage'][0]}, tools {new['tools'][0]}; K2 train "
         f"{train_k2}, options {options_k2}, cli {cli_k2}, grec {grec_k2}, "
         f"mixed {mixed_k2}, masks {masks_k2}, int8 {int8_k2}, remat "
-        f"{remat_k2}, dist {dist_k2}")
+        f"{remat_k2}, dist {dist_k2}, onestage {new['onestage'][1]}, tools "
+        f"{new['tools'][1]}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
@@ -3224,10 +3555,11 @@ def main() -> int:
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
               k1_rows, serve_k1 + train_k1 + options_k1 + cli_k1 + grec_k1
               + mixed_k1 + masks_k1 + sum(serving.values()) + int8_k1
-              + remat_k1 + dist_k1),
+              + remat_k1 + dist_k1 + sum(k1 for k1, _ in new.values())),
         entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
               k2_rows, train_k2 + options_k2 + cli_k2 + grec_k2 + mixed_k2
-              + masks_k2 + int8_k2 + remat_k2 + dist_k2),
+              + masks_k2 + int8_k2 + remat_k2 + dist_k2
+              + sum(k2 for _, k2 in new.values())),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,14 @@ position table and the patch projection interpolated to the model's grid
 and patch size (``interpolate_pos_embed``, ``interpolate_patch_proj``, the
 same bicubic resize).
 
+``export_composed`` does the same for a composed OneStageModel tree
+(``vis_enc``/``lan_enc``/``fusion``/``head``): conv kernels go from flax's
+[kh, kw, in, out] to torch's [out, in, kh, kw], Dense kernels and the
+GRU's kernels are transposed (the GRU's into ``nn.GRU``'s names), and the
+DETR head's decoder, encoder,
+``input_proj`` and ``query_embed`` take the flagship head's names.
+``export_params`` picks the exporter from the tree's top-level keys.
+
 ``quant_key_to_jax`` and ``quant_keys_from_jax`` name the int8 serving
 artifact's entries (``ops/quant.py``) both ways: the port's
 ``<module>.<leaf>`` and the flax path of JAX's ``.npz``.
@@ -88,8 +96,8 @@ def pretrained_state_dict(sd: Dict[str, torch.Tensor],
                  if k.startswith("beit3.")}
     elif any("embeddings.word_embeddings.weight" in k for k in sd):
         raise NotImplementedError("HF BERT checkpoints feed the legacy "
-                                  "language encoders, not ported yet "
-                                  "(ROADMAP: M20)")
+                                  "ALBERTA language encoder, not ported "
+                                  "yet (ROADMAP: M20b)")
     else:
         raise ValueError("unknown checkpoint layout: neither vis_enc.* nor "
                          "beit3.* keys")
@@ -142,12 +150,82 @@ def load_pretrained_into_model(model: torch.nn.Module, path: str,
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict) -> torch.nn.Module:
-    """Loads a flax param tree (``{"params": {"beit3": ..., "head": ...}}``,
-    numpy or JAX arrays) into ``model`` with ``strict=True``."""
+    """Loads a flax param tree (``{"params": {"beit3": ..., "head": ...}}``
+    or a composed model's, numpy or JAX arrays) into ``model`` with
+    ``strict=True``."""
     sd = {k: torch.from_numpy(np.array(v, np.float32))
-          for k, v in export_simvg_full(params).items()}
+          for k, v in export_params(params).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def export_params(params: Dict) -> Dict[str, np.ndarray]:
+    """A flax param (or gradient) tree of either family -> the port's state
+    dict: ``export_composed`` for a OneStageModel tree, else
+    ``export_simvg_full``."""
+    if "vis_enc" in params["params"]:
+        return export_composed(params)
+    return export_simvg_full(params)
+
+
+# JAX's GRU module -> the suffix of nn.GRU's parameter names
+_GRU = {"gru_fwd": "", "gru_bwd": "_reverse"}
+
+
+def _torch_leaf(path: str, v: np.ndarray):
+    """(torch name, value) of a flax leaf outside the DETR head's shared
+    parts: ``layers_i`` -> ``layers.i``; a 4-D conv kernel transposed to
+    [out, in, kh, kw], a Dense kernel to [out, in], the GRU's kernels
+    into ``nn.GRU``'s ``weight_ih_l0``/``weight_hh_l0`` (``_reverse``);
+    ``scale`` and ``embedding`` are the torch modules' ``weight``."""
+    parts = [p.replace("layers_", "layers.") if p.startswith("layers_")
+             else p for p in path.split("/")]
+    leaf = parts[-1]
+    gru = next((p for p in parts if p in _GRU), None)
+    if gru is not None:
+        # lan_enc/gru_{fwd,bwd}/ih/{kernel,bias} and .../hh_{kernel,bias}
+        # -> lan_enc.gru.{weight,bias}_{ih,hh}_l0[_reverse]
+        gate = "ih" if parts[-2] == "ih" else "hh"
+        kind = "weight" if leaf.endswith("kernel") else "bias"
+        name = f"{kind}_{gate}_l0{_GRU[gru]}"
+        return ".".join(parts[:parts.index(gru)] + ["gru", name]), (
+            v.T if kind == "weight" else v)
+    if leaf == "kernel":
+        v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
+        return ".".join(parts[:-1] + ["weight"]), v
+    if leaf in ("scale", "embedding"):
+        return ".".join(parts[:-1] + ["weight"]), v
+    return ".".join(parts), v
+
+
+def export_composed(params: Dict) -> Dict[str, np.ndarray]:
+    """A composed OneStageModel's flax tree (``{"params": {"vis_enc",
+    "lan_enc", "fusion", "head"}}``) -> the port's state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    head: Dict = {}
+    for path, v in _flatten(params["params"]).items():
+        top, _, rest = path.partition("/")
+        if top == "head" and rest.split("/")[0] not in ("class_embed",
+                                                        "bbox_embed"):
+            head[rest] = v
+            continue
+        name, value = _torch_leaf(path, v)
+        sd[name] = np.ascontiguousarray(value)
+    # the decoder, encoder, input_proj and query_embed: the flagship
+    # head's export, which names them alike
+    sd.update(export_simvg_full({"params": {"head": _unflatten(head)}}))
+    return sd
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, v in flat.items():
+        *dirs, leaf = path.split("/")
+        node = tree
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = v
+    return tree
 
 
 def _flatten(tree, prefix=""):

@@ -121,9 +121,11 @@ def _per_query_nll(logits, col4row, targets: Targets, num_classes: int,
     """Per-query eos-weighted NLL against the matched class (no-object for
     unmatched queries).  Returns (nll * class_w, class_w, tgt_cls)."""
     tgt_cls = _target_classes(col4row, targets, num_classes)
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype,
+                                                       torch.float32)),
+                         dim=-1)
     nll = -torch.gather(logp, -1, tgt_cls[..., None])[..., 0]
-    w = torch.where(tgt_cls == num_classes, eos_coef, 1.0)
+    w = torch.where(tgt_cls == num_classes, eos_coef, 1.0).to(nll.dtype)
     return w * nll, w, tgt_cls
 
 

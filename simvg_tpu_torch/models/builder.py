@@ -1,38 +1,98 @@
 """Model construction from reference-style config dicts (port of
-``simvg_tpu/models/builder.py``, ``type="MIXDETRMB"``).
+``simvg_tpu/models/builder.py``): ``type="MIXDETRMB"`` (the SimVG model)
+and ``type="OneStageModel"`` (the composed legacy family).
 
-Reads the same ``model = dict(type="MIXDETRMB", vis_enc=..., head=...)``
-keys as the JAX builder, from the unchanged files under ``configs/``.
+Reads the same ``model = dict(type=..., vis_enc=..., head=...)`` keys as
+the JAX builder, from the unchanged files under ``configs/``.
 ``pretrain`` is recorded in the returned settings, not loaded.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn as nn
 
 from .beit3 import BEiT3Config
+from .fusion import ComposedOneStageModel, CrossAttentionFusion
+from .heads.simple_head import DETRHead, DETRHeadConfig
 from .heads.tgqs_head import TGQSHeadConfig
+from .lan_encs import build_lan_enc
 from .model import SimVGConfig, SimVGModel
+from .vis_enc_zoo import GroupNorm, build_vis_enc
 
 # scan_layers only changes how JAX compiles the same forward, and gelu_impl
 # only picks JAX's erf form: the port reads neither (but refuses scan_layers
 # with token pruning, as the JAX encoder does).
 
 
+# make_train_step's defaults: the loss settings a composed model's head
+# dict does not give (the JAX train CLI raises KeyError on them instead)
+LOSS_DEFAULTS = {"prepare_target_mode": "score_iou_weighted",
+                 "distill_type": "hard_weighted", "mlp_aux_loss": False,
+                 "as_target_query_thr": 0.0}
+
+
+def _resolve_device(device):
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_model: no CUDA device; pass "
+                               "device='cpu' to build on the CPU")
+        device = "cuda"
+    return device
+
+
+def build_composed_model(model_cfg: Dict[str, Any], *,
+                         dtype: torch.dtype = torch.float32, device=None
+                         ) -> Tuple[ComposedOneStageModel, Dict[str, Any]]:
+    """The reference's OneStageModel from its config dict: a zoo
+    ``vis_enc`` (DarkNet53), a GRU ``lan_enc``, the cross-attention
+    ``fusion`` and the ``DETRHead``.  Returns (model, loss_cfg), the loss
+    settings completed with ``LOSS_DEFAULTS``; ``freeze_layer`` and
+    ``pretrain`` are read from ``vis_enc`` as JAX reads them."""
+    ve = dict(model_cfg.get("vis_enc") or {})
+    le = dict(model_cfg.get("lan_enc") or {})
+    fu = dict(model_cfg.get("fusion") or {})
+    hd = dict(model_cfg.get("head") or {})
+    fu.pop("type", None)
+    hd.pop("type", None)
+    loss_cfg = {k: hd.pop(k) for k in ("branch_loss_weight",
+                                       "prepare_target_mode", "distill_type",
+                                       "mlp_aux_loss", "as_target_query_thr")
+                if k in hd}
+    with torch.device(_resolve_device(device)):
+        vis_enc = build_vis_enc(ve, dtype)
+        lan_enc = build_lan_enc(le, dtype)
+        head_cfg = DETRHeadConfig(dtype=dtype, **hd)
+        fusion = CrossAttentionFusion(vis_enc.out_channels,
+                                      lan_enc.out_channels, dtype=dtype,
+                                      **fu)
+        # flax infers the head's input width: the fusion's, whatever
+        # in_channels says
+        head = DETRHead(dataclasses.replace(head_cfg,
+                                            in_channels=fusion.embed_dim))
+        model = ComposedOneStageModel(vis_enc, lan_enc, fusion, head)
+    loss_cfg.setdefault("branch_loss_weight", {"decoder": 1.0})
+    for k, v in LOSS_DEFAULTS.items():
+        loss_cfg.setdefault(k, v)
+    loss_cfg["freeze_layer"] = ve.get("freeze_layer", -1)
+    loss_cfg["pretrain"] = ve.get("pretrain", None)
+    return model, loss_cfg
+
+
 def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
                 dtype: torch.dtype = torch.float32,
-                device=None) -> Tuple[SimVGModel, Dict[str, Any]]:
+                device=None) -> Tuple[nn.Module, Dict[str, Any]]:
     """Returns (model, loss_cfg), built on the card unless ``device``
     names another (``"cpu"``, or ``"meta"`` for the module tree without
     its parameters).  With no device given and no card present it
     raises."""
+    if model_cfg.get("type") == "OneStageModel":
+        return build_composed_model(model_cfg, dtype=dtype, device=device)
     if model_cfg.get("type", "MIXDETRMB") != "MIXDETRMB":
-        raise NotImplementedError(
-            f"model type {model_cfg.get('type')!r} is not ported yet "
-            "(ROADMAP: M20)")
+        raise KeyError(f"unknown model type {model_cfg.get('type')!r}")
     ve = dict(model_cfg.get("vis_enc") or {})
     head = dict(model_cfg.get("head") or {})
     if ve.get("token_prune_keep") is not None and ve.get("scan_layers"):
@@ -82,12 +142,7 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
         dtype=dtype,
     )
 
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("build_model: no CUDA device; pass "
-                               "device='cpu' to build on the CPU")
-        device = "cuda"
-    with torch.device(device):
+    with torch.device(_resolve_device(device)):
         model = SimVGModel(SimVGConfig(beit3=beit3, head=head_cfg))
 
     loss_cfg = {
@@ -117,7 +172,11 @@ def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
     """(kind, std) of the flax initialiser of the JAX counterpart of
     ``path``: "ones", "zeros", "normal" or "truncated" (two-std cut, ``std``
     before the cut)."""
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, nn.GRU):  # lan_encs.py: Dense "ih", "hh_kernel"
+        if name.startswith("bias"):
+            return "zeros", 0.0
+        return "truncated", p[0].numel() ** -0.5 / _TRUNC_STD
+    if isinstance(module, (nn.LayerNorm, GroupNorm)):
         return ("ones", 0.0) if name == "weight" else ("zeros", 0.0)
     if name.endswith("bias") or name == "mask_token":
         return "zeros", 0.0
@@ -126,6 +185,8 @@ def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
     if isinstance(module, nn.Embedding):
         if path == "head.query_embed.weight":  # tgqs_head.py: normal(1.0)
             return "normal", 1.0
+        if path == "lan_enc.embedding.weight":  # lan_encs.py: normal(0.02)
+            return "normal", 0.02
         # text_embed: normal(D^-1/2); the position tables: flax's Embed
         # default, variance_scaling(1, fan_in, normal) over D
         return "normal", p.shape[1] ** -0.5
@@ -146,7 +207,9 @@ def init_random_weights(model: nn.Module, seed) -> nn.Module:
     counterpart: truncated N(0.02) on the encoder's Dense layers and
     ``cls_token``, zeros on ``mask_token`` and every bias, N(0, D^-1/2) on
     the embedding tables, N(0, 1) on ``query_embed``, lecun_normal on the
-    patch conv and every head Dense, LayerNorm scales 1.
+    patch conv and every head Dense, LayerNorm scales 1.  The composed
+    family's: lecun_normal on the convs, the Dense layers and the GRU's
+    weights, GroupNorm scales 1, N(0, 0.02) on the word embedding.
 
     ``seed``: an int or a CPU ``torch.Generator``.  Every draw is made on
     the CPU in float32 and copied to the parameter's device, so one seed

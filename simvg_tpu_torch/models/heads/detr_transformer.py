@@ -15,7 +15,8 @@ Parameter names follow the reference's detrex state dict
 The head's attention returns its weights, so it always takes the plain
 path of ``multihead_attention``; ``recorded_cross_attention`` hands the
 last decoder layer's cross-attention weights to the caller (the inference
-CLI's ``--with-attn``) without changing any output.  ``DetrEncoder``
+CLI's ``--with-attn``), and ``recorded_layer_cross_attention`` every
+layer's (``tools/attn_visual.py``), without changing any output.  ``DetrEncoder``
 runs over the image memory when the head has ``only_decoder=False``;
 like the decoder's, its attention is the plain path (JAX's is not a
 Pallas kernel either).
@@ -222,9 +223,20 @@ def recorded_cross_attention(decoder: DetrDecoder):
     block, its last layer's cross-attention probabilities [B, H, Q, S_k] in
     the compute dtype (the JAX inference CLI's ``attn_weights``
     intermediate)."""
-    attn = decoder.layers[-1].attentions[1]
-    attn.record = []
+    with recorded_layer_cross_attention(decoder) as records:
+        yield records[-1]
+
+
+@contextlib.contextmanager
+def recorded_layer_cross_attention(decoder: DetrDecoder):
+    """Yields a list holding, per decoder layer, the list that gets that
+    layer's cross-attention probabilities [B, H, Q, S_k] for each forward
+    inside the block (JAX's ``intermediates`` of every layer)."""
+    attns = [layer.attentions[1] for layer in decoder.layers]
+    for attn in attns:
+        attn.record = []
     try:
-        yield attn.record
+        yield [attn.record for attn in attns]
     finally:
-        attn.record = None
+        for attn in attns:
+            attn.record = None

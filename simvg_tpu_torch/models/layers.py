@@ -74,8 +74,10 @@ class Dropout(Stochastic):
 
 
 class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` computed and returned in float32."""
+    """``nn.LayerNorm`` computed and returned in float32 (in float64 for a
+    float64 input)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(), self.eps)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt), self.eps)

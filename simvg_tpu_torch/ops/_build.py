@@ -2,12 +2,20 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``jpeg.cu`` also links
 the toolkit's nvJPEG, found beside ``nvcc`` (``<toolkit>/lib64``, recorded
-as the library's run path).  It is compiled with
-``nvcc`` for ``sm_90a`` into ``simvg_tpu_torch/_build/`` and loaded with
-``ctypes``: no PyTorch headers, so a build takes seconds.  The library's
-file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
-and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  A failed build raises; nothing falls back.
+as the library's run path).  It is compiled with ``nvcc`` for ``sm_90a``
+into ``BUILD_DIR`` and loaded with ``ctypes``: no PyTorch headers, so a
+build takes seconds.  The library's file name carries a hash of the
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  A failed build
+raises; nothing falls back.
+
+``BUILD_DIR`` is ``simvg_tpu_torch/_build/`` in a source checkout (the
+package beside the repository's ``pyproject.toml``, writable), and the
+per-user cache ``$XDG_CACHE_HOME/simvg_tpu_torch/build`` (default
+``~/.cache``) for an installed package, whose directory may be read-only;
+``SIMVG_TPU_TORCH_BUILD_DIR`` overrides both.  The sources ship with the
+package (``pyproject.toml``'s package data), so an installed package
+builds its kernels too.
 """
 
 from __future__ import annotations
@@ -23,8 +31,27 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence
 
-CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR_ENV = "SIMVG_TPU_TORCH_BUILD_DIR"
+
+
+def default_build_dir(package_dir: Path = PACKAGE_DIR) -> Path:
+    """Where the libraries go: ``$SIMVG_TPU_TORCH_BUILD_DIR`` when set;
+    ``<package>/_build`` in a writable source checkout; else the per-user
+    cache directory."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    if override:
+        return Path(override).expanduser()
+    if ((package_dir.parent / "pyproject.toml").is_file()
+            and os.access(package_dir, os.W_OK)):
+        return package_dir / "_build"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "simvg_tpu_torch" / "build"
+
+
+BUILD_DIR = default_build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

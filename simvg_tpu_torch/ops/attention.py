@@ -5,6 +5,8 @@
     probs  <- softmax(logits) in float32, then cast to the compute dtype
     out    <- probs @ v, summed in float32
 
+(float64 throughout for a float64 compute dtype.)
+
 ``impl="pallas"`` (the config value the JAX package uses) selects
 ``fused_attention`` (K1 forward, K2 backward: the Hopper kernels on CUDA
 tensors, their plain versions on CPU tensors) when there is no
@@ -74,9 +76,10 @@ def multihead_attention(
                               key_padding_mask=key_padding_mask)
         return out.reshape(b, s_q, d)
 
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    acc = torch.promote_types(dtype, torch.float32)  # float64 stays so
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc))
     if attn_bias is not None:
-        logits = logits + attn_bias.float()
+        logits = logits + attn_bias.to(acc)
     if key_padding_mask is not None:
         pad = key_padding_mask.to(torch.bool)[:, None, None, :]
         logits = logits.masked_fill(pad, float("-inf"))
@@ -89,7 +92,7 @@ def multihead_attention(
         probs = torch.where(mask, probs / keep, 0.0)
 
     probs = probs.to(dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(acc), v.to(acc))
     out = out.reshape(b, s_q, d).to(dtype)
     if return_weights:
         return out, probs

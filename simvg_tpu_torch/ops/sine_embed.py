@@ -22,17 +22,19 @@ def sine_position_embedding_2d(
     normalize: bool = True,
     scale: float = 2 * math.pi,
     eps: float = 1e-6,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """bool [B, H, W] (True = padded) -> [B, H, W, 2*num_pos_feats] float32,
-    y-features first, then x."""
-    not_mask = (~pad_mask.to(torch.bool)).float()
+    """bool [B, H, W] (True = padded) -> [B, H, W, 2*num_pos_feats] in
+    ``dtype`` (float32, or float64 for a float64 model), y-features first,
+    then x."""
+    not_mask = (~pad_mask.to(torch.bool)).to(dtype)
     y_embed = not_mask.cumsum(dim=1)
     x_embed = not_mask.cumsum(dim=2)
     if normalize:
         y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
         x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
 
-    i = torch.arange(num_pos_feats, dtype=torch.float32,
+    i = torch.arange(num_pos_feats, dtype=dtype,
                      device=pad_mask.device)
     dim_t = temperature ** (2.0 * torch.floor(i / 2.0) / num_pos_feats)
 

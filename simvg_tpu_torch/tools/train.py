@@ -36,8 +36,10 @@ model axis shard nothing.
 The optimizer is the config's ``optimizer_config.type`` (Adam, AdamW with
 ``weight_decay``, SGD, RMSProp), as JAX's CLI builds it; a pipeline with
 ``with_mask`` carries ``gt_mask_rle`` and ``is_crowd`` into evaluation.
-Not ported yet, raising with its ROADMAP item: the legacy OneStageModel
-family and ``VGTRAugment`` (M20).
+The OneStageModel family (``configs/smoke/tiny_synth_onestage.py``) trains
+with the loss settings of ``make_train_step``'s defaults where its head
+dict gives none.  Not ported yet, raising with its ROADMAP item: the other
+legacy backbones and language encoders, and ``VGTRAugment`` (M20b).
 """
 
 from __future__ import annotations
@@ -127,8 +129,23 @@ def disable_tf32() -> None:
 def check_ported(cfg, distributed: bool = False) -> None:
     """Raises NotImplementedError for a combination the port does not
     have: int8 layers or token pruning under tensor parallelism (a
-    ``--distributed`` run with ``model_parallel`` > 1)."""
+    ``--distributed`` run with ``model_parallel`` > 1), and on the
+    OneStageModel family the options of the BEiT-3 encoder it does not
+    have (token pruning, int8, remat, tensor and sequence parallelism)."""
     ve = cfg.model.get("vis_enc") or {}
+    if cfg.model.get("type") == "OneStageModel":
+        beit3_only = {
+            "token pruning": ve.get("token_prune_keep") is not None,
+            "int8": ve.get("quant", "none") != "none",
+            "remat": bool(ve.get("remat")),
+            "sequence parallelism": bool(ve.get("seq_parallel")),
+            "tensor parallelism": distributed
+            and cfg.get("model_parallel", 1) > 1}
+        used = [k for k, v in beit3_only.items() if v]
+        if used:
+            raise NotImplementedError(
+                f"{', '.join(used)}: options of the BEiT-3 encoder, which "
+                "the OneStageModel family does not have")
     if distributed and cfg.get("model_parallel", 1) > 1 and (
             ve.get("quant", "none") != "none"
             or ve.get("token_prune_keep") is not None):

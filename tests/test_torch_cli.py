@@ -7,8 +7,7 @@ the CPU with ``configs/smoke/tiny_synth.py`` and synthetic data.
 - the test CLI on weights exported from a JAX param tree gives the same
   Prec@0.5, per branch, as JAX ``evaluate`` on the same split (M8's done
   condition), and on a GRefCOCO config the same F1/N-acc;
-- the port's gates accept every top-level config under ``configs/`` but
-  the one whose model is not ported yet;
+- the port's gates accept every top-level config under ``configs/``;
 - both default to the card and raise without one; the M16 settings
   (``--distributed``, ``fsdp``, ``model_parallel``, ``seq_parallel``) pass
   the gates and train, the options that are not ported yet raise
@@ -103,14 +102,16 @@ def test_clis_default_to_the_card(tmp_path, synth):
     (["--cfg-options", "fsdp=True"], "M16"),
     (["--cfg-options", "model_parallel=2"], "M16"),
     (["--cfg-options", "model.vis_enc.seq_parallel=True"], "M16"),
-    (["--cfg-options", "model.type=OneStageModel"], "M20"),
+    (["--cfg-options", "model.type=OneStageModel",
+      "model.vis_enc.type=SwinTransformer"], "M20b"),
     ([], "masks"),
 ])
 def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
     """The M16 settings pass the gates, build and train one epoch
     (``--distributed`` in a 1-rank gloo group, DDP; the others on one
-    device, where fsdp and the model axis shard nothing); M20 raises naming
-    its ROADMAP item; "masks" (ported) trains one epoch of a config whose
+    device, where fsdp and the model axis shard nothing); a OneStageModel
+    with a backbone other than DarkNet53 raises naming its ROADMAP item
+    (M20b); "masks" (ported) trains one epoch of a config whose
     pipelines set ``with_mask`` (the train one with SampleMaskVertices) on
     masked annotations, and its evaluation's batches carry each sample's
     ``gt_mask_rle`` and ``is_crowd`` in their meta."""
@@ -377,8 +378,8 @@ def test_test_cli_on_jax_weights_matches_jax_evaluate_grec(tmp_path):
 def test_port_gates_accept_the_shipped_configs():
     """Config.fromfile, check_ported (also as a ``--distributed`` run),
     build_model on the meta device, every split's pipeline and dataset
-    class, over every top-level config: all pass but the OneStageModel
-    family (M20)."""
+    class, over every top-level config: all 73 pass, the OneStageModel
+    family's ``tiny_synth_onestage.py`` included."""
     import glob
 
     from simvg_tpu_torch.config import Config
@@ -406,8 +407,7 @@ def test_port_gates_accept_the_shipped_configs():
         except NotImplementedError as e:
             refused[osp.basename(path)] = str(e)
     assert len(files) == 73
-    assert set(refused) == {"tiny_synth_onestage.py"}, refused
-    assert "M20" in refused["tiny_synth_onestage.py"]
+    assert not refused, refused
 
 
 def test_port_gates_accept_the_mask_bases_under_the_flagship():

@@ -316,7 +316,15 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.tools.inference_time, simvg_tpu_torch.ops.quant, "
         "simvg_tpu_torch.tools.quantize_serving, simvg_tpu_torch.ops.rle, "
         "simvg_tpu_torch.ops.raster, simvg_tpu_torch.losses.distill, "
-        "simvg_tpu_torch.engine.evaluate, simvg_tpu_torch.engine.metrics\n"
+        "simvg_tpu_torch.engine.evaluate, simvg_tpu_torch.engine.metrics, "
+        "simvg_tpu_torch.models.vis_enc_zoo, simvg_tpu_torch.models.lan_encs, "
+        "simvg_tpu_torch.models.fusion, "
+        "simvg_tpu_torch.models.heads.simple_head, "
+        "simvg_tpu_torch.tools.vis_cam, simvg_tpu_torch.tools.heatmap, "
+        "simvg_tpu_torch.tools.attn_visual, simvg_tpu_torch.tools.parameters, "
+        "simvg_tpu_torch.tools.browse_dataset, "
+        "simvg_tpu_torch.tools.dataset_token_count, "
+        "simvg_tpu_torch.tools.encoder_ablation, simvg_tpu_torch.ops._build\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")
