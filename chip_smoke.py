@@ -13,7 +13,12 @@ bf16 takes each kernel's tensor-core route, float32 its CUDA-core route.
 Each K1/K2 row gives the kernel's time beside its plain version's, the
 bound, the achieved TFLOP/s and share of the bound, and PyTorch's SDPA as
 the yardstick: its forward for K1, its backward alone for K2 (and its
-forward plus backward beside K1 + K2).  Then it drives the two main paths of the flagship configuration
+forward plus backward beside K1 + K2).  The "K1 train" row is K1 as a
+train step calls it, writing the residual r of its output beside out and
+lse (out + r held to the float32 output); each K2 row runs K2 twice on the
+same inputs and requires the same bits, and gives the device time of its
+three kernels (the row term D, dQ, dK/dV) from torch.profiler.  Then it
+drives the two main paths of the flagship configuration
 (``configs/single/ViT-base/refcoco/refcoco_onestage.py``: BEiT3-base/32
 at 640 px, 12 layers, D=768, TGQS-KD-DETR head) at full width on random
 weights from a seed:
@@ -229,6 +234,29 @@ def rates(row, flops):
     return row
 
 
+def kernel_split_ms(fn, iters, groups):
+    """Device ms a call of each group of kernels, from torch.profiler over
+    ``iters`` calls of ``fn``; ``groups`` maps a label to a kernel-name
+    substring.  None for a group the profiler saw no device time of."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(groups, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for label, key in groups.items():
+                if key in e.name:
+                    us[label] += e.time_range.end - e.time_range.start
+                    break
+    return {label: (t / 1e3 / iters if t else None) for label, t in us.items()}
+
+
 def sdpa_args(q, k, v, pad):
     """q/k/v as [B, H, S, hd] views and the keep-mask for PyTorch's
     scaled_dot_product_attention, timed as the library yardstick only."""
@@ -295,7 +323,74 @@ def check_k1(gen, card):
                          bound_ms=bms, bound_by=by), flops)
         log(f"K1 {row} (library_ms: SDPA forward) [{card}]")
         rows.append(row)
+    rows.append(check_k1_train(gen, card))
     return rows
+
+
+# K1 with the residual r, at the train step's call: out + r (the fp32 output
+# before its rounding, to ~2^-17) at least this many times closer to the
+# float32 output than out alone, which is off by its bf16 rounding
+K1_RESID_GAIN = 8.0
+
+
+def check_k1_train(gen, card):
+    """K1 as the train step calls it (bf16, a gradient wanted: the operator
+    with grad=True writes the residual r beside out and lse), at (32, 421,
+    12, 64): out against fused_attention_reference, out + r against the
+    float32 output, timed beside attention_residual_reference and SDPA's
+    forward with a graph; returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from simvg_tpu_torch.ops.fused_attention import (
+        attention_residual_reference, fused_attention_reference)
+
+    b, s, h, hd = TRAIN_BATCH, 421, 12, 64
+    q, k, v, pad = text_padded_qkv(b, s, h, hd, torch.bfloat16, gen)
+    op = torch.ops.simvg.attention_fwd
+    out, lse, resid = op(q, k, v, pad, True)
+    out_serve = op(q, k, v, pad, False)[0]
+    torch.cuda.synchronize()
+    ref = fused_attention_reference(q, k, v, pad)
+    err = (out.float() - ref.float()).abs().max().item()
+    o32 = fused_attention_reference(q.float(), k.float(), v.float(), pad)
+    e_out = (out.float() - o32).abs().max().item()
+    e_sum = (out.float() + resid.float() - o32).abs().max().item()
+    if not (resid.shape == q.shape and torch.isfinite(resid).all()
+            and err <= 2e-2 and torch.equal(out, out_serve)
+            and e_sum * K1_RESID_GAIN <= e_out):
+        raise AssertionError(
+            f"K1 with the residual at {(b, s, h, hd)}: max_abs_err {err} "
+            f"(bound 2e-2), out equal to the serving route's "
+            f"{torch.equal(out, out_serve)}, out + r {e_sum} from float32 "
+            f"against out's {e_out} (bound 1/{K1_RESID_GAIN} of it)")
+    kern = lambda: op(q, k, v, pad, True)  # noqa: E731
+    plain = lambda: attention_residual_reference(q, k, v, pad)  # noqa: E731
+    (qt, kt, vt), keep = sdpa_args(q, k, v, pad)
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        *leaves, attn_mask=keep, scale=1.0)
+    # in inference mode, as the serving rows: without it the operator's
+    # autograd dispatch takes longer on the host than the kernel on the card
+    with torch.inference_mode():
+        for fn in (kern, plain):
+            fn()  # warm-up
+        p1, k1, k2, p2 = (cuda_ms(fn, 20) for fn in (plain, kern, kern, plain))
+    library()
+    lib_ms = cuda_ms(library, 20)
+    # q, k, v read; out, r, the fp32 row LSE written; the mask read; three
+    # products a key tile (S, round(P) V, round(P - round(P)) V)
+    nbytes = 5 * q.numel() * q.element_size() + 4 * b * h * s + pad.numel()
+    flops = 6 * b * h * s * s * hd
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    row = rates(dict(shape=[b, s, h, hd], dtype="bfloat16", route_use="train",
+                     max_abs_err=err, bound=2e-2, out_err_fp32=e_out,
+                     out_plus_r_err_fp32=e_sum, ms=(k1 + k2) / 2,
+                     plain_ms=(p1 + p2) / 2, library_ms=lib_ms, bound_ms=bms,
+                     bound_by=by), flops)
+    log(f"K1 train {row} (with the residual r; plain: "
+        f"attention_residual_reference; library_ms: SDPA forward with a "
+        f"graph) [{card}]")
+    return row
 
 
 def check_k2(gen, card):
@@ -311,9 +406,13 @@ def check_k2(gen, card):
         dtype = getattr(torch, dname)
         q, k, v, pad = text_padded_qkv(b, s, h, hd, dtype, gen)
         dout = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
-        out, lse = attention_fwd(q, k, v, pad)
-        grads = attention_bwd(q, k, v, out, dout, lse, pad)
+        out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+        grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
+        again = attention_bwd(q, k, v, out, dout, lse, resid, pad)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"K2 at {(b, s, h, hd)} {dname}: two calls "
+                                 "on the same inputs differ")
         refs = fused_attention_bwd_reference(q, k, v, dout, pad)
         errs, rels = {}, {}
         for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
@@ -334,10 +433,11 @@ def check_k2(gen, card):
                     f"K2 {name} disagrees with its plain version at "
                     f"{(b, s, h, hd)} {dname}: max_abs_err {errs[name]} "
                     f"(max |{name}| {scale})")
-        kern = lambda: attention_bwd(q, k, v, out, dout, lse, pad)  # noqa: E731
+        kern = lambda: attention_bwd(  # noqa: E731
+            q, k, v, out, dout, lse, resid, pad)
         plain = lambda: fused_attention_bwd_reference(  # noqa: E731
             q, k, v, dout, pad)
-        fwd = lambda: attention_fwd(q, k, v, pad)  # noqa: E731
+        fwd = lambda: attention_fwd(q, k, v, pad, grad=True)  # noqa: E731
         (qt, kt, vt), keep = sdpa_args(q, k, v, pad)
         leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
         dout_t = dout.transpose(1, 2)
@@ -358,7 +458,11 @@ def check_k2(gen, card):
         lib_ms = cuda_ms(library, 10)
         lib_fb_ms = cuda_ms(library_fwd_bwd, 10)
         fwd_ms = cuda_ms(fwd, 10)
-        # read q, k, v, out, dO, lse and the mask; write dq, dk, dv
+        split = kernel_split_ms(kern, 10, {"d_ms": "dsum_kernel",
+                                           "dq_ms": "dq_", "dkdv_ms": "dkdv_"})
+        # read q, k, v, out, dO, lse and the mask; write dq, dk, dv (the
+        # bf16 route also reads the residual r: the design's cost, not
+        # counted)
         nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4 \
             + pad.numel()
         flops = 10 * b * h * s * s * hd
@@ -368,9 +472,12 @@ def check_k2(gen, card):
                          plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
                          bound_ms=bms, bound_by=by,
                          library_fwd_bwd_ms=lib_fb_ms,
-                         k1_plus_k2_ms=fwd_ms + (k1 + k2) / 2), flops)
+                         k1_plus_k2_ms=fwd_ms + (k1 + k2) / 2,
+                         bit_equal_calls=True, **split), flops)
         log(f"K2 {row} (library_ms: SDPA backward alone; library_fwd_bwd_ms: "
-            f"SDPA forward + backward, beside k1_plus_k2_ms) [{card}]")
+            f"SDPA forward + backward, beside k1_plus_k2_ms (K1 with the "
+            f"residual); d_ms, dq_ms, dkdv_ms: the three kernels' device "
+            f"time a call, torch.profiler) [{card}]")
         rows.append(row)
     return rows
 

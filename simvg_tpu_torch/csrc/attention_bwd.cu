@@ -12,49 +12,71 @@
 //     dQ = round(dS) K,   dK = round(dS)^T q
 // with every sum in fp32, round() the cast to the input type at the places the
 // TPU kernel casts (its p_c and dl_c), and dq/dk/dv stored in the input type.
-// The fp32 route takes D as rowsum(dO * out), equal in exact arithmetic
-// (sum_j P_j dO.v_j = dO.out) and within fp32 summation order of it.  The
-// bf16 route takes the TPU kernel's rowsum(dP * P): rowsum(dO * out) from the
-// bf16-rounded out is off by that rounding, which dS = P (dP - D) does not
-// cancel (its rows sum to 0), and put dQ up to 8.8x further from float32 than
-// this formula on the flagship's trained weights.  Padded keys get the logit -1e30 as in the forward, so their P is 0
-// and their dK/dV rows are exactly 0.  A batch row whose keys are all padded is
-// outside the contract (its lse cannot tell -1e30 + log(Sk) from -1e30); the
-// encoder never pads the CLS and image keys.
+// Padded keys get the logit -1e30 as in the forward, so their P is 0 and their
+// dK/dV rows are exactly 0.  A batch row whose keys are all padded is outside
+// the contract (its lse cannot tell -1e30 + log(Sk) from -1e30); the encoder
+// never pads the CLS and image keys.
+//
+// The row term D.  rowsum(dP * P) = sum_j P_j (dO . v_j) = dO . (sum_j P_j v_j),
+// the product of dO with the forward's output before its rounding.  The fp32
+// route takes D = rowsum(dO * out): out is that sum to fp32 order.  In bf16 the
+// stored out is rounded, and rowsum(dO * round(out)) put dQ up to 8.8x further
+// from float32 than the TPU kernel's formula on the flagship's trained weights
+// (dS = P (dP - D) does not cancel an error in D).  So when a gradient is
+// wanted the forward also writes the residual r = round(o - round(o)) of its
+// fp32 output o = sum_j (round(P_j) + round(P_j - round(P_j))) v_j / l: P split
+// into a bf16 high and low part, so that o carries P unrounded to ~2^-17.
+// Then D = rowsum(dO * (out + r)) in fp32 matches rowsum(dP * P) within 1% of
+// its error from float64 even on peaked attention (one bf16 part, round(P)
+// alone, was 2.3-2.5x further off there).
 //
 // Layout: as the forward, [B, S, H, HD] read in place; lse and D are
 // [B, H, Sq] fp32.  The ragged ends of Sq and Sk are masked here.
 //
-// Design.  The TPU kernel runs the query blocks of a head in order on one core
-// and carries dK/dV across them in its output block.  Hopper blocks run in
-// parallel in no order, so this is a deterministic two-pass shape, no atomics:
-//   (a) dsum_kernel: D for every query row (one warp a row; fp32 route);
-//   (b) dkdv_kernel: one block per (64-key tile, head, batch) holds K_j, V_j in
-//       shared memory, walks the 64-query tiles, recomputes P and dS and
-//       accumulates dV_j and dK_j in fp32 registers;
+// The TPU kernel runs the query blocks of a head in order on one core and
+// carries dK/dV across them in its output block.  Hopper blocks run in
+// parallel in no order, so this is a deterministic two-kernel shape with no
+// atomics: every output element is written by one block, from sums taken in a
+// fixed order.
+//
+// Two routes, chosen by dtype in the C entry point.
+//
+// fp32, the parity route, on the CUDA cores in fp32 FMAs with the forward's
+// 16x16-thread, 4x4-register tiling (TF32 would break the fp32 bounds):
+//   (a) dsum_kernel: D = rowsum(dO * out), one warp a row;
+//   (b) dkdv_kernel: one block per (64-key tile, head, batch) holds K_j, V_j,
+//       walks the 64-query tiles and accumulates dV_j, dK_j;
 //   (c) dq_kernel: one block per (64-query tile, head, batch) holds Q_i, dO_i,
-//       walks the key tiles, recomputes P and dS and accumulates dQ_i.
-// (b) and (c) both recompute S and dP: seven 64x64x64 products per tile pair
-// where five would do, the price of having no cross-block reduction.  The
-// result is deterministic: every output element is written by one block,
-// from sums taken in a fixed order.
+//       walks the key tiles and accumulates dQ_i.
 //
-// Two routes, chosen by dtype in the C entry point.  fp32 runs (a), (b), (c)
-// on the CUDA cores in fp32 FMAs with the forward's 16x16-thread,
-// 4x4-register tiling: the parity route (TF32 would break the fp32 bounds).
-// bf16 runs on the tensor cores (dq_mma_kernel, dkdv_mma_kernel): every
-// product an mma.sync on bf16 fragments fed by cp.async, P and dS kept in
-// registers (see below).  There (a) folds into (c), which runs first, takes
-// D = rowsum(dP * P) in a first pass over the key tiles and writes it for (b).
+// bf16, on Hopper's warpgroup tensor-core product (attention_sm90.cuh):
+//   (a) dsum_kernel: D = rowsum(dO * (out + r)), 8 lanes a row, 16-byte
+//       loads; it reads three [B, S, H, 64] bf16 tensors and writes D.
+//   (b) dq_wgmma_kernel: one block per (64-query tile, head, batch): S = Q K^T,
+//       dP = dO V^T and dQ += round(dS) K, 3 products a key tile.
+//   (c) dkdv_wgmma_kernel: one block per (64-key tile, head, batch): S^T =
+//       K Q^T, dP^T = V dO^T, dV += round(P^T) dO and dK += round(dS^T) Q, 4
+//       products a query tile.
+// A block of (b) or (c) is one consumer warpgroup and one producer warp.  The
+// producer issues TMA loads of 64-row boxes straight from [B, S, H, 64] into a
+// 2-stage ring in the 128-byte swizzle, each stage guarded by a full and an
+// empty mbarrier; TMA zero-fills the rows past S.  The consumers run every
+// product as wgmma.mma_async m64n64k16 on shared-memory descriptors; P and dS
+// go from the fp32 accumulators of the first products to the A operands of the
+// next in registers, rounded to bf16 on the way.  The results leave through
+// shared memory and a TMA store, which drops the rows past S.
 //
-// What bounds it.  At the flagship's S = 421, HD = 64, the backward is
+// What bounds it.  At the flagship's S = 421, HD = 64 the backward is
 // ~10*B*H*S^2*HD FLOP (the TPU kernel's cost estimate; 43.6 GFLOP at B = 32)
-// over ~8 [B,S,H,HD] tensors read or written once (~166 MB in bf16): 0.044 ms
-// of tensor-core work against 0.050 ms of memory traffic, so the card's
-// bound is the bytes.  The mma.sync route does nine tile products where five
-// would do (D's pass recomputes S and dP), reloads every B fragment from shared memory for each warp (16
-// rows of A to 64 columns of B: shared-memory reads, not the tensor cores,
-// set its pace), and spends a multi-function-unit exp2 on every score.
+// over 8 [B,S,H,HD] tensors read or written once (~166 MB in bf16): 0.044 ms
+// of tensor-core work against 0.050 ms of memory traffic, so the card's bound
+// is the bytes; the residual r is a ninth tensor that this design reads (and
+// the forward writes) in exchange for the first pass over the key tiles that
+// the previous mma.sync design spent on D.  Each block recomputes S and dP
+// (7 tile products a (query, key) tile pair where 5 would do, the price of
+// having no cross-block reduction); each 64-row tile is read once per block
+// from L2 by TMA, with no per-warp fragment reloads from shared memory; and
+// the exp of every score runs on the multi-function unit between the products.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
@@ -62,7 +84,7 @@
 #include <math.h>
 
 #include "attention_common.cuh"
-#include "attention_mma.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -345,270 +367,6 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-// ---- bf16 on the tensor cores -------------------------------------------
-//
-// The same two-pass shape, with every product an mma.sync on bf16
-// fragments: 4 warps a block, 16 rows of the block's 64-row tile each, the
-// other operand streaming through a 2-stage cp.async ring of 64-row tiles.
-// P and dS stay in registers: the fp32 C fragments of S and dP become, after
-// the elementwise step and the rounding to bf16, the A fragments of the next
-// products (attention_mma.cuh).  Rows past Sq and Sk are zero-filled by the
-// loads; rows past Sk are masked, rows past Sq contribute exact zeros
-// (their dO and D are 0, so P^T dO and dS = P (dP - D) vanish).
-
-// dQ: shared memory for Q, dO and two stages of K and V.
-constexpr size_t kDqSmem = 6 * (size_t)kTileBytes;
-// dK/dV: K, V and two stages of Q, dO, lse and D.
-constexpr size_t kDkdvSmem = 6 * (size_t)kTileBytes + 2 * 2 * kMmaRows * sizeof(float);
-
-// (a) and (c) on the tensor cores: D_i and dQ_i for one 64-query tile of
-// one head, in two passes over the key tiles.  Per key tile a warp computes
-// S = Q K^T and dP = dO V^T (32 mma each) and P = exp(S - lse) in registers.
-// The first pass sums D = rowsum(P * dP) in fp32, the TPU kernel's row term,
-// and writes it for the dK/dV kernel, which runs next; the second takes
-// dS = P (dP - D) and dQ += round(dS) K (32 mma, K through ldmatrix.trans).
-// The K/V pipeline runs on across the two passes: step it loads tile
-// (it + 1) mod n_tiles into stage (it + 1) & 1.
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, float* __restrict__ dsum,
-              const uint8_t* __restrict__ pad, __nv_bfloat16* __restrict__ dq, int sq,
-              int sk, int heads) {
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* do_s = q_s + kTileElems;
-  __nv_bfloat16* k_s = do_s + kTileElems;  // [2][kTileElems]
-  __nv_bfloat16* v_s = k_s + 2 * kTileElems;  // [2][kTileElems]
-
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kMmaRows;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const long long row = (long long)heads * kMmaHd;
-  const long long q_off = (long long)b * sq * row + (long long)head * kMmaHd;
-  const long long k_off = (long long)b * sk * row + (long long)head * kMmaHd;
-  const float* lse_b = lse + ((long long)b * heads + head) * sq;
-  float* d_b = dsum + ((long long)b * heads + head) * sq;
-  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
-
-  load_tile_async(q_s, q + q_off, row, q0, sq, tid);
-  load_tile_async(do_s, dout + q_off, row, q0, sq, tid);
-  load_tile_async(k_s, k + k_off, row, 0, sk, tid);
-  load_tile_async(v_s, v + k_off, row, 0, sk, tid);
-  cp_async_commit();
-
-  // exp_arg(lse) and D of rows r0 + g (index 0) and r0 + g + 8 (index 1);
-  // 0 past Sq
-  float lse_r[2], d_r[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int s = q0 + r0 + (lane >> 2) + 8 * h;
-    lse_r[h] = exp_arg(s < sq ? lse_b[s] : 0.f);
-  }
-
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int n_tiles = (sk + kMmaRows - 1) / kMmaRows;
-  for (int it = 0; it < 2 * n_tiles; ++it) {
-    const int st = it & 1;
-    const bool first_pass = it < n_tiles;
-    if (it + 1 < 2 * n_tiles) {
-      const int next = (it + 1 < n_tiles ? it + 1 : it + 1 - n_tiles) * kMmaRows;
-      load_tile_async(k_s + (st ^ 1) * kTileElems, k + k_off, row, next, sk, tid);
-      load_tile_async(v_s + (st ^ 1) * kTileElems, v + k_off, row, next, sk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* kt = k_s + st * kTileElems;
-
-    float p[8][4], ds[8][4];
-    tile_product_nk(p, q_s, r0, kt, lane);                   // S
-    tile_product_nk(ds, do_s, r0, v_s + st * kTileElems, lane);  // dP
-    const int k0 = (first_pass ? it : it - n_tiles) * kMmaRows;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + n * 8 + 2 * t + c;
-        const bool outside = key >= sk;
-        const bool padded = !outside && pad_b != nullptr && pad_b[key] != 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * h + c;
-          const float pe = outside ? 0.f : exp_sub(padded ? kPadLogit : p[n][e], lse_r[h]);
-          if (first_pass)
-            d_r[h] = fmaf(pe, ds[n][e], d_r[h]);
-          else
-            ds[n][e] = pe * (ds[n][e] - d_r[h]);
-        }
-      }
-    if (first_pass) {
-      if (it == n_tiles - 1) {
-        // a row's columns are spread over the 4 lanes of its quad
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          d_r[h] += __shfl_xor_sync(0xffffffffu, d_r[h], 1);
-          d_r[h] += __shfl_xor_sync(0xffffffffu, d_r[h], 2);
-          const int s = q0 + r0 + (lane >> 2) + 8 * h;
-          if (t == 0 && s < sq) d_b[s] = d_r[h];
-        }
-      }
-    } else {
-      tile_product_kn(acc, ds, kt, lane);  // dQ += round(dS) K
-    }
-    __syncthreads();
-  }
-  store_rows(acc, 1.f, 1.f, q_s, r0, dq + q_off, row, q0, sq, lane);
-}
-
-// (b) on the tensor cores: dK_j, dV_j for one 64-key tile of one head.  A
-// warp owns 16 keys and computes the transposed products S^T = K Q^T and
-// dP^T = V dO^T (32 mma each), so that P^T and dS^T land in registers as the
-// A operands of dV += round(P^T) dO and dK += round(dS^T) Q (32 mma each, dO
-// and Q through ldmatrix.trans).  lse and D are per column there, read from
-// shared memory beside each query tile.  Three blocks an SM: registers are
-// capped at 168 a thread (ptxas fits it in ~160 with no spills).
-__global__ void __launch_bounds__(kMmaThreads, 3)
-dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ dsum,
-                const uint8_t* __restrict__ pad, __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv, int sq, int sk, int heads) {
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* v_s = k_s + kTileElems;
-  __nv_bfloat16* q_s = v_s + kTileElems;   // [2][kTileElems]
-  __nv_bfloat16* do_s = q_s + 2 * kTileElems;  // [2][kTileElems]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // [2][64]
-  float* d_s = lse_s + 2 * kMmaRows;                                // [2][64]
-
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * kMmaRows;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const long long row = (long long)heads * kMmaHd;
-  const long long q_off = (long long)b * sq * row + (long long)head * kMmaHd;
-  const long long k_off = (long long)b * sk * row + (long long)head * kMmaHd;
-  const float* lse_b = lse + ((long long)b * heads + head) * sq;
-  const float* d_b = dsum + ((long long)b * heads + head) * sq;
-
-  // Q, dO, lse and D of query tile i into stage st; rows past Sq are zeros
-  auto load_query_tile = [&](int i, int st) {
-    const int s0 = i * kMmaRows;
-    load_tile_async(q_s + st * kTileElems, q + q_off, row, s0, sq, tid);
-    load_tile_async(do_s + st * kTileElems, dout + q_off, row, s0, sq, tid);
-    const int r = tid & (kMmaRows - 1);
-    const bool in = s0 + r < sq;
-    const float* from = (tid < kMmaRows ? lse_b : d_b) + (in ? s0 + r : 0);
-    cp_async4((tid < kMmaRows ? lse_s : d_s) + st * kMmaRows + r, from, in ? 4 : 0);
-  };
-
-  load_tile_async(k_s, k + k_off, row, k0, sk, tid);
-  load_tile_async(v_s, v + k_off, row, k0, sk, tid);
-  load_query_tile(0, 0);
-  cp_async_commit();
-
-  // keys r0 + g (index 0) and r0 + g + 8 (index 1) of the tile
-  bool padded[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + r0 + (lane >> 2) + 8 * h;
-    padded[h] = pad != nullptr && key < sk && pad[(long long)b * sk + key] != 0;
-  }
-
-  float acc_dv[8][4], acc_dk[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dv[n][e] = acc_dk[n][e] = 0.f;
-
-  const int n_tiles = (sq + kMmaRows - 1) / kMmaRows;
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i & 1;
-    if (i + 1 < n_tiles) load_query_tile(i + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    // two halves of 32 queries, one after the other: P^T and dS^T of a half
-    // are 16 registers each, which leaves room for three blocks on an SM
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;
-      const __nv_bfloat16* qt = q_s + st * kTileElems + c0 * kPitch;
-      const __nv_bfloat16* dot = do_s + st * kTileElems + c0 * kPitch;
-      const float* lse_t = lse_s + st * kMmaRows + c0;
-      const float* d_t = d_s + st * kMmaRows + c0;
-
-      float p[4][4], ds[4][4];
-      tile_product_nk(p, k_s, r0, qt, lane);    // S^T
-      tile_product_nk(ds, v_s, r0, dot, lane);  // dP^T
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const float2 lse_c = *reinterpret_cast<const float2*>(lse_t + n * 8 + 2 * t);
-        const float2 d_c = *reinterpret_cast<const float2*>(d_t + n * 8 + 2 * t);
-        const float lse2[2] = {exp_arg(lse_c.x), exp_arg(lse_c.y)};
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 2 * h + c;
-            const float pe = exp_sub(padded[h] ? kPadLogit : p[n][e], lse2[c]);
-            p[n][e] = pe;
-            ds[n][e] = pe * (ds[n][e] - (c ? d_c.y : d_c.x));
-          }
-      }
-      tile_product_kn(acc_dv, p, dot, lane);  // dV += round(P^T) dO
-      tile_product_kn(acc_dk, ds, qt, lane);  // dK += round(dS^T) Q
-    }
-    __syncthreads();
-  }
-  // k_s and v_s rows [r0, r0 + 16) were read by this warp alone
-  store_rows(acc_dk, 1.f, 1.f, k_s, r0, dk + k_off, row, k0, sk, lane);
-  store_rows(acc_dv, 1.f, 1.f, v_s, r0, dv + k_off, row, k0, sk, lane);
-}
-
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* pad, void* dsum, void* dq, void* dk, void* dv,
-               int batch, int sq, int sk, int heads, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* do_ = static_cast<const bf16*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const uint8_t* pad_ = static_cast<const uint8_t*>(pad);
-  float* dsum_ = static_cast<float*>(dsum);
-
-  // D and dQ first: the dK/dV kernel reads the D that this one writes
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((sq + kMmaRows - 1) / kMmaRows, heads, batch);
-  dq_mma_kernel<<<grid_q, kMmaThreads, kDqSmem, stream>>>(
-      q_, k_, v_, do_, lse_, dsum_, pad_, static_cast<bf16*>(dq), sq, sk, heads);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(dkdv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDkdvSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_kv((sk + kMmaRows - 1) / kMmaRows, heads, batch);
-  dkdv_mma_kernel<<<grid_kv, kMmaThreads, kDkdvSmem, stream>>>(
-      q_, k_, v_, do_, lse_, dsum_, pad_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq,
-      sk, heads);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const void* lse, const void* pad, void* dsum, void* dq,
@@ -651,16 +409,380 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16 on Hopper: TMA and wgmma ----------------------------------------
+
+namespace hopper {
+
+using namespace simvg::sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int kStages = 2;                         // the ring of streamed tiles
+constexpr int kThreads = kWarpgroup + 32;          // consumers + the producer warp
+constexpr int kProducerWarp = kWarpgroup / 32;     // warp 4
+constexpr int kRowsPerDsumBlock = 32;              // dsum_kernel: 8 lanes a row
+
+// (a) D[b, h, i] = sum_d dO[b, i, h, d] * (out + r)[b, i, h, d] in fp32, out + r
+// formed in fp32.  8 lanes a row, 8 elements (16 bytes) each.
+__global__ void __launch_bounds__(8 * kRowsPerDsumBlock)
+dsum_kernel(const bf16* __restrict__ out, const bf16* __restrict__ resid,
+            const bf16* __restrict__ dout, float* __restrict__ dsum, long long rows, int sq,
+            int heads) {
+  const long long r = (long long)blockIdx.x * kRowsPerDsumBlock + threadIdx.x / 8;
+  const int part = threadIdx.x % 8;
+  float acc = 0.f;
+  if (r < rows) {
+    const long long at = r * kHd + part * 8;
+    const uint4 o4 = *reinterpret_cast<const uint4*>(out + at);
+    const uint4 r4 = *reinterpret_cast<const uint4*>(resid + at);
+    const uint4 g4 = *reinterpret_cast<const uint4*>(dout + at);
+    const bf16* o = reinterpret_cast<const bf16*>(&o4);
+    const bf16* rr = reinterpret_cast<const bf16*>(&r4);
+    const bf16* g = reinterpret_cast<const bf16*>(&g4);
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+      acc = fmaf(__bfloat162float(g[d]), __bfloat162float(o[d]) + __bfloat162float(rr[d]), acc);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (r < rows && part == 0) {
+    // r = (b * sq + i) * heads + h  ->  D[(b * heads + h) * sq + i]
+    const long long h = r % heads, bi = r / heads;
+    const long long b = bi / sq, i = bi % sq;
+    dsum[(b * heads + h) * sq + i] = acc;
+  }
+}
+
+// The dynamic shared memory rounded up to the 1024 bytes that the 128-byte
+// swizzle wants; the launch asks for 1024 more than the layout needs.
+__device__ __forceinline__ char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return reinterpret_cast<char*>(raw) + (((a + 1023) & ~1023u) - a);
+}
+
+// (b) dQ_i for one 64-query tile of one head.  Shared memory: Q_i, dO_i, and
+// kStages stages of K_j, V_j; the barriers after them.
+constexpr int kDqBytes = (2 + 2 * kStages) * kTileBytes;
+constexpr size_t kDqSmem = kDqBytes + 8 * (1 + 2 * kStages) + 1024;
+
+__global__ void __launch_bounds__(kThreads)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                const float* __restrict__ dsum, const uint8_t* __restrict__ pad, int sq,
+                int sk, int heads) {
+  extern __shared__ unsigned char smem_raw[];
+  char* smem = aligned_smem(smem_raw);
+  char* q_s = smem;
+  char* do_s = q_s + kTileBytes;
+  char* k_s = do_s + kTileBytes;                // [kStages][kTileBytes]
+  char* v_s = k_s + kStages * kTileBytes;       // [kStages][kTileBytes]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kDqBytes);
+  uint64_t* q_bar = bars;                       // Q_i and dO_i have landed
+  uint64_t* full = bars + 1;                    // stage s has landed
+  uint64_t* empty = bars + 1 + kStages;         // stage s is free
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (sk + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarpgroup);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, 2 * kTileBytes);
+      tma_load_tile(q_s, &tm_q, q_bar, head, q0, b);
+      tma_load_tile(do_s, &tm_do, q_bar, head, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load_tile(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
+        tma_load_tile(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
+      }
+    }
+    return;
+  }
+
+  // rows q0 + 16 warp + g (index 0) and + 8 (index 1); lse and D 0 past Sq
+  const int g = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * heads + head;
+  float lse2[2], d_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = q0 + 16 * warp + g + 8 * h;
+    lse2[h] = exp_arg(s < sq ? lse[bh * sq + s] : 0.f);
+    d_r[h] = s < sq ? dsum[bh * sq + s] : 0.f;
+  }
+  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const char* kt = k_s + st * kTileBytes;
+    mbar_wait(&full[st], (j / kStages) & 1);
+
+    float s[32], dp[32];
+    wgmma_fence();
+    product_nt(s, q_s, kt);                       // S = Q K^T
+    product_nt(dp, do_s, v_s + st * kTileBytes);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // P from lse; dS = P (dP - D) in place of dP.  Keys past Sk get P = 0,
+    // padded keys the logit -1e30.
+    const int k0 = j * kRows;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * n + 2 * t + c;
+        const bool outside = key >= sk;
+        const bool padded = !outside && pad_b != nullptr && pad_b[key] != 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * n + 2 * h + c;
+          const float pe = outside ? 0.f : exp_sub(padded ? kPadLogit : s[e], lse2[h]);
+          dp[e] = pe * (dp[e] - d_r[h]);
+        }
+      }
+
+    fence_acc(acc);
+    product_pn(acc, dp, kt);  // dQ += round(dS) K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(&empty[st]);
+  }
+
+  // Q_i's tile is free once every consumer is past its last product
+  named_barrier(1, kWarpgroup);
+  acc_to_tile(q_s, acc, warp, lane);
+  fence_proxy_async();
+  named_barrier(1, kWarpgroup);
+  if (tid == 0) {
+    tma_store_tile(&tm_dq, q_s, head, q0, b);
+    tma_store_commit_and_wait();
+  }
+}
+
+// (c) dK_j, dV_j for one 64-key tile of one head.  The consumers compute the
+// transposed products S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T sit
+// in registers as the A operands of dV += round(P^T) dO and dK += round(dS^T) Q.
+// lse and D are per column there: the producer warp copies them beside each
+// query tile (zeros past Sq, where the zero-filled Q and dO rows make every
+// term vanish).  Shared memory: K_j, V_j, kStages stages of Q_i, dO_i, and of
+// lse_i, D_i; the barriers after them.
+constexpr int kDkdvTiles = (2 + 2 * kStages) * kTileBytes;
+constexpr int kDkdvBytes = kDkdvTiles + 2 * kStages * kRows * 4;
+constexpr size_t kDkdvSmem = kDkdvBytes + 8 * (1 + 2 * kStages) + 1024;
+
+__global__ void __launch_bounds__(kThreads)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_dk,
+                  const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ lse,
+                  const float* __restrict__ dsum, const uint8_t* __restrict__ pad, int sq,
+                  int sk, int heads) {
+  extern __shared__ unsigned char smem_raw[];
+  char* smem = aligned_smem(smem_raw);
+  char* k_s = smem;
+  char* v_s = k_s + kTileBytes;
+  char* q_s = v_s + kTileBytes;                 // [kStages][kTileBytes]
+  char* do_s = q_s + kStages * kTileBytes;      // [kStages][kTileBytes]
+  float* lse_s = reinterpret_cast<float*>(smem + kDkdvTiles);  // [kStages][kRows]
+  float* d_s = lse_s + kStages * kRows;                        // [kStages][kRows]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kDkdvBytes);
+  uint64_t* kv_bar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (sq + kRows - 1) / kRows;
+  const long long bh = (long long)b * heads + head;
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer's 32 lanes; lane 0's brings the bytes
+      mbar_init(&empty[s], kWarpgroup);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_bar, 2 * kTileBytes);
+      tma_load_tile(k_s, &tm_k, kv_bar, head, k0, b);
+      tma_load_tile(v_s, &tm_v, kv_bar, head, k0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+      for (int c = lane; c < kRows; c += 32) {
+        const int s = i * kRows + c;
+        lse_s[st * kRows + c] = s < sq ? lse[bh * sq + s] : 0.f;
+        d_s[st * kRows + c] = s < sq ? dsum[bh * sq + s] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load_tile(q_s + st * kTileBytes, &tm_q, &full[st], head, i * kRows, b);
+        tma_load_tile(do_s + st * kTileBytes, &tm_do, &full[st], head, i * kRows, b);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // keys k0 + 16 warp + g (index 0) and + 8 (index 1)
+  const int g = lane >> 2, t = lane & 3;
+  bool padded[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + 16 * warp + g + 8 * h;
+    padded[h] = pad != nullptr && key < sk && pad[(long long)b * sk + key] != 0;
+  }
+
+  float acc_dv[32], acc_dk[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_dv[i] = acc_dk[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const char* qt = q_s + st * kTileBytes;
+    const char* dot = do_s + st * kTileBytes;
+    mbar_wait(&full[st], (i / kStages) & 1);
+
+    float s[32], dp[32];
+    wgmma_fence();
+    product_nt(s, k_s, qt);    // S^T = K Q^T
+    product_nt(dp, v_s, dot);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    const float* lse_t = lse_s + st * kRows;
+    const float* d_t = d_s + st * kRows;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 lse_c = *reinterpret_cast<const float2*>(lse_t + 8 * n + 2 * t);
+      const float2 d_c = *reinterpret_cast<const float2*>(d_t + 8 * n + 2 * t);
+      const float lse2[2] = {exp_arg(lse_c.x), exp_arg(lse_c.y)};
+      const float dd[2] = {d_c.x, d_c.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * n + 2 * h + c;
+          const float pe = exp_sub(padded[h] ? kPadLogit : s[e], lse2[c]);
+          s[e] = pe;
+          dp[e] = pe * (dp[e] - dd[c]);
+        }
+    }
+
+    fence_acc(acc_dv);
+    fence_acc(acc_dk);
+    product_pn(acc_dv, s, dot);  // dV += round(P^T) dO
+    product_pn(acc_dk, dp, qt);  // dK += round(dS^T) Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc_dv);
+    fence_acc(acc_dk);
+    mbar_arrive(&empty[st]);
+  }
+
+  named_barrier(1, kWarpgroup);
+  acc_to_tile(k_s, acc_dk, warp, lane);
+  acc_to_tile(v_s, acc_dv, warp, lane);
+  fence_proxy_async();
+  named_barrier(1, kWarpgroup);
+  if (tid == 0) {
+    tma_store_tile(&tm_dk, k_s, head, k0, b);
+    tma_store_tile(&tm_dv, v_s, head, k0, b);
+    tma_store_commit_and_wait();
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* out, const void* resid,
+           const void* dout, const void* lse, const void* pad, void* dsum, void* dq, void* dk,
+           void* dv, int batch, int sq, int sk, int heads, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq, tm_dk, tm_dv;
+  if (!(make_tile_map(&tm_q, q, batch, sq, heads) && make_tile_map(&tm_k, k, batch, sk, heads) &&
+        make_tile_map(&tm_v, v, batch, sk, heads) &&
+        make_tile_map(&tm_do, dout, batch, sq, heads) &&
+        make_tile_map(&tm_dq, dq, batch, sq, heads) &&
+        make_tile_map(&tm_dk, dk, batch, sk, heads) &&
+        make_tile_map(&tm_dv, dv, batch, sk, heads)))
+    return (int)cudaErrorNotSupported;
+  const float* lse_ = static_cast<const float*>(lse);
+  const uint8_t* pad_ = static_cast<const uint8_t*>(pad);
+  float* dsum_ = static_cast<float*>(dsum);
+
+  const long long rows = (long long)batch * sq * heads;
+  const long long blocks = (rows + kRowsPerDsumBlock - 1) / kRowsPerDsumBlock;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  dsum_kernel<<<(unsigned)blocks, 8 * kRowsPerDsumBlock, 0, stream>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(resid),
+      static_cast<const bf16*>(dout), dsum_, rows, sq, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = cudaFuncSetAttribute(dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((sq + kRows - 1) / kRows, heads, batch);
+  dq_wgmma_kernel<<<grid_q, kThreads, kDqSmem, stream>>>(tm_q, tm_k, tm_v, tm_do, tm_dq, lse_,
+                                                         dsum_, pad_, sq, sk, heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = cudaFuncSetAttribute(dkdv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDkdvSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_kv((sk + kRows - 1) / kRows, heads, batch);
+  dkdv_wgmma_kernel<<<grid_kv, kThreads, kDkdvSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, lse_, dsum_, pad_, sq, sk, heads);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hopper
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/dq and out/dout [B, Sq, H, HD], k/v/dk/dv
-// [B, Sk, H, HD] in that dtype; lse (from simvg_attention_fwd) and the scratch
-// dsum float32 [B, H, Sq]; pad uint8 [B, Sk] (1 = padded) or null.
-// Launches three kernels on `stream` and returns the first CUDA error (0 if none).
+// dtype: 0 = float32, 1 = bfloat16.  q/dq, out/dout and resid [B, Sq, H, HD],
+// k/v/dk/dv [B, Sk, H, HD] in that dtype; lse (from simvg_attention_fwd) and
+// the scratch dsum float32 [B, H, Sq]; pad uint8 [B, Sk] (1 = padded) or null.
+// resid is the forward's residual (simvg_attention_fwd with a gradient),
+// required in bf16 and not read in float32.  Launches three kernels on
+// `stream` and returns the first CUDA error (0 if none).
 extern "C" int simvg_attention_bwd(const void* q, const void* k, const void* v,
-                                   const void* out, const void* dout, const void* lse,
-                                   const void* pad, void* dsum, void* dq, void* dk,
-                                   void* dv, int batch, int sq, int sk, int heads,
+                                   const void* out, const void* resid, const void* dout,
+                                   const void* lse, const void* pad, void* dsum, void* dq,
+                                   void* dk, void* dv, int batch, int sq, int sk, int heads,
                                    int head_dim, int dtype, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
@@ -669,11 +791,13 @@ extern "C" int simvg_attention_bwd(const void* q, const void* k, const void* v,
     return launch<float, 64>(q, k, v, out, dout, lse, pad, dsum, dq, dk, dv, batch, sq,
                              sk, heads, s);
   if (dtype == 1 && head_dim == 64) {
-    // 16-byte cp.async loads and stores
-    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)dout |
-         (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15)
+    // TMA boxes and 16-byte loads start on 16-byte boundaries
+    if (resid == nullptr) return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid |
+         (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15)
       return (int)cudaErrorMisalignedAddress;
-    return launch_mma(q, k, v, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk, heads, s);
+    return hopper::launch(q, k, v, out, resid, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk,
+                          heads, s);
   }
   return (int)cudaErrorInvalidValue;
 }

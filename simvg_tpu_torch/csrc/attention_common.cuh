@@ -1,15 +1,17 @@
 // Shared by the attention kernels (attention_fwd.cu, attention_bwd.cu): the
 // tile shape of their CUDA-core (fp32) route, the element conversions and the
-// row reductions.  On that route both kernels compute the logits of a
+// row reductions, and the exp, shared-address and bf16-packing helpers of both
+// tensor-core routes.  On the fp32 route both kernels compute the logits of a
 // (64-query, 64-key) tile with the same thread layout and the same summation
-// order, so the backward recomputes bit for bit the logits whose row
-// statistics the forward stored.  On the tensor-core (bf16) route
-// (attention_mma.cuh) the dK/dV kernel computes the transposed product
-// K Q^T, so its logits equal the forward's up to fp32 rounding only; the
-// error bounds are the same.
+// order, so the backward recomputes bit for bit the logits whose row statistics
+// the forward stored.  On the tensor-core (bf16) route (attention_mma.cuh,
+// attention_sm90.cuh) the forward and the backward use other products, and the
+// dK/dV kernel the transposed K Q^T, so the backward's logits equal the
+// forward's up to fp32 rounding only; the error bounds are the same.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,6 +26,28 @@ constexpr int kRowsPerThread = kBlockQ / kThreadsY;  // 4
 constexpr int kKeysPerThread = kBlockK / kThreadsX;  // 4
 constexpr int kLdP = kBlockK + 1;  // padded row stride of a P / dS tile
 constexpr float kPadLogit = -1e30f;  // the TPU kernel's bias on padded keys
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// exp(x - y) = exp_sub(x, exp_arg(y)): one FMA and the hardware's exp2
+// (~2 ulp), where expf would spend several more instructions on every
+// element of a score tile.  The forward's softmax and the backward's
+// recomputed P both take it, so P stays consistent with the stored lse.
+__device__ __forceinline__ float exp_arg(float y) { return y * kLog2e; }
+__device__ __forceinline__ float exp_sub(float x, float y2) {
+  return exp2f(fmaf(x, kLog2e, -y2));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two fp32 values rounded to nearest even bf16 (as astype does), lo in the
+// low half: the lower column first, as the fragments want it.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // The CUDA-core kernels are templates on the element type T and are
 // instantiated for float only: bf16 takes the tensor-core route.

@@ -9,7 +9,12 @@
 // (key_padding_mask == 1) get the logit -1e30, as the TPU kernel's additive
 // bias gives them.  When a gradient will be needed the kernel also writes
 // the per-row log-sum-exp lse = m + log(l) of those fp32 logits, [B, H, Sq],
-// for the backward kernel (attention_bwd.cu) to recompute P from.
+// for the backward kernel (attention_bwd.cu) to recompute P from, and, in
+// bf16, the residual r of the output: with P split into a bf16 high part
+// round(P) and low part round(P - round(P)), o = sum_j (high + low)_j v_j / l
+// carries P unrounded, and r = round(o - out).  The backward takes its row
+// term D = rowsum(dO * (out + r)) from it (attention_bwd.cu's header says
+// why).  out itself is the same with or without r.
 //
 // Layout: q [B, Sq, H, HD], k/v [B, Sk, H, HD], out like q, all contiguous;
 // the kernel reads the heads in place, with no transpose to [B*H, S, HD].
@@ -40,8 +45,11 @@
 // mma.sync design is instruction throughput: each warp reloads the K/V
 // fragments of every tile from shared memory (ldmatrix), and the softmax's
 // exp and max run on the CUDA cores between the two products.  Warpgroup
-// wgmma with TMA-fed tiles is the next step.  The encoder's parameter matmuls, not this core,
-// take ~92% of a layer's FLOPs at S = 421.
+// wgmma with TMA-fed tiles is the next step (the backward, attention_bwd.cu,
+// has taken it).  With the residual the kernel does a third product a key
+// tile, O_lo += round(P - round(P)) V, and writes a fifth [B, S, H, HD]
+// tensor; without a gradient it does neither.  The encoder's parameter
+// matmuls, not this core, take ~92% of a layer's FLOPs at S = 421.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
@@ -214,14 +222,16 @@ int launch(const void* q, const void* k, const void* v, const void* pad, void* o
 // of a quad; every lane keeps a partial row sum), rounds P to bf16 in
 // registers as the A operand of O += P V (32 mma, V through ldmatrix.trans),
 // and never writes P to shared memory.  Logits, softmax and sums are fp32
-// (exp through the hardware's exp2, attention_mma.cuh); the roundings are
-// the CUDA-core kernel's: P before P V, O at the store.
+// (exp through the hardware's exp2, attention_common.cuh); the roundings are
+// the CUDA-core kernel's: P before P V, O at the store.  kResid adds the
+// low part's product into o_lo and writes the residual r of the output.
+template <bool kResid>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ pad,
-                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
-                         int sk, int heads) {
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ resid, int sq, int sk, int heads) {
   __shared__ __align__(16) __nv_bfloat16 q_s[kTileElems];
   __shared__ __align__(16) __nv_bfloat16 k_s[2][kTileElems];
   __shared__ __align__(16) __nv_bfloat16 v_s[2][kTileElems];
@@ -245,11 +255,11 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile, g = lane / 4
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[8][4];
+  float o[8][4], o_lo[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = o_lo[n][e] = 0.f;
 
   const int n_tiles = (sk + kMmaRows - 1) / kMmaRows;
   for (int j = 0; j < n_tiles; ++j) {
@@ -301,12 +311,23 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           s[n][2 * h + c] = p;
           tile_sum += p;
           o[n][2 * h + c] *= alpha;
+          if (kResid) o_lo[n][2 * h + c] *= alpha;
         }
       l[h] = l[h] * alpha + tile_sum;  // this lane's part of the row sum
       m[h] = m_new;
     }
 
     tile_product_kn(o, s, v_s[st], lane);  // O += round(P) V
+    if (kResid) {
+      // the low part P - round(P), exact in fp32; the product rounds it
+      float lo[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          lo[n][e] = s[n][e] - __bfloat162float(__float2bfloat16_rn(s[n][e]));
+      tile_product_kn(o_lo, lo, v_s[st], lane);  // O_lo += round(P - round(P)) V
+    }
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
 
@@ -316,8 +337,22 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
   // q_s rows [r0, r0 + 16) were read by this warp alone
-  store_rows(o, 1.f / l[0], 1.f / l[1], q_s, r0,
-             out + (long long)b * sq * row + (long long)head * kMmaHd, row, q0, sq, lane);
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const long long at = (long long)b * sq * row + (long long)head * kMmaHd;
+  store_rows(o, inv[0], inv[1], q_s, r0, out + at, row, q0, sq, lane);
+  if (kResid) {
+    // r = (O_hi + O_lo) / l - round(O_hi / l), the same out as stored above
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = o[n][e] * inv[e >> 1];
+        o_lo[n][e] = (o[n][e] + o_lo[n][e]) * inv[e >> 1] -
+                     __bfloat162float(__float2bfloat16_rn(x));
+      }
+    __syncwarp();  // every lane has copied its out rows out of the staging tile
+    store_rows(o_lo, 1.f, 1.f, q_s, r0, resid + at, row, q0, sq, lane);
+  }
   if (lse != nullptr && t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -328,35 +363,41 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 int launch_mma(const void* q, const void* k, const void* v, const void* pad, void* out,
-               void* lse, int batch, int sq, int sk, int heads, cudaStream_t stream) {
+               void* lse, void* resid, int batch, int sq, int sk, int heads,
+               cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
   const dim3 grid((sq + kMmaRows - 1) / kMmaRows, heads, batch);
-  attention_fwd_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(pad),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sq, sk, heads);
+  auto kernel = resid != nullptr ? attention_fwd_mma_kernel<true>
+                                 : attention_fwd_mma_kernel<false>;
+  kernel<<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<bf16*>(resid), sq, sk, heads);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  pad may be null (no padded keys); lse
-// (float32 [B, H, Sq]) may be null (not written).
+// (float32 [B, H, Sq]) may be null (not written); resid ([B, Sq, H, HD] in
+// bf16, the output's residual for the backward) may be null (not written), and
+// must be null in float32.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* pad, void* out, void* lse, int batch,
-                                   int sq, int sk, int heads, int head_dim, int dtype,
-                                   void* stream) {
+                                   const void* pad, void* out, void* lse, void* resid,
+                                   int batch, int sq, int sk, int heads, int head_dim,
+                                   int dtype, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // head_dim is a template parameter; 64 is every shipped config's
-  if (dtype == 0 && head_dim == 64)
+  if (dtype == 0 && head_dim == 64 && resid == nullptr)
     return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
   if (dtype == 1 && head_dim == 64) {
     // 16-byte cp.async loads and stores
-    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15)
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid) & 15)
       return (int)cudaErrorMisalignedAddress;
-    return launch_mma(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+    return launch_mma(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
-// Tensor-core building blocks of the bf16 attention kernels
-// (attention_fwd.cu, attention_bwd.cu): 16-byte cp.async tile loads,
-// padded bf16 shared tiles, ldmatrix fragment loads, the bf16
-// mma.sync.m16n8k16 product with fp32 sums, and the repack of an fp32
+// Tensor-core building blocks of the bf16 attention forward
+// (attention_fwd.cu; the backward's are in attention_sm90.cuh): 16-byte
+// cp.async tile loads, padded bf16 shared tiles, ldmatrix fragment loads, the
+// bf16 mma.sync.m16n8k16 product with fp32 sums, and the repack of an fp32
 // accumulator fragment into a bf16 A fragment.
 //
 // A block of these kernels is 4 warps; each warp owns 16 rows of a 64-row
@@ -25,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace simvg {
 
 constexpr int kMmaHd = 64;                    // head_dim of the bf16 kernels
@@ -34,21 +36,6 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kPitch = kMmaHd + 8;            // bf16 elements between shared rows
 constexpr int kTileElems = kMmaRows * kPitch;
 constexpr int kTileBytes = kTileElems * 2;    // 9216
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// exp(x - y) = exp_sub(x, exp_arg(y)): one FMA and the hardware's exp2
-// (~2 ulp), where expf would spend several more instructions on every
-// element of a score tile.  The forward's softmax and the backward's
-// recomputed P both take it, so P stays consistent with the stored lse.
-__device__ __forceinline__ float exp_arg(float y) { return y * kLog2e; }
-__device__ __forceinline__ float exp_sub(float x, float y2) {
-  return exp2f(fmaf(x, kLog2e, -y2));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, asynchronously; src_bytes = 0 reads nothing and
 // writes 16 zero bytes.
@@ -135,13 +122,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two fp32 values rounded to nearest even bf16 (as astype does), lo in the
-// low half: the lower column first, as the fragments want it.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The C fragments of n-tiles 2j and 2j + 1 (16 rows x 16 columns), rounded to

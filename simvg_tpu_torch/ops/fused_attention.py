@@ -7,18 +7,21 @@ called at :131) and ``_attn_bwd_kernel`` (:66, called at :165 by
 ``_attention_flat_bwd``).  The CUDA kernels live in ``csrc/attention_fwd.cu``
 (K1) and ``csrc/attention_bwd.cu`` (K2); their headers say how they stream
 K/V through shared memory with an online softmax, and how K2 replaces the
-TPU kernel's sequential dK/dV accumulation with two passes and no atomics.
+TPU kernel's sequential dK/dV accumulation with two kernels and no atomics.
 
 Each kernel has two routes, chosen by dtype inside its C entry point:
-bf16 runs on the tensor cores (``mma.sync`` on bf16 fragments fed by
-``cp.async``, building blocks in ``csrc/attention_mma.cuh``), float32 on
-the CUDA cores in fp32 FMAs, the parity route.
+float32 runs on the CUDA cores in fp32 FMAs, the parity route; bf16 on the
+tensor cores: K1 as ``mma.sync`` on bf16 fragments fed by ``cp.async``
+(``csrc/attention_mma.cuh``), K2 as Hopper's ``wgmma`` on tiles that TMA
+brings in (``csrc/attention_sm90.cuh``).
 
 ``fused_attention`` is the entry point.  It calls K1 as the operator
 ``torch.ops.simvg.attention_fwd`` (``torch.library``), which returns the
-output and the row LSE, has K2 as its backward, and has a fake kernel that
-gives the outputs' shapes and dtypes, so that ``torch.export`` keeps K1 in
-the exported graph as one node a call (``simvg_tpu_torch/export.py``).
+output, the row LSE and, in bf16 when a gradient is wanted, the output's
+residual r (what K2 takes its row term from), has K2 as its backward, and
+has a fake kernel that gives the outputs' shapes and dtypes, so that
+``torch.export`` keeps K1 in the exported graph as one node a call
+(``simvg_tpu_torch/export.py``).
 For CUDA tensors the operator launches the kernels or raises on anything
 the kernels do not take; only tensors on the CPU go to the plain PyTorch
 versions, ``fused_attention_reference`` and
@@ -68,22 +71,60 @@ def fused_attention_bwd_reference(
     v: torch.Tensor,
     dout: torch.Tensor,  # [B, Sq, H, hd], the cotangent of the output
     key_padding_mask: Optional[torch.Tensor] = None,
+    row_term: Optional[torch.Tensor] = None,  # [B, H, Sq] fp32
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What K2 computes, in plain PyTorch, with the TPU kernel's formula and
     roundings (pallas_attention.py:81-105): P recomputed in fp32; dV =
-    round(P)^T dO; dP = dO V^T; dS = P (dP - rowsum(dP P)); dQ = round(dS)
-    K; dK = round(dS)^T q; round() is the cast to the input dtype, every
-    sum fp32.  Returns (dq, dk, dv) in q's dtype."""
+    round(P)^T dO; dP = dO V^T; dS = P (dP - D), D = rowsum(dP P); dQ =
+    round(dS) K; dK = round(dS)^T q; round() is the cast to the input
+    dtype, every sum fp32.  ``row_term``, when given, is used for D (the
+    card's bf16 route takes it from ``attention_row_term``).  Returns (dq,
+    dk, dv) in q's dtype."""
     cd = q.dtype
     p = torch.softmax(_logits(q, k, key_padding_mask), dim=-1)
     do = dout.float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(cd).float(), do)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if row_term is None:
+        row_term = (dp * p).sum(-1)
+    ds = p * (dp - row_term[..., None])
     ds_c = ds.to(cd).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds_c, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds_c, q.float())
     return dq.to(cd), dk.to(cd), dv.to(cd)
+
+
+def attention_residual_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What bf16 K1 writes when a gradient is wanted, in plain PyTorch:
+    (out, r).  P is split into a high part round(P) and a low part
+    round(P - round(P)); out = round(sum_j high_j v_j), as
+    ``fused_attention_reference``; o = sum_j (high + low)_j v_j in fp32 and
+    r = round(o - out).  out + r is the output before its rounding to
+    ~2^-17, which gives K2 its row term (``attention_row_term``).  Used by
+    the tests: the card's kernels compute it."""
+    cd = q.dtype
+    p = torch.softmax(_logits(q, k, key_padding_mask), dim=-1)
+    hi = p.to(cd).float()
+    lo = (p - hi).to(cd).float()
+    vf = v.float()
+    o_hi = torch.einsum("bhqk,bkhd->bqhd", hi, vf)
+    o = o_hi + torch.einsum("bhqk,bkhd->bqhd", lo, vf)
+    out = o_hi.to(cd)
+    return out, (o - out.float()).to(cd)
+
+
+def attention_row_term(out: torch.Tensor, resid: torch.Tensor,
+                       dout: torch.Tensor) -> torch.Tensor:
+    """K2's bf16 row term D = rowsum(dO (out + r)) in fp32, [B, H, Sq]: in
+    exact arithmetic the TPU kernel's rowsum(dP P), since sum_j P_j dO.v_j
+    = dO . sum_j P_j v_j."""
+    o = out.float() + resid.float()
+    return torch.einsum("bqhd,bqhd->bhq", dout.float(), o)
 
 
 def _library(name: str, n_pointers: int, n_ints: int):
@@ -149,33 +190,44 @@ def _pad_u8(key_padding_mask):
     return key_padding_mask.to(torch.uint8).contiguous()
 
 
-def attention_fwd(q, k, v, key_padding_mask=None):
-    """Launches K1 on CUDA tensors: returns out [B, Sq, H, hd] in q's dtype
-    and the fp32 row log-sum-exp [B, H, Sq]."""
+def _wants_residual(q, grad):
+    """K1 writes the residual in bf16 when a gradient is wanted; K2's
+    float32 route takes its row term from out alone."""
+    return grad and q.dtype == torch.bfloat16
+
+
+def attention_fwd(q, k, v, key_padding_mask=None, grad=False):
+    """Launches K1 on CUDA tensors: returns out [B, Sq, H, hd] in q's
+    dtype, the fp32 row log-sum-exp [B, H, Sq] and the residual r of out
+    (``attention_residual_reference``), [B, Sq, H, hd] in bf16 with
+    ``grad``, else an empty tensor."""
     _check_device([q, k, v, key_padding_mask])
     _check(q, k, v, key_padding_mask)
     _check_aligned([q, k, v])
-    fn = _library("attention_fwd", 6, 6)
+    fn = _library("attention_fwd", 7, 6)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    resid = torch.empty_like(q) if _wants_residual(q, grad) \
+        else q.new_empty((0,))
     pad = _pad_u8(key_padding_mask)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if pad is None else pad.data_ptr(), out.data_ptr(),
-                lse.data_ptr(),
+                lse.data_ptr(), resid.data_ptr() if resid.numel() else None,
                 b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
                            f"{rc}")
     fused_attention.launches += 1
-    return out, lse
+    return out, lse, resid
 
 
-def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
+def attention_bwd(q, k, v, out, dout, lse, resid, key_padding_mask=None):
     """Launches K2 on CUDA tensors: (dq, dk, dv) in q's dtype, from the
-    forward's out and lse (``attention_fwd``)."""
+    forward's out, lse and, in bf16, its residual (``attention_fwd`` with
+    ``grad=True``; float32 reads none)."""
     _check_device([q, k, v, out, dout, lse, key_padding_mask])
     _check(q, k, v, key_padding_mask)
     _check_grad(q, dout)
@@ -183,9 +235,16 @@ def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
     if out.shape != q.shape or out.dtype != q.dtype \
             or lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError("attention_bwd: out/lse do not match q")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (resid is None or resid.shape != q.shape
+                 or resid.dtype != q.dtype or resid.device != q.device
+                 or not resid.is_contiguous()):
+        raise ValueError("attention_bwd: bf16 needs the forward's residual, "
+                         f"{q.dtype} {tuple(q.shape)}, contiguous (run "
+                         "attention_fwd with grad=True)")
     dout = dout.contiguous()
-    _check_aligned([q, k, v, out, dout])
-    fn = _library("attention_bwd", 11, 6)
+    _check_aligned([q, k, v, out, dout] + ([resid] if bf16 else []))
+    fn = _library("attention_bwd", 12, 6)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -194,9 +253,9 @@ def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(),
-                None if pad is None else pad.data_ptr(), dsum.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                resid.data_ptr() if bf16 else None, dout.data_ptr(),
+                lse.data_ptr(), None if pad is None else pad.data_ptr(),
+                dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
@@ -205,46 +264,54 @@ def attention_bwd(q, k, v, out, dout, lse, key_padding_mask=None):
     return dq, dk, dv
 
 
-# K1 as the operator simvg::attention_fwd -> (out, lse), with K2 as its
+# K1 as the operator simvg::attention_fwd -> (out, lse, r), with K2 as its
 # backward: a CPU kernel (the plain versions), a CUDA kernel (the launches)
 # and a fake kernel for tracing.  Every forward goes through it, with or
-# without a gradient, so eager, export and training share one route.
+# without a gradient, so eager, export and training share one route;
+# ``grad`` says whether the residual r is written (bf16 on CUDA only).
 # Registered with torch.library.Library, whose dispatch costs a few
 # microseconds on the host where torch.library.custom_op's Python wrapper
 # costs tens.
 _LIB = torch.library.Library("simvg", "DEF")
 _LIB.define("attention_fwd(Tensor q, Tensor k, Tensor v, "
-            "Tensor? key_padding_mask) -> (Tensor, Tensor)")
+            "Tensor? key_padding_mask, bool grad=False) "
+            "-> (Tensor, Tensor, Tensor)")
 
 
-def _attention_fwd_cpu(q, k, v, key_padding_mask):
+def _attention_fwd_cpu(q, k, v, key_padding_mask, grad=False):
     lse = torch.logsumexp(_logits(q, k, key_padding_mask), dim=-1)
-    return fused_attention_reference(q, k, v, key_padding_mask), lse
+    return (fused_attention_reference(q, k, v, key_padding_mask), lse,
+            q.new_empty((0,)))
 
 
-def _attention_fwd_cuda(q, k, v, key_padding_mask):
-    return attention_fwd(q, k, v, key_padding_mask)
+def _attention_fwd_cuda(q, k, v, key_padding_mask, grad=False):
+    return attention_fwd(q, k, v, key_padding_mask, grad)
 
 
-def _attention_fwd_fake(q, k, v, key_padding_mask):
+def _attention_fwd_fake(q, k, v, key_padding_mask, grad=False):
     b, sq, h, _ = q.shape
-    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+    resid = torch.empty_like(q) \
+        if q.device.type == "cuda" and _wants_residual(q, grad) \
+        else q.new_empty((0,))
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32), resid)
 
 
 def _attention_fwd_setup(ctx, inputs, output):
-    ctx.save_for_backward(*inputs[:3], output[0], output[1], inputs[3])
-    ctx.set_materialize_grads(False)  # no zeros filled for the LSE's gradient
+    ctx.save_for_backward(*inputs[:3], *output, inputs[3])
+    ctx.set_materialize_grads(False)  # no zeros filled for lse's and r's
 
 
-def _attention_fwd_backward(ctx, dout, _dlse):
-    q, k, v, out, lse, key_padding_mask = ctx.saved_tensors
+def _attention_fwd_backward(ctx, dout, _dlse, _dresid):
+    q, k, v, out, lse, resid, key_padding_mask = ctx.saved_tensors
     if q.device.type == "cpu":
         _check_grad(q, dout)
         grads = fused_attention_bwd_reference(q, k, v, dout,
                                               key_padding_mask)
     else:
-        grads = attention_bwd(q, k, v, out, dout, lse, key_padding_mask)
-    return (*grads, None)
+        grads = attention_bwd(q, k, v, out, dout, lse, resid,
+                              key_padding_mask)
+    return (*grads, None, None)
 
 
 _LIB.impl("attention_fwd", _attention_fwd_cpu, "CPU")
@@ -267,7 +334,9 @@ def fused_attention(
     Differentiable in q, k and v; the mask gets no gradient."""
     if q.device.type != "cpu":  # the operator's fake kernel would not raise
         _check_device([q, k, v, key_padding_mask])
-    return torch.ops.simvg.attention_fwd(q, k, v, key_padding_mask)[0]
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return torch.ops.simvg.attention_fwd(q, k, v, key_padding_mask, grad)[0]
 
 
 fused_attention.launches = 0  # K1 launches; chip_smoke.py reads it

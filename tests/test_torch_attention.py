@@ -9,7 +9,10 @@
   backward on CPU tensors) vs ``jax.grad`` through the Pallas kernels in
   interpret mode, and ``fused_attention_bwd_reference`` vs the Pallas
   backward's cotangents;
-- the wrapper's checks, which raise rather than fall back.
+- the wrapper's checks, which raise rather than fall back;
+- the bf16 row term of the card's backward (K1's split-P residual r and
+  D = rowsum(dO (out + r))) vs JAX's rowsum(dP P) and the Pallas backward,
+  and its dq's distance from float64 vs the JAX formula's.
 
 Tolerances: forward 2e-5 (float32); gradients 3e-4 absolute / 1e-3
 relative, the bounds of tests/test_pallas_attention.py.  The CUDA kernels
@@ -27,9 +30,10 @@ import jax.numpy as jnp
 from simvg_tpu.ops.attention import multihead_attention as jax_mha
 from simvg_tpu.ops.pallas_attention import fused_attention as jax_fused
 from simvg_tpu_torch.ops.attention import multihead_attention
+from simvg_tpu.ops.pallas_attention import _probs as jax_probs
 from simvg_tpu_torch.ops.fused_attention import (
-    attention_bwd, fused_attention, fused_attention_bwd_reference,
-    fused_attention_reference)
+    _logits, attention_bwd, attention_residual_reference, attention_row_term,
+    fused_attention, fused_attention_bwd_reference, fused_attention_reference)
 
 
 def _qkv(b, sq, sk, d, seed):
@@ -230,3 +234,87 @@ def test_bwd_reference_matches_pallas_backward(dtype):
         else:
             err = np.abs(t.float().numpy() - g).max()
             assert err <= 2e-2 * np.abs(g).max(), (name, err)
+
+
+def _bf16_case(b, s, h, hd, seed, q_scale=1.0):
+    """bf16 q (pre-scaled, times q_scale), k, v, dO from a numpy seed, and a
+    mask that pads the last 7 keys of the last batch row."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _np_qkv_do(b, s, s, h, hd, seed))
+    q = (q.float() * hd ** -0.5 * q_scale).to(torch.bfloat16)
+    pad = torch.zeros(b, s, dtype=torch.bool)
+    pad[-1, s - 7:] = True
+    return q, k, v, do, pad
+
+
+def test_row_term_matches_jax_rowsum_and_the_pallas_backward():
+    """D = rowsum(dO (out + r)) from K1's split-P residual vs JAX's
+    rowsum(dP P) (pallas_attention.py:93, with the kernel's own _probs) on
+    the same bf16 inputs: within 1e-5 of max |D| (out + r carries P to
+    ~2^-17; the rest is fp32 summation order).  The grads built on it vs
+    the Pallas backward's cotangents in interpret mode, at the bf16 bound
+    of test_bwd_reference_matches_pallas_backward."""
+    b, s, h, hd = 2, 45, 2, 64
+    q, k, v, do, pad = _bf16_case(b, s, h, hd, seed=6)
+    out, resid = attention_residual_reference(q, k, v, pad)
+    assert out.dtype == resid.dtype == torch.bfloat16
+    torch.testing.assert_close(out, fused_attention_reference(q, k, v, pad),
+                               atol=0, rtol=0)
+    d = attention_row_term(out, resid, do)
+
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+    bias = jnp.where(jnp.asarray(pad.numpy()), -1e30, 0.0)
+
+    def rowsum(q, k, v, do, bias):  # one (batch, head): [s, hd] each
+        p = jax_probs(q, k, bias[None])
+        dp = jax.lax.dot_general(do, v, (((1,), (1,)), ((), ())),
+                                 preferred_element_type=jnp.float32)
+        return jnp.sum(dp * p, axis=-1)
+
+    heads = jax.vmap(rowsum, in_axes=(1, 1, 1, 1, None))  # over h
+    d_j = np.asarray(jax.vmap(heads)(jq, jk, jv, jdo, bias))  # [b, h, s]
+    err = np.abs(d.numpy() - d_j).max()
+    assert err <= 1e-5 * np.abs(d_j).max(), err
+
+    _, vjp = jax.vjp(lambda q, k, v: jax_fused(
+        q, k, v, key_padding_mask=jnp.asarray(pad.numpy().astype(np.int32)),
+        interpret=True), jq, jk, jv)
+    grads_t = fused_attention_bwd_reference(q, k, v, do, pad, row_term=d)
+    for name, t, g in zip("qkv", grads_t, vjp(jdo)):
+        g = np.asarray(g.astype(jnp.float32))
+        err = np.abs(t.float().numpy() - g).max()
+        assert err <= 2e-2 * np.abs(g).max(), (name, err)
+
+
+def _rel_l2(x, ref):
+    return ((x.double() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize("q_scale", [1, 8, 32, 64])
+def test_row_term_dq_as_close_to_float64_as_the_jax_formula(q_scale):
+    """dq from the card's row term is no further from float64 than 1.1x
+    the JAX formula's (rowsum(dP P)), from attention with logits scaled up
+    to q_scale x (peaked P).  The bf16 output alone, D = rowsum(dO
+    round(out)), is several times further off there: the witness that the
+    residual carries the row term."""
+    b, s, h, hd = 2, 128, 2, 64
+    q, k, v, do, pad = _bf16_case(b, s, h, hd, seed=7, q_scale=q_scale)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    p = torch.softmax(_logits(q64, k64, pad).double(), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do64, v64)
+    dq64 = torch.einsum("bhqk,bkhd->bqhd",
+                        p * (dp - (dp * p).sum(-1, keepdim=True)), k64)
+
+    out, resid = attention_residual_reference(q, k, v, pad)
+    e_jax = _rel_l2(fused_attention_bwd_reference(q, k, v, do, pad)[0], dq64)
+    e_row = _rel_l2(fused_attention_bwd_reference(
+        q, k, v, do, pad, row_term=attention_row_term(out, resid, do))[0],
+        dq64)
+    assert e_row <= 1.1 * e_jax, (e_row, e_jax)
+    if q_scale >= 8:
+        e_out = _rel_l2(fused_attention_bwd_reference(
+            q, k, v, do, pad,
+            row_term=attention_row_term(out, torch.zeros_like(out), do))[0],
+            dq64)
+        assert e_out > 2 * e_jax, (e_out, e_jax)

@@ -33,8 +33,8 @@ import torch
 from simvg_tpu_torch.tools.make_synth_data import smooth_image, with_exif
 
 from simvg_tpu_torch.ops.fused_attention import (
-    attention_bwd, attention_fwd, fused_attention, fused_attention_bwd_reference,
-    fused_attention_reference)
+    attention_bwd, attention_fwd, attention_residual_reference, fused_attention,
+    fused_attention_bwd_reference, fused_attention_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,9 +98,9 @@ def test_attention_fwd_raises_on_unsupported_head_dim(gen):
 def test_attention_bwd_matches_plain_version(gen, dtype, b, sq, sk, h, hd,
                                              lengths):
     q, k, v, dout, pad = _inputs(gen, dtype, b, sq, sk, h, hd, lengths)
-    out, lse = attention_fwd(q, k, v, pad)
+    out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
     before = attention_bwd.launches
-    grads = attention_bwd(q, k, v, out, dout, lse, pad)
+    grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
     torch.cuda.synchronize()
     assert attention_bwd.launches == before + 1
     _assert_grads_close(grads, fused_attention_bwd_reference(
@@ -139,8 +139,8 @@ CONFIG_SHAPES = [
 def test_attention_at_the_config_shapes(gen, dtype, b, s, h, text):
     lengths = [s - text + 3 + (i * 5) % (text - 2) for i in range(b)]
     q, k, v, dout, pad = _inputs(gen, dtype, b, s, s, h, 64, lengths)
-    out, lse = attention_fwd(q, k, v, pad)
-    grads = attention_bwd(q, k, v, out, dout, lse, pad)
+    out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+    grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
     torch.cuda.synchronize()
     ref = fused_attention_reference(q, k, v, pad)
     atol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -156,8 +156,8 @@ def test_attention_bf16_sharp_logits(gen, b, sq, sk, h, hd, lengths):
     q, k, v, dout, pad = _inputs(gen, torch.bfloat16, b, sq, sk, h, hd,
                                  lengths)
     q = (q.float() * 8).to(torch.bfloat16)
-    out, lse = attention_fwd(q, k, v, pad)
-    grads = attention_bwd(q, k, v, out, dout, lse, pad)
+    out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+    grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
     torch.cuda.synchronize()
     ref = fused_attention_reference(q, k, v, pad)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
@@ -168,9 +168,9 @@ def test_attention_bf16_sharp_logits(gen, b, sq, sk, h, hd, lengths):
 def test_attention_bwd_is_deterministic(gen):
     """Two runs give the same bits: no atomics, no order-dependent sums."""
     q, k, v, dout, pad = _inputs(gen, torch.bfloat16, *CASES[0])
-    out, lse = attention_fwd(q, k, v, pad)
-    first = attention_bwd(q, k, v, out, dout, lse, pad)
-    second = attention_bwd(q, k, v, out, dout, lse, pad)
+    out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+    first = attention_bwd(q, k, v, out, dout, lse, resid, pad)
+    second = attention_bwd(q, k, v, out, dout, lse, resid, pad)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -186,6 +186,52 @@ def test_autograd_function_launches_k1_once_and_k2_once(gen):
     refs = fused_attention_bwd_reference(q, k, v, dout, pad)
     for t, ref in zip(leaves, refs):
         torch.testing.assert_close(t.grad, ref, atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", [CASES[0], CASES[1]])
+def test_attention_fwd_residual_carries_the_unrounded_output(
+        gen, b, sq, sk, h, hd, lengths):
+    """With grad=True, bf16 K1 also writes r: out is the serving route's
+    bit for bit, and out + r is at least 8x closer to the float32 output
+    than out (off by its bf16 rounding), as attention_residual_reference's
+    is."""
+    q, k, v, _, pad = _inputs(gen, torch.bfloat16, b, sq, sk, h, hd,
+                              lengths)
+    out, _, resid = attention_fwd(q, k, v, pad, grad=True)
+    plain_out, _, _ = attention_fwd(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert resid.shape == q.shape and resid.dtype == torch.bfloat16
+    assert torch.equal(out, plain_out)
+    o32 = fused_attention_reference(q.float(), k.float(), v.float(), pad)
+    e_out = (out.float() - o32).abs().max().item()
+    e_sum = (out.float() + resid.float() - o32).abs().max().item()
+    assert 8 * e_sum <= e_out, (e_sum, e_out)
+    ref_out, ref_r = attention_residual_reference(q, k, v, pad)
+    e_ref = (ref_out.float() + ref_r.float() - o32).abs().max().item()
+    assert 8 * e_ref <= e_out, (e_ref, e_out)
+
+
+def test_bf16_autograd_launches_k1_with_the_residual_and_k2(gen):
+    """bf16 through fused_attention with a graph: one K1 launch (with the
+    residual, since a gradient is wanted) and one K2 launch, the gradients
+    within the bf16 bounds of the plain backward."""
+    q, k, v, dout, pad = _inputs(gen, torch.bfloat16, *CASES[0])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fused_attention.launches, attention_bwd.launches)
+    fused_attention(*leaves, pad).backward(dout)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_grads_close([t.grad for t in leaves],
+                        fused_attention_bwd_reference(q, k, v, dout, pad),
+                        torch.bfloat16, pad)
+
+
+def test_attention_bwd_raises_without_the_residual(gen):
+    q, k, v, dout, pad = _inputs(gen, torch.bfloat16, 1, 64, 64, 2, 64, None)
+    out, lse, _ = attention_fwd(q, k, v, pad)
+    with pytest.raises(ValueError, match="residual"):
+        attention_bwd(q, k, v, out, dout, lse, q.new_empty((0,)), pad)
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (427, 640), (120, 160)])
@@ -285,15 +331,17 @@ def test_attention_fwd_at_the_pruned_lengths(gen, dtype, atol, b, s):
 
 def test_attention_op_launches_k1_once_a_call(gen):
     """The operator simvg::attention_fwd, which fused_attention calls,
-    launches K1 once a call and gives its output and row LSE."""
+    launches K1 once a call and gives its output and row LSE; without a
+    gradient it writes no residual."""
     q, k, v, _, pad = _inputs(gen, torch.bfloat16, 2, 321, 321, 12, 64,
                               [321, 304])
     before = fused_attention.launches
     with torch.no_grad():
-        out, lse = torch.ops.simvg.attention_fwd(q, k, v, pad)
+        out, lse, resid = torch.ops.simvg.attention_fwd(q, k, v, pad)
         out2 = fused_attention(q, k, v, pad)
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 2
+    assert resid.numel() == 0
     assert torch.equal(out, out2)
     want_lse = torch.logsumexp(torch.einsum(
         "bqhd,bkhd->bhqk", q.float(), k.float()).masked_fill(

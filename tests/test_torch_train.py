@@ -119,6 +119,22 @@ def test_optimizer_matches_optax_over_5_steps(name):
         np.testing.assert_array_equal(params_t[0].numpy(), init[0])
 
 
+def test_cpu_global_norm_matches_optax_at_full_width():
+    """The clip's norm over 4,194,304 float32 values, 1/2000 of them 300x
+    larger: on the CPU the port's global_norm is within 1e-6 of
+    optax.global_norm (float32 sums over ~1e7 values drift ~1e-3 off)."""
+    import optax
+
+    r = np.random.default_rng(8)
+    x = r.normal(size=4_194_304).astype(np.float32)
+    x[r.choice(x.size, x.size // 2000, replace=False)] *= 300
+    y = r.normal(size=(768, 768)).astype(np.float32)
+    want = float(optax.global_norm([jnp.asarray(x), jnp.asarray(y)]))
+    got = ts.global_norm([torch.from_numpy(x), torch.from_numpy(y)])
+    assert got.dtype == torch.float32
+    assert abs(got.item() - want) <= 1e-6 * want, (got.item(), want)
+
+
 @pytest.mark.parametrize("scheduler_type,scheduler_kw", [
     ("MultiStepLRWarmUp", None),
     ("CosineAnnealingLR", {"T_max": 7, "eta_min": 1e-5}),
