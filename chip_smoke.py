@@ -13,8 +13,12 @@ bf16 takes each kernel's tensor-core route, float32 its CUDA-core route.
 Each K1/K2 row gives the kernel's time beside its plain version's, the
 bound, the achieved TFLOP/s and share of the bound, and PyTorch's SDPA as
 the yardstick: its forward for K1, its backward alone for K2 (and its
-forward plus backward beside K1 + K2).  The "K1 train" row is K1 as a
-train step calls it, writing the residual r of its output beside out and
+forward plus backward beside K1 + K2).  A K1 row's ``ms`` is CUDA events
+around calls through the operator, which reads the host's dispatch where
+that is longer than the kernel; its ``device_ms`` is the kernel's own time
+a call (torch.profiler), ``host_ms`` the host's time a call with no
+synchronise, and ``device_bound_share`` the bound over ``device_ms``.
+The "K1 train" row is K1 as a train step calls it, writing the residual r of its output beside out and
 lse (out + r held to the float32 output); each K2 row runs K2 twice on the
 same inputs and requires the same bits, and gives the device time of its
 three kernels (the row term D, dQ, dK/dV) from torch.profiler.  Then it
@@ -234,6 +238,20 @@ def rates(row, flops):
     return row
 
 
+def host_ms(fn, iters: int) -> float:
+    """The host's time a call of ``fn`` over ``iters`` calls with no
+    synchronise between them: what enqueueing the work costs."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def kernel_split_ms(fn, iters, groups):
     """Device ms a call of each group of kernels, from torch.profiler over
     ``iters`` calls of ``fn``; ``groups`` maps a label to a kernel-name
@@ -278,6 +296,20 @@ def text_padded_qkv(b, s, h, hd, dtype, gen):
     return q, k, v, pad
 
 
+def k1_times(kern, bms):
+    """K1's device ms a call (its kernel alone, torch.profiler), the host's
+    ms a call and the bound over the device ms; call in inference mode.  A
+    profiler window that reports no device events is taken again, up to
+    three times."""
+    dev = None
+    for _ in range(3):
+        dev = kernel_split_ms(kern, 20, {"k1": "attention_fwd"})["k1"]
+        if dev is not None:
+            break
+    return dict(device_ms=dev, host_ms=host_ms(kern, 20),
+                device_bound_share=bms / dev if dev else None)
+
+
 def check_k1(gen, card):
     """K1 vs fused_attention_reference at each shape; returns the rows."""
     import torch
@@ -312,16 +344,18 @@ def check_k1(gen, card):
             p1, k1, k2, p2 = (cuda_ms(fn, 20)
                               for fn in (plain, kern, kern, plain))
             lib_ms = cuda_ms(library, 20)
-        # q, k, v read, out and the fp32 row LSE written, the mask read
-        nbytes = 4 * q.numel() * q.element_size() + 4 * b * h * s \
-            + pad.numel()
-        flops = 4 * b * h * s * s * hd
-        bms, by = bound_ms(nbytes, flops, dname)
+            # q, k, v read, out and the fp32 row LSE written, the mask read
+            nbytes = 4 * q.numel() * q.element_size() + 4 * b * h * s \
+                + pad.numel()
+            flops = 4 * b * h * s * s * hd
+            bms, by = bound_ms(nbytes, flops, dname)
+            times = k1_times(kern, bms)
         row = rates(dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=err,
                          bound=bound, ms=(k1 + k2) / 2,
                          plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by), flops)
-        log(f"K1 {row} (library_ms: SDPA forward) [{card}]")
+                         bound_ms=bms, bound_by=by, **times), flops)
+        log(f"K1 {row} (library_ms: SDPA forward; device_ms: the kernel's "
+            f"device time a call) [{card}]")
         rows.append(row)
     rows.append(check_k1_train(gen, card))
     return rows
@@ -369,24 +403,25 @@ def check_k1_train(gen, card):
     leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         *leaves, attn_mask=keep, scale=1.0)
+    # q, k, v read; out, r, the fp32 row LSE written; the mask read; three
+    # products a key tile (S, round(P) V, round(P - round(P)) V)
+    nbytes = 5 * q.numel() * q.element_size() + 4 * b * h * s + pad.numel()
+    flops = 6 * b * h * s * s * hd
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
     # in inference mode, as the serving rows: without it the operator's
     # autograd dispatch takes longer on the host than the kernel on the card
     with torch.inference_mode():
         for fn in (kern, plain):
             fn()  # warm-up
         p1, k1, k2, p2 = (cuda_ms(fn, 20) for fn in (plain, kern, kern, plain))
+        times = k1_times(kern, bms)
     library()
     lib_ms = cuda_ms(library, 20)
-    # q, k, v read; out, r, the fp32 row LSE written; the mask read; three
-    # products a key tile (S, round(P) V, round(P - round(P)) V)
-    nbytes = 5 * q.numel() * q.element_size() + 4 * b * h * s + pad.numel()
-    flops = 6 * b * h * s * s * hd
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
     row = rates(dict(shape=[b, s, h, hd], dtype="bfloat16", route_use="train",
                      max_abs_err=err, bound=2e-2, out_err_fp32=e_out,
                      out_plus_r_err_fp32=e_sum, ms=(k1 + k2) / 2,
                      plain_ms=(p1 + p2) / 2, library_ms=lib_ms, bound_ms=bms,
-                     bound_by=by), flops)
+                     bound_by=by, **times), flops)
     log(f"K1 train {row} (with the residual r; plain: "
         f"attention_residual_reference; library_ms: SDPA forward with a "
         f"graph) [{card}]")
@@ -460,6 +495,8 @@ def check_k2(gen, card):
         fwd_ms = cuda_ms(fwd, 10)
         split = kernel_split_ms(kern, 10, {"d_ms": "dsum_kernel",
                                            "dq_ms": "dq_", "dkdv_ms": "dkdv_"})
+        split["device_ms"] = sum(split.values()) \
+            if None not in split.values() else None
         # read q, k, v, out, dO, lse and the mask; write dq, dk, dv (the
         # bf16 route also reads the residual r: the design's cost, not
         # counted)
@@ -477,7 +514,7 @@ def check_k2(gen, card):
         log(f"K2 {row} (library_ms: SDPA backward alone; library_fwd_bwd_ms: "
             f"SDPA forward + backward, beside k1_plus_k2_ms (K1 with the "
             f"residual); d_ms, dq_ms, dkdv_ms: the three kernels' device "
-            f"time a call, torch.profiler) [{card}]")
+            f"time a call, torch.profiler; device_ms their sum) [{card}]")
         rows.append(row)
     return rows
 
@@ -3643,8 +3680,10 @@ def main() -> int:
 
     # every number on this line is measured in this run, at the train
     # step's shape (batch 32, S=421, bf16; the first row of each check);
-    # the other shapes are on the "K1" / "K2" lines above.  launches: the
-    # serve and train paths' counts, each taken from 0 just before its path
+    # the other shapes are on the "K1" / "K2" lines above.  device_ms: the
+    # kernels' own device time a call (torch.profiler), beside ms.
+    # launches: the serve and train paths' counts, each taken from 0 just
+    # before its path
     def entry(name, replaces, rows, launches):
         main_row = rows[0]
         errs = [r["max_abs_err"] for r in rows]
@@ -3656,7 +3695,8 @@ def main() -> int:
                 "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"],
                 "bound_by": main_row["bound_by"],
-                "library_ms": main_row["library_ms"]}
+                "library_ms": main_row["library_ms"],
+                "device_ms": main_row["device_ms"]}
 
     print(json.dumps({"kernels": [
         entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",

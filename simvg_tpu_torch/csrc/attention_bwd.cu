@@ -454,13 +454,6 @@ dsum_kernel(const bf16* __restrict__ out, const bf16* __restrict__ resid,
   }
 }
 
-// The dynamic shared memory rounded up to the 1024 bytes that the 128-byte
-// swizzle wants; the launch asks for 1024 more than the layout needs.
-__device__ __forceinline__ char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return reinterpret_cast<char*>(raw) + (((a + 1023) & ~1023u) - a);
-}
-
 // (b) dQ_i for one 64-query tile of one head.  Shared memory: Q_i, dO_i, and
 // kStages stages of K_j, V_j; the barriers after them.
 constexpr int kDqBytes = (2 + 2 * kStages) * kTileBytes;

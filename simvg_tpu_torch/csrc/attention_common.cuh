@@ -4,10 +4,10 @@
 // tensor-core routes.  On the fp32 route both kernels compute the logits of a
 // (64-query, 64-key) tile with the same thread layout and the same summation
 // order, so the backward recomputes bit for bit the logits whose row statistics
-// the forward stored.  On the tensor-core (bf16) route (attention_mma.cuh,
-// attention_sm90.cuh) the forward and the backward use other products, and the
-// dK/dV kernel the transposed K Q^T, so the backward's logits equal the
-// forward's up to fp32 rounding only; the error bounds are the same.
+// the forward stored.  On the tensor-core (bf16) route (attention_sm90.cuh)
+// the forward and the backward use other products, and the dK/dV kernel the
+// transposed K Q^T, so the backward's logits equal the forward's up to fp32
+// rounding only; the error bounds are the same.
 
 #pragma once
 

@@ -17,23 +17,35 @@
 // why).  out itself is the same with or without r.
 //
 // Layout: q [B, Sq, H, HD], k/v [B, Sk, H, HD], out like q, all contiguous;
-// the kernel reads the heads in place, with no transpose to [B*H, S, HD].
-// The ragged ends of Sq and Sk are masked here, so nothing is padded outside.
+// the kernels read the heads in place, with no transpose to [B*H, S, HD].
+// Nothing is padded outside: the ragged ends of Sq and Sk are masked here.
 //
 // Design.  The TPU kernel keeps one head's whole K/V in VMEM and takes a
 // one-shot softmax.  At S = 1621 in bf16 that is ~415 KB, above the 227 KB of
-// shared memory an H100 block may use, so this kernel streams K/V instead:
-// one block per (64-query tile, head, batch) holds its Q tile in shared
-// memory and walks the keys in 64-key tiles with an online softmax
-// (FlashAttention-2 style: running row max m and row sum l in fp32, the
-// accumulator rescaled by exp(m_old - m_new) when the max grows).
+// shared memory an H100 block may use, so these kernels stream K/V instead:
+// a block holds its query tiles in shared memory and walks the keys in
+// 64-key tiles with an online softmax (FlashAttention style: running row max
+// m and row sum l in fp32, the sums rescaled by exp(m_old - m_new) when the
+// max grows).
 //
 // Two routes, chosen by dtype in the C entry point:
-//   bf16  attention_fwd_mma_kernel: the tensor cores.  4 warps of 16 query
-//         rows; S = Q K^T and O += round(P) V are mma.sync m16n8k16 products
-//         on bf16 fragments with fp32 sums, K/V tiles arrive through a
-//         2-stage cp.async ring, and P goes from the S accumulators to the A
-//         operand of P V in registers (attention_mma.cuh).
+//   bf16  hopper::attention_fwd_wgmma_kernel, warp-specialised on Hopper's
+//         TMA and wgmma (attention_sm90.cuh).  One block per (64-query tile,
+//         head, batch): a producer warp loads the Q tile once and streams K_j,
+//         V_j and the tile's key caps (+inf, -1e30 for a padded key, -inf past
+//         Sk: the mask is read once per block, off the consumers' path)
+//         through a ring of 4 stages (3 with the residual) under full/empty
+//         mbarriers.  TMA reads 64-row
+//         boxes of [B, S, H, 64] in place, zero-fills rows past S and clips
+//         them on the store, so nothing is masked on a load or a store.  One
+//         consumer warpgroup runs S = Q K^T and O += round(P) V as wgmma
+//         m64n64k16, P going from the S accumulator to the A operand in
+//         registers.  Serving issues S_j with the product of tile j - 1, so
+//         that the softmax of S_j overlaps O += P_{j-1} V_{j-1} on the tensor
+//         cores.  The residual variant (a third product O_lo += round(P -
+//         round(P)) V) takes the tiles in turn instead: without S_j beside O,
+//         O_lo and both A operands it fits three blocks an SM.  out (and r)
+//         leave through the freed Q tile and a TMA store.
 //   fp32  attention_fwd_kernel: the CUDA cores in fp32 FMAs (16x16 threads, a
 //         4x4 register tile each), the parity route: tensor cores would take
 //         fp32 operands only as TF32, which keeps ~3 decimal digits.
@@ -41,15 +53,18 @@
 // What bounds it.  At the flagship's S = 421, HD = 64 one layer's attention
 // is 4*B*H*S^2*HD = 17.4 GFLOP at B = 32 over ~83 MB of q/k/v/out in bf16:
 // 0.018 ms of tensor-core work at 989 TFLOP/s against 0.025 ms of memory
-// traffic at 3.35 TB/s, so the card's bound is the bytes.  What bounds this
-// mma.sync design is instruction throughput: each warp reloads the K/V
-// fragments of every tile from shared memory (ldmatrix), and the softmax's
-// exp and max run on the CUDA cores between the two products.  Warpgroup
-// wgmma with TMA-fed tiles is the next step (the backward, attention_bwd.cu,
-// has taken it).  With the residual the kernel does a third product a key
-// tile, O_lo += round(P - round(P)) V, and writes a fifth [B, S, H, HD]
-// tensor; without a gradient it does neither.  The encoder's parameter
-// matmuls, not this core, take ~92% of a layer's FLOPs at S = 421.
+// traffic at 3.35 TB/s, so the card's bound is the bytes.  A 64 x 64 tile
+// pair is ~256 cycles of tensor-core work on an SM and about as many issue
+// slots of softmax (mask, max, exp2, sum, the bf16 packing, the rescale), and
+// a short row of key tiles (7 at S = 421) leaves each block little to hide
+// its first loads behind.  So the design keeps three blocks on an SM (114
+// registers a thread serving, 128 with the residual; 74 and 58 KB of shared
+// memory a block), whose products, softmaxes and loads interleave; the previous design (mma.sync with a cp.async ring, every
+// warp reloading K/V fragments through ldmatrix) was bound by those
+// instructions.  Two consumer warpgroups a block sharing one K/V ring, with
+// or without taking turns on the tensor cores, and register reallocation
+// (setmaxnreg) were measured and dropped (PERF.md §6).  The encoder's
+// parameter matmuls, not this core, take ~92% of a layer's FLOPs at S = 421.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
@@ -57,7 +72,7 @@
 #include <math.h>
 
 #include "attention_common.cuh"
-#include "attention_mma.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -213,122 +228,233 @@ int launch(const void* q, const void* k, const void* v, const void* pad, void* o
   return (int)cudaGetLastError();
 }
 
-// The bf16 forward on the tensor cores (FlashAttention-2 on mma.sync).  One
-// block of 4 warps per (64-query tile, head, batch); warp w owns query rows
-// [16 w, 16 w + 16).  The Q tile stays in shared memory; K and V tiles of 64
-// keys stream through a 2-stage cp.async ring, the next tile in flight while
-// the current one is used.  Per key tile a warp computes S = Q K^T (32 mma),
-// takes the online softmax in registers (row max and sum across the 4 lanes
-// of a quad; every lane keeps a partial row sum), rounds P to bf16 in
-// registers as the A operand of O += P V (32 mma, V through ldmatrix.trans),
-// and never writes P to shared memory.  Logits, softmax and sums are fp32
-// (exp through the hardware's exp2, attention_common.cuh); the roundings are
-// the CUDA-core kernel's: P before P V, O at the store.  kResid adds the
-// low part's product into o_lo and writes the residual r of the output.
+// ---- bf16 on Hopper: TMA and wgmma ----------------------------------------
+
+namespace hopper {
+
+using namespace simvg::sm90;
+
+constexpr int kThreads = kWarpgroup + 32;  // one consumer warpgroup + the producer warp
+// Blocks an SM that __launch_bounds__ sets the registers for (at most 128 a
+// thread; 2 blocks measured slower, 4 blocks spill).
+constexpr int kMinBlocks = 3;
+// K/V tiles in the ring: 4 serving (2 and 3 measured slower); 3 with the
+// residual, whose 128 registers spill with 4.
 template <bool kResid>
-__global__ void __launch_bounds__(kMmaThreads)
-attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ pad,
-                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                         __nv_bfloat16* __restrict__ resid, int sq, int sk, int heads) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTileElems];
+constexpr int kRing = kResid ? 3 : 4;
 
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kMmaRows;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+// Shared memory: the Q tile, the K and V stages, their key caps, the barriers.
+template <int kStages>
+struct Layout {
+  static constexpr int kTiles = (1 + 2 * kStages) * kTileBytes;
+  static constexpr int kBytes = kTiles + kStages * kRows * 4;
+  static constexpr size_t kSmem = kBytes + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  const long long row = (long long)heads * kMmaHd;  // elements between tokens
-  const __nv_bfloat16* q_b = q + (long long)b * sq * row + (long long)head * kMmaHd;
-  const __nv_bfloat16* k_b = k + (long long)b * sk * row + (long long)head * kMmaHd;
-  const __nv_bfloat16* v_b = v + (long long)b * sk * row + (long long)head * kMmaHd;
-  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
-
-  load_tile_async(q_s, q_b, row, q0, sq, tid);
-  load_tile_async(k_s[0], k_b, row, 0, sk, tid);
-  load_tile_async(v_s[0], v_b, row, 0, sk, tid);
-  cp_async_commit();
-
-  // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile, g = lane / 4
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[8][4], o_lo[8][4];
+// The online softmax of one 64 x 64 score tile, in place: caps the scores
+// with the tile's key caps (+inf keeps a score, -1e30 is a padded key, -inf a
+// key past Sk), raises the running row max m, turns s into P = exp(s - m_new),
+// folds the tile's sum into this lane's part of l, and gives the factor
+// alpha = exp(m_old - m_new) (0 on the first tile) by which the output sums
+// are rescaled.  Every tile starts with an in-range key, so each row's max is
+// finite and no exp sees inf - inf.
+__device__ __forceinline__ void online_softmax(float (&s)[32], const float* cap, int t,
+                                               float (&m)[2], float (&l)[2], float (&alpha)[2]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 8; ++n) {
+    const float2 c = *reinterpret_cast<const float2*>(cap + 8 * n + 2 * t);
+    s[4 * n] = fminf(s[4 * n], c.x);
+    s[4 * n + 1] = fminf(s[4 * n + 1], c.y);
+    s[4 * n + 2] = fminf(s[4 * n + 2], c.x);
+    s[4 * n + 3] = fminf(s[4 * n + 3], c.y);
+  }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = o_lo[n][e] = 0.f;
-
-  const int n_tiles = (sk + kMmaRows - 1) / kMmaRows;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {  // the stage read in iteration j - 1; all reads are done
-      load_tile_async(k_s[st ^ 1], k_b, row, (j + 1) * kMmaRows, sk, tid);
-      load_tile_async(v_s[st ^ 1], v_b, row, (j + 1) * kMmaRows, sk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j (and Q) have landed
-    __syncthreads();
-
-    float s[8][4];
-    tile_product_nk(s, q_s, r0, k_s[st], lane);
-
-    // Keys past Sk are left out (-inf); padded keys get the TPU kernel's
-    // -1e30.  Every tile starts with an in-range key, so each row's tile
-    // max is finite and exp() below never sees inf - inf.
-    const int k0 = j * kMmaRows;
+  for (int h = 0; h < 2; ++h) {
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      tile_max = fmaxf(tile_max, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+    const float m_new = fmaxf(m[h], tile_max);
+    const float m2 = exp_arg(m_new);
+    alpha[h] = exp_sub(m[h], m2);
+    float tile_sum = 0.f;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int key = k0 + n * 8 + 2 * t + c;
-        if (key >= sk) {
-          s[n][c] = s[n][c + 2] = -INFINITY;
-        } else if (pad_b != nullptr && pad_b[key] != 0) {
-          s[n][c] = s[n][c + 2] = kPadLogit;
-        }
+        const float p = exp_sub(s[4 * n + 2 * h + c], m2);
+        s[4 * n + 2 * h + c] = p;
+        tile_sum += p;
       }
+    l[h] = l[h] * alpha[h] + tile_sum;
+    m[h] = m_new;
+  }
+}
 
+// round(P) as the A operand of O += P V.
+__device__ __forceinline__ void probs_hi(uint32_t (&a)[4][4], const float (&p)[32]) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        tile_max = fmaxf(tile_max, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      const float m_new = fmaxf(m[h], tile_max);
-      const float m2 = exp_arg(m_new);
-      const float alpha = exp_sub(m[h], m2);  // 0 on the first tile
-      float tile_sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float p = exp_sub(s[n][2 * h + c], m2);
-          s[n][2 * h + c] = p;
-          tile_sum += p;
-          o[n][2 * h + c] *= alpha;
-          if (kResid) o_lo[n][2 * h + c] *= alpha;
-        }
-      l[h] = l[h] * alpha + tile_sum;  // this lane's part of the row sum
-      m[h] = m_new;
-    }
+  for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], p, kk);
+}
 
-    tile_product_kn(o, s, v_s[st], lane);  // O += round(P) V
-    if (kResid) {
-      // the low part P - round(P), exact in fp32; the product rounds it
-      float lo[8][4];
+// round(P - round(P)) as the A operand of O_lo += P_lo V (the difference is
+// exact in fp32); P is overwritten by it.
+__device__ __forceinline__ void probs_lo(uint32_t (&a)[4][4], float (&p)[32]) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+  for (int i = 0; i < 32; ++i) p[i] -= __bfloat162float(__float2bfloat16_rn(p[i]));
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          lo[n][e] = s[n][e] - __bfloat162float(__float2bfloat16_rn(s[n][e]));
-      tile_product_kn(o_lo, lo, v_s[st], lane);  // O_lo += round(P - round(P)) V
+  for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], p, kk);
+}
+
+// sums *= alpha, row by row (index 0: row g, 1: row g + 8).
+__device__ __forceinline__ void rescale(float (&d)[32], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] *= alpha[(i >> 1) & 1];
+}
+
+// One block per (64-query tile, head, batch): warps 0-3 are the consumer
+// warpgroup, warp 4 the producer.
+template <bool kResid>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_out,
+                           const __grid_constant__ CUtensorMap tm_r,
+                           const uint8_t* __restrict__ pad, float* __restrict__ lse, int sq,
+                           int sk, int heads) {
+  constexpr int kStages = kRing<kResid>;
+  using L = Layout<kStages>;
+  extern __shared__ unsigned char smem_raw[];
+  char* smem = aligned_smem(smem_raw);
+  char* q_s = smem;
+  char* k_s = q_s + kTileBytes;            // [kStages][kTileBytes]
+  char* v_s = k_s + kStages * kTileBytes;  // [kStages][kTileBytes]
+  float* cap_s = reinterpret_cast<float*>(smem + L::kTiles);  // [kStages][kRows]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBytes);
+  uint64_t* q_bar = bars;                  // the Q tile has landed
+  uint64_t* full = bars + 1;               // stage s has landed
+  uint64_t* empty = bars + 1 + kStages;    // stage s is free
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (sk + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer's 32 lanes; lane 0's brings the bytes
+      mbar_init(&empty[s], kWarpgroup);
     }
-    __syncthreads();  // every warp is done with stage st before it is refilled
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer warp: Q once, then K_j, V_j and the caps of tile j ----
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, kTileBytes);
+      tma_load_tile(q_s, &tm_q, q_bar, head, q0, b);
+    }
+    const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+      for (int c = lane; c < kRows; c += 32) {
+        const int key = j * kRows + c;
+        cap_s[st * kRows + c] = key >= sk                          ? -INFINITY
+                                : pad_b != nullptr && pad_b[key] ? kPadLogit
+                                                                 : INFINITY;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load_tile(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
+        tma_load_tile(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: rows 16 warp + g (index 0) and + 8 (index 1) ----
+  const int g = lane >> 2, t = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float s[32], o[32], o_lo[32];
+  uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = o_lo[i] = 0.f;
+
+  mbar_wait(q_bar, 0);
+  if constexpr (!kResid) {
+    // Serving: S_0 alone, then S_j with O += P_{j-1} V_{j-1}, so that the
+    // softmax of S_j runs while the second product is on the tensor cores;
+    // last, O += P V alone
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    product_nt(s, q_s, k_s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    online_softmax(s, cap_s, t, m, l, alpha);
+    probs_hi(a_hi, s);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(&full[st], (j / kStages) & 1);
+      wgmma_fence();
+      product_nt(s, q_s, k_s + st * kTileBytes);    // S_j = Q K_j^T
+      wgmma_commit();
+      product_an(o, a_hi, v_s + prev * kTileBytes);  // O += round(P_{j-1}) V_{j-1}
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(s);
+      online_softmax(s, cap_s + st * kRows, t, m, l, alpha);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_a(a_hi);
+      mbar_arrive(&empty[prev]);
+      rescale(o, alpha);
+      probs_hi(a_hi, s);
+    }
+    wgmma_fence();
+    product_an(o, a_hi, v_s + ((n_tiles - 1) % kStages) * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+  } else {
+    // With the residual, each tile in turn (S_j beside O, O_lo and both A
+    // operands would not fit 128 registers): S_j, its softmax, O = O alpha +
+    // round(P_j) V_j (the operations on O of the serving order, in the same
+    // order, so out has the same bits), and O_lo = O_lo alpha + P_lo V_j,
+    // whose A operand is formed while the first product runs
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      const char* v_t = v_s + st * kTileBytes;
+      mbar_wait(&full[st], (j / kStages) & 1);
+      wgmma_fence();
+      product_nt(s, q_s, k_s + st * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      online_softmax(s, cap_s + st * kRows, t, m, l, alpha);
+      rescale(o, alpha);
+      probs_hi(a_hi, s);
+      wgmma_fence();
+      product_an(o, a_hi, v_t);
+      rescale(o_lo, alpha);
+      probs_lo(a_lo, s);
+      wgmma_fence();
+      product_an(o_lo, a_lo, v_t);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_acc(o_lo);
+      fence_a(a_hi);
+      fence_a(a_lo);
+      mbar_arrive(&empty[st]);
+    }
   }
 
 #pragma unroll
@@ -336,45 +462,67 @@ attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  // q_s rows [r0, r0 + 16) were read by this warp alone
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  const long long at = (long long)b * sq * row + (long long)head * kMmaHd;
-  store_rows(o, inv[0], inv[1], q_s, r0, out + at, row, q0, sq, lane);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = o[i] * inv[(i >> 1) & 1];
+    // r = (O + O_lo) / l - round(O / l), the out stored below
+    if (kResid)
+      o_lo[i] = (o[i] + o_lo[i]) * inv[(i >> 1) & 1] - __bfloat162float(__float2bfloat16_rn(x));
+    o[i] = x;
+  }
+
+  // The Q tile is free once every consumer is past its last product; out
+  // (then r) goes through it to a TMA store, which drops rows past Sq.
+  named_barrier(1, kWarpgroup);
+  acc_to_tile(q_s, o, warp, lane);
+  fence_proxy_async();
+  named_barrier(1, kWarpgroup);
+  if (tid == 0) {
+    tma_store_tile(&tm_out, q_s, head, q0, b);
+    tma_store_commit_and_wait();
+  }
   if (kResid) {
-    // r = (O_hi + O_lo) / l - round(O_hi / l), the same out as stored above
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = o[n][e] * inv[e >> 1];
-        o_lo[n][e] = (o[n][e] + o_lo[n][e]) * inv[e >> 1] -
-                     __bfloat162float(__float2bfloat16_rn(x));
-      }
-    __syncwarp();  // every lane has copied its out rows out of the staging tile
-    store_rows(o_lo, 1.f, 1.f, q_s, r0, resid + at, row, q0, sq, lane);
+    named_barrier(1, kWarpgroup);  // the store has read the tile
+    acc_to_tile(q_s, o_lo, warp, lane);
+    fence_proxy_async();
+    named_barrier(1, kWarpgroup);
+    if (tid == 0) {
+      tma_store_tile(&tm_r, q_s, head, q0, b);
+      tma_store_commit_and_wait();
+    }
   }
   if (lse != nullptr && t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int s = q0 + r0 + (lane >> 2) + 8 * h;
-      if (s < sq) lse[((long long)b * heads + head) * sq + s] = m[h] + logf(l[h]);
+      const int row = q0 + 16 * warp + g + 8 * h;
+      if (row < sq) lse[((long long)b * heads + head) * sq + row] = m[h] + logf(l[h]);
     }
   }
 }
 
-int launch_mma(const void* q, const void* k, const void* v, const void* pad, void* out,
-               void* lse, void* resid, int batch, int sq, int sk, int heads,
-               cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const dim3 grid((sq + kMmaRows - 1) / kMmaRows, heads, batch);
-  auto kernel = resid != nullptr ? attention_fwd_mma_kernel<true>
-                                 : attention_fwd_mma_kernel<false>;
-  kernel<<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), static_cast<float*>(lse),
-      static_cast<bf16*>(resid), sq, sk, heads);
+template <bool kResid>
+int launch(const void* q, const void* k, const void* v, const void* pad, void* out, void* lse,
+           void* resid, int batch, int sq, int sk, int heads, cudaStream_t stream) {
+  constexpr size_t smem = Layout<kRing<kResid>>::kSmem;
+  CUtensorMap tm_q, tm_k, tm_v, tm_out, tm_r;
+  if (!(make_tile_map(&tm_q, q, batch, sq, heads) && make_tile_map(&tm_k, k, batch, sk, heads) &&
+        make_tile_map(&tm_v, v, batch, sk, heads) &&
+        make_tile_map(&tm_out, out, batch, sq, heads) &&
+        (!kResid || make_tile_map(&tm_r, resid, batch, sq, heads))))
+    return (int)cudaErrorNotSupported;
+  if (!kResid) tm_r = tm_out;  // not read
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_wgmma_kernel<kResid>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
+  attention_fwd_wgmma_kernel<kResid><<<grid, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_out, tm_r, static_cast<const uint8_t*>(pad),
+      static_cast<float*>(lse), sq, sk, heads);
   return (int)cudaGetLastError();
 }
+
+}  // namespace hopper
 
 }  // namespace
 
@@ -382,7 +530,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* pad, voi
 // (float32 [B, H, Sq]) may be null (not written); resid ([B, Sq, H, HD] in
 // bf16, the output's residual for the backward) may be null (not written), and
 // must be null in float32.
-// Returns the CUDA error code of the launch (0 on success).
+// Returns the CUDA error code of the launch (0 on success); in bf16,
+// cudaErrorNotSupported when cuTensorMapEncodeTiled cannot be reached.
 extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* pad, void* out, void* lse, void* resid,
                                    int batch, int sq, int sk, int heads, int head_dim,
@@ -394,10 +543,12 @@ extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64 && resid == nullptr)
     return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
   if (dtype == 1 && head_dim == 64) {
-    // 16-byte cp.async loads and stores
+    // TMA boxes start on 16-byte boundaries
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid) & 15)
       return (int)cudaErrorMisalignedAddress;
-    return launch_mma(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
+    return resid != nullptr
+               ? hopper::launch<true>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s)
+               : hopper::launch<false>(q, k, v, pad, out, lse, nullptr, batch, sq, sk, heads, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
-// Hopper building blocks of the bf16 attention backward (attention_bwd.cu):
-// TMA tile loads and stores through tensor maps, mbarriers, and the
-// warpgroup product wgmma.mma_async m64n64k16 (bf16 operands, fp32 sums),
-// its shared-memory descriptors and the register layout of its fragments.
+// Hopper building blocks of the bf16 attention kernels (attention_fwd.cu,
+// attention_bwd.cu): TMA tile loads and stores through tensor maps,
+// mbarriers, and the warpgroup product wgmma.mma_async m64n64k16 (bf16
+// operands, fp32 sums), its shared-memory descriptors and the register layout
+// of its fragments.
 //
 // Tiles.  A tile is 64 rows of one head of a [B, S, H, 64] bf16 tensor, read
 // in place by a 4-D tensor map (dims hd, H, S, B innermost first; a box of
@@ -14,9 +15,10 @@
 // head dim as the reduction dim (Q, K, V, dO in S = Q K^T, dP = dO V^T) is
 // K-major: 8-row groups 1024 bytes apart (SBO), the k16 slice kk starting
 // 32 kk bytes into the row.  A tile read with the rows as the reduction dim
-// (K in dQ = dS K; Q and dO in dK, dV) is MN-major: its 64 columns are one
-// 128-byte swizzle atom, 8-row groups 1024 bytes apart (SBO), the k16 slice
-// kk starting 2048 kk bytes in; the instruction's transpose bit set.
+// (V in O = P V; K in dQ = dS K; Q and dO in dK, dV) is MN-major: its 64
+// columns are one 128-byte swizzle atom, 8-row groups 1024 bytes apart (SBO),
+// the k16 slice kk starting 2048 kk bytes in; the instruction's transpose
+// bit set.
 //
 // Fragments of a warpgroup (4 warps, warp w on rows [16 w, 16 w + 16)),
 // lane = 4 g + t: the accumulator of m64n64 holds 32 floats a thread,
@@ -162,6 +164,13 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// The dynamic shared memory rounded up to the 1024 bytes that the 128-byte
+// swizzle wants; a launch asks for 1024 more than its layout needs.
+__device__ __forceinline__ char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return reinterpret_cast<char*>(raw) + (((a + 1023) & ~1023u) - a);
+}
+
 // ---- device: wgmma -------------------------------------------------------
 
 // A descriptor of a 128-byte-swizzled tile starting at `p` (1024-byte
@@ -276,18 +285,36 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32],
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// acc += round(p) B over the 64 rows of B: p an accumulator (rows x 64
-// columns) and B a tile whose rows are the reduction dim (MN-major).  The A
-// operands are written before the fence that orders them for wgmma.
-__device__ __forceinline__ void product_pn(float (&acc)[32], const float (&p)[32],
+// acc += A B over the 64 rows of B: A the four k16 slices of a 64 x 64
+// operand in registers (acc_to_a), B a tile whose rows are the reduction dim
+// (MN-major).  The caller fences after writing A or acc (wgmma_fence).
+__device__ __forceinline__ void product_an(float (&acc)[32], const uint32_t (&a)[kRows / 16][4],
                                            const void* b_tile) {
   const char* b = static_cast<const char*>(b_tile);
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) wgmma_rs_t(acc, a[kk], desc_sw128(b + 2048 * kk));
+}
+
+// acc += round(p) B: p an accumulator (rows x 64 columns) rounded to bf16 as
+// the A operand of product_an.  The A operands are written before the fence
+// that orders them for wgmma.
+__device__ __forceinline__ void product_pn(float (&acc)[32], const float (&p)[32],
+                                           const void* b_tile) {
   uint32_t a[kRows / 16][4];
 #pragma unroll
   for (int kk = 0; kk < kRows / 16; ++kk) acc_to_a(a[kk], p, kk);
   wgmma_fence();
+  product_an(acc, a, b_tile);
+}
+
+// Register A operands may be rewritten only after the wgmma_wait of the
+// products that read them; this keeps the compiler from moving the writes
+// across it.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[kRows / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk) wgmma_rs_t(acc, a[kk], desc_sw128(b + 2048 * kk));
+  for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
 // Writes an accumulator, rounded to bf16, into a 128-byte-swizzled

@@ -11,9 +11,8 @@ TPU kernel's sequential dK/dV accumulation with two kernels and no atomics.
 
 Each kernel has two routes, chosen by dtype inside its C entry point:
 float32 runs on the CUDA cores in fp32 FMAs, the parity route; bf16 on the
-tensor cores: K1 as ``mma.sync`` on bf16 fragments fed by ``cp.async``
-(``csrc/attention_mma.cuh``), K2 as Hopper's ``wgmma`` on tiles that TMA
-brings in (``csrc/attention_sm90.cuh``).
+tensor cores, both kernels as Hopper's ``wgmma`` on tiles that TMA brings
+in, a producer warp feeding consumer warpgroups (``csrc/attention_sm90.cuh``).
 
 ``fused_attention`` is the entry point.  It calls K1 as the operator
 ``torch.ops.simvg.attention_fwd`` (``torch.library``), which returns the
@@ -185,8 +184,12 @@ def _check_device(tensors):
 
 
 def _pad_u8(key_padding_mask):
+    """The mask as the kernels read it, uint8 [B, Sk]: a bool mask is viewed
+    as its bytes (no cast kernel on each call), any other dtype cast."""
     if key_padding_mask is None:
         return None
+    if key_padding_mask.dtype == torch.bool:
+        return key_padding_mask.contiguous().view(torch.uint8)
     return key_padding_mask.to(torch.uint8).contiguous()
 
 

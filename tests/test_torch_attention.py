@@ -145,6 +145,26 @@ def test_fused_attention_checks_reject_what_the_kernel_does_not_take(case):
         _check(q, k, v, mask)
 
 
+@pytest.mark.parametrize("case", ["bool", "bool_strided", "int64"])
+def test_kernel_mask_views_a_bool_mask_without_a_cast(case):
+    """The mask the kernels read, uint8 [B, Sk]: a contiguous bool mask (the
+    model's) is viewed as its bytes and shares its storage, so a call
+    launches no cast kernel; any other mask is cast to the same values."""
+    from simvg_tpu_torch.ops.fused_attention import _pad_u8
+
+    mask = torch.from_numpy(_pad(3, 10, [10, 4, 1])).to(torch.bool)
+    if case == "bool_strided":
+        mask = torch.cat([mask, ~mask], dim=1)[:, ::2]
+    elif case == "int64":
+        mask = mask.long()
+    u8 = _pad_u8(mask)
+    assert u8.dtype == torch.uint8 and u8.is_contiguous()
+    assert torch.equal(u8, mask.to(torch.uint8))
+    shares = u8.untyped_storage().data_ptr() == \
+        mask.untyped_storage().data_ptr()
+    assert shares == (case == "bool")
+
+
 def test_reference_matches_plain_attention_in_bf16():
     """The plain version rounds P to v's dtype before P.V, as the kernel
     does; in bf16 it stays within bf16 resolution of the float32 result."""

@@ -16,7 +16,12 @@ The attention cases reach what chip_smoke.py's flagship shapes do not: Sq != Sk,
 fewer keys than one tile, a row with one live key, S = 100 (not a
 multiple of the 16-row mma fragments), S = 64 (exactly one tile), the
 train step's shape, and logits scaled x8 so that later key tiles raise the
-row max and the bf16 forward's online softmax rescales its sums.  Forward bounds:
+row max and the bf16 forward's online softmax rescales its sums.  The bf16
+forward's ragged ends, where TMA zero-fills the rows past Sq and Sk on a
+load and clips them on a store, are held at every pair of Sq, Sk in
+{1, 63, 65, 421}, with K2 on its outputs; a batch row whose keys are all
+padded but the first must give exactly that key's value row; two calls
+give the same bits, and out is the same with the residual and without.  Forward bounds:
 float32 2e-5 (tests/test_pallas_attention.py); bf16 2e-2, one bf16 step
 for |out| < 4, since the kernel rounds P before normalising and the plain
 version after.  Backward (K2) bounds: float32 3e-4 absolute / 1e-3
@@ -232,6 +237,68 @@ def test_attention_bwd_raises_without_the_residual(gen):
     out, lse, _ = attention_fwd(q, k, v, pad)
     with pytest.raises(ValueError, match="residual"):
         attention_bwd(q, k, v, out, dout, lse, q.new_empty((0,)), pad)
+
+
+RAGGED = [1, 63, 65, 421]
+
+
+@pytest.mark.parametrize("sq", RAGGED)
+@pytest.mark.parametrize("sk", RAGGED)
+def test_attention_fwd_bf16_ragged_ends(gen, sq, sk):
+    """bf16 K1 with and without the residual at ragged Sq and Sk: out
+    within the bf16 bound of the plain version and the same bits in both
+    variants, out + r closer to float32 than out, and K2's gradients from
+    its lse and r within their bounds.  At Sk = 1 (P = 1) the exact dq and
+    dk are 0, which no bound relative to their max can hold K2's row term
+    to, so K2 is held there by dv alone."""
+    q, k, v, dout, pad = _inputs(gen, torch.bfloat16, 2, sq, sk, 3, 64,
+                                 [sk, max(1, sk - 7)])
+    out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+    serve, _, _ = attention_fwd(q, k, v, pad)
+    grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
+    torch.cuda.synchronize()
+    ref = fused_attention_reference(q, k, v, pad)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    assert torch.equal(out, serve)
+    o32 = fused_attention_reference(q.float(), k.float(), v.float(), pad)
+    e_out = (out.float() - o32).abs().max().item()
+    e_sum = (out.float() + resid.float() - o32).abs().max().item()
+    assert 8 * e_sum <= e_out, (e_sum, e_out)
+    refs = fused_attention_bwd_reference(q, k, v, dout, pad)
+    if sk > 1:
+        _assert_grads_close(grads, refs, torch.bfloat16, pad)
+    else:
+        err = (grads[2].float() - refs[2].float()).abs().max().item()
+        assert err <= 2e-2 * refs[2].float().abs().max().item(), ("dv", err)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_attention_fwd_bf16_row_with_one_live_key(gen, grad):
+    """Batch row 1 pads every key but the first: each of its queries gives
+    exactly v[1, 0] (P = 1 on that key, exp(-1e30 - m) = 0 on the rest);
+    row 0 is held to the plain version."""
+    q, k, v, _, pad = _inputs(gen, torch.bfloat16, 2, 421, 421, 12, 64,
+                              [421, 1])
+    out, _, _ = attention_fwd(q, k, v, pad, grad=grad)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], v[1, :1].expand_as(out[1]))
+    ref = fused_attention_reference(q, k, v, pad)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", [CASES[0], CASES[6]])
+def test_attention_fwd_bf16_calls_are_bit_equal(gen, b, sq, sk, h, hd,
+                                                lengths):
+    """Two calls give the same bits in both variants (out, lse and r), and
+    out with the residual is the serving variant's out."""
+    q, k, v, _, pad = _inputs(gen, torch.bfloat16, b, sq, sk, h, hd, lengths)
+    first = attention_fwd(q, k, v, pad, grad=True)
+    second = attention_fwd(q, k, v, pad, grad=True)
+    serve = [attention_fwd(q, k, v, pad)[:2] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(*serve))
+    assert torch.equal(first[0], serve[0][0])
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (427, 640), (120, 160)])

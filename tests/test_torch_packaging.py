@@ -48,7 +48,7 @@ def wheel(tmp_path_factory):
 
 def test_wheel_holds_the_cuda_sources(wheel):
     assert {"attention_fwd.cu", "attention_bwd.cu", "jpeg.cu",
-            "attention_mma.cuh", "attention_common.cuh"} <= set(CSRC)
+            "attention_common.cuh"} <= set(CSRC)
     with zipfile.ZipFile(wheel) as z:
         names = z.namelist()
     got = sorted(osp.basename(n) for n in names
