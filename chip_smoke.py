@@ -91,7 +91,14 @@ weights: one batch's loss terms and gradients bit for bit the unwrapped
 model's, held to float32 (the gradients and loss_total by the bf16 rule,
 every K1/K2 call too), K1/K2 a step, step time and peak memory
 beside the unwrapped model's, and one NCCL all-reduce of evaluation
-counters.
+counters.  Before "remat", after the OneStage family ("onestage") and the
+config-facing tools ("tools"), "zoo" takes the OneStage model with each
+other pure-vision backbone at its JAX defaults (ResNet-50, CSPDarknet,
+ViT-B/32, Swin-T, PVTv2, ViTDet-B/16) and with the ALBERTA language
+encoder at roberta-base's widths (from an HF-layout state dict), then the
+four mixed vision-language encoders alone: each float32 check at batch 2
+held to the CPU's float64 (``hold_to_cpu_float64``), bf16 steps at batch 8
+timed.
 K1/K2 launches are counted from 0 around each path.
 
 Every phase raises on failure; there is no CPU path.
@@ -1114,7 +1121,7 @@ def fixed_matching(matching):
         if record:
             matching.append(out)
             return out
-        ref = next(replay)
+        ref = tuple(t.to(cost.device) for t in next(replay))
         moved[0] += int((out[1] != ref[1]).sum())
         moved[1] += int((ref[1] >= 0).sum())
         return ref
@@ -1124,6 +1131,51 @@ def fixed_matching(matching):
         yield moved
     finally:
         criterion.hungarian_assign = distill.hungarian_assign = assign
+
+
+@contextlib.contextmanager
+def fixed_kinks(decisions):
+    """With an empty list ``decisions``, records which inputs of every ReLU
+    and LeakyReLU call are positive and which element of every max-pool
+    window wins; else replays them, call for call, so that a float32 run
+    takes the float64 run's side of each kink and its gradients differ
+    from float64's by rounding alone.  Yields [elements whose own decision
+    differed, elements] of a replay."""
+    import torch
+    import torch.nn.functional as F
+
+    relu, leaky, pool = F.relu, F.leaky_relu, F.max_pool2d
+    replay = iter(list(decisions)) if decisions else None
+    moved = [0, 0]
+
+    def decide(own):
+        if replay is None:
+            decisions.append(own.cpu())
+            return own
+        ref = next(replay).to(own.device)
+        moved[0] += int((ref != own).sum())
+        moved[1] += own.numel()
+        return ref
+
+    def fixed_relu(x, inplace=False):
+        return torch.where(decide(x > 0), x, 0.0)
+
+    def fixed_leaky(x, negative_slope=0.01, inplace=False):
+        return torch.where(decide(x > 0), x, x * negative_slope)
+
+    def fixed_pool(x, kernel_size, stride=None, padding=0, dilation=1,
+                   ceil_mode=False, return_indices=False):
+        out, idx = pool(x, kernel_size, stride, padding, dilation,
+                        ceil_mode, return_indices=True)
+        idx = decide(idx)
+        out = x.flatten(2).gather(2, idx.flatten(2)).view_as(out)
+        return (out, idx) if return_indices else out
+
+    F.relu, F.leaky_relu, F.max_pool2d = fixed_relu, fixed_leaky, fixed_pool
+    try:
+        yield moved
+    finally:
+        F.relu, F.leaky_relu, F.max_pool2d = relu, leaky, pool
 
 
 @contextlib.contextmanager
@@ -3268,27 +3320,15 @@ ONESTAGE_FLOOR = 1e-5
 ONESTAGE_F64 = 1e-7
 
 
-def onestage_phase(card, root, synth, launches):
-    """The OneStageModel family at full width (ONESTAGE_FULL) on random
-    flax-style weights from SEED and text from the word-vocab tokenizer
-    over the synthetic annotations: the fp32 forward, loss terms and
-    gradients of one batch of BATCH on the card and the CPU (dropout
-    off), each held to the CPU's float64 step by the ONESTAGE_FACTOR rule,
-    and the card's float64 step to the CPU's within ONESTAGE_F64; the bf16
-    train step at batch TRAIN_BATCH (one warm-up, ONESTAGE_STEPS counted:
-    median ms, peak memory) and the eval step at batch BATCH and
-    TRAIN_BATCH; then ``tiny_synth_onestage.py`` through the port's train CLI (1 epoch) and
-    test CLI on the synthetic JPEGs.  No K1 or K2 is on this path."""
+def onestage_setup(root, synth):
+    """ONESTAGE_FULL's config, its image normalisation and
+    ``requests(seed, n, batch)``: ``make_requests`` batches whose text is
+    the word-vocab tokenizer's ids of the synthetic annotations'
+    expressions."""
     import numpy as np
-    import torch
     from simvg_tpu_torch.config import Config
     from simvg_tpu_torch.data.tokenization import (build_tokenizer,
                                                    build_word_vocab)
-    from simvg_tpu_torch.engine import (make_eval_step,
-                                        normalize_images_on_device)
-    from simvg_tpu_torch.models import build_model, init_random_weights
-    from simvg_tpu_torch.tools import test as test_cli
-    from simvg_tpu_torch.tools import train as train_cli
 
     path = os.path.join(root, "onestage_full.py")
     with open(path, "w") as f:
@@ -3313,6 +3353,29 @@ def onestage_phase(card, root, synth, launches):
             r.update(text_ids=ids, text_padding_mask=(ids == 0).astype(
                 np.int64))
         return reqs
+
+    return cfg, norm, requests
+
+
+def onestage_phase(card, root, synth, launches):
+    """The OneStageModel family at full width (ONESTAGE_FULL) on random
+    flax-style weights from SEED and text from the word-vocab tokenizer
+    over the synthetic annotations: the fp32 forward, loss terms and
+    gradients of one batch of BATCH on the card and the CPU (dropout
+    off), each held to the CPU's float64 step by the ONESTAGE_FACTOR rule,
+    and the card's float64 step to the CPU's within ONESTAGE_F64; the bf16
+    train step at batch TRAIN_BATCH (one warm-up, ONESTAGE_STEPS counted:
+    median ms, peak memory) and the eval step at batch BATCH and
+    TRAIN_BATCH; then ``tiny_synth_onestage.py`` through the port's train CLI (1 epoch) and
+    test CLI on the synthetic JPEGs.  No K1 or K2 is on this path."""
+    import torch
+    from simvg_tpu_torch.engine import (make_eval_step,
+                                        normalize_images_on_device)
+    from simvg_tpu_torch.models import build_model, init_random_weights
+    from simvg_tpu_torch.tools import test as test_cli
+    from simvg_tpu_torch.tools import train as train_cli
+
+    cfg, norm, requests = onestage_setup(root, synth)
 
     def model_on(device, dtype):
         model, loss_cfg = build_model(cfg.model, img_size=cfg.img_size,
@@ -3545,6 +3608,431 @@ def tools_phase(card, root, synth, launches):
         for r in rows))
 
 
+# the zoo phase: the OneStageModel's other backbones and language encoder,
+# and the mixed vision-language encoders, each at the JAX module's own
+# defaults (full width) at 640 px
+ZOO_BACKBONES = ("ResNet", "CSPDarknet", "VIT", "SwinTransformer",
+                 "PyramidVisionTransformerV2", "VITDet")
+ZOO_MIXED = ("VisionTransformerMix", "ConvolutionalVisionTransformerMix",
+             "YOLOS", "ViLTransformerSS")
+# roberta-base's published widths (its HF config.json): the ALBERTA
+# language encoder of the reference wraps that checkpoint
+ROBERTA_BASE = dict(type="ALBERTA", vocab_size=50265, hidden_size=768,
+                    num_layers=12, num_heads=12, max_positions=514,
+                    position_offset=2)
+ZOO_BATCH = 2  # the float32 check's batch (the CPU's float64 step is slow)
+ZOO_TIMED_BATCH = 8  # the bf16 steps'
+ZOO_TEXT = (20, 768)  # the mixed encoders' text: tokens, feature width
+ZOO_TEXT_PAD = 6  # padded text positions at the end of each sample
+ZOO_IMG = 640  # the mixed encoders' canvas (the OneStage models: the config's)
+
+
+def hold_to_cpu_float64(name, run, card, conv_slack=None):
+    """``run(device, dtype)`` -> {name: tensor} on the CPU in float64, then
+    on the card and the CPU in float32, each float32 run on the float64
+    run's side of every discrete choice: the Hungarian matchings
+    (``fixed_matching``) and the ReLU, LeakyReLU and max-pool decisions
+    (``fixed_kinks``).  A float32 input within rounding of a kink takes
+    either side, and the gradient then moves by that element's whole
+    term, which is not a precision fault (a card ReLU flip in a DETR
+    decoder FFN put its weight gradient 8.8e-4 from float64, the CPU's at
+    5.8e-7, CSPDarknet at batch 2).  Every tensor's distance from the CPU's
+    float64 (max |difference| over the float64 tensor's max |value|, or
+    over the largest gradient's for a gradient 0 in exact arithmetic) on
+    the card is at most ONESTAGE_FACTOR times the CPU float32's plus
+    ONESTAGE_FLOOR, plus, for a conv weight's gradient, cuDNN's own float32
+    distance for that convolution alone on the float64 run's inputs
+    (``conv_slack()`` -> {name: (cuDNN's, torch's own route's)}, absolute;
+    ``conv_witness``).  Logs the distances, the witnesses and how many
+    targets and kink decisions the float32 runs' own choices moved; raises
+    past the rule."""
+    import torch
+
+    got, matching, decisions, moved = [], [], [], []
+    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32),
+                       ("cpu", torch.float32)):
+        t0 = time.perf_counter()
+        with fixed_matching(matching) as moves, \
+                fixed_kinks(decisions) as kinks:
+            got.append({k: v.detach().double().cpu()
+                        for k, v in run(dev, dtype).items()})
+        moved.append((moves, kinks))
+        log(f"zoo[{name}] {str(dtype)[6:]} {dev}: "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    ref, on_card, on_cpu = got
+    grads = [v.abs().max().item() for k, v in ref.items() if k[:4] == "grad"]
+    top = max(grads, default=0.0)
+
+    def scale(k):
+        s = ref[k].abs().max().item()
+        return top if k[:4] == "grad" and s < 1e-6 * top else max(s, 1e-30)
+
+    rows = {k: tuple((a[k] - ref[k]).abs().max().item() / scale(k)
+                     for a in (on_card, on_cpu)) for k in ref}
+    slack = {k: tuple(v / scale(k) for v in w)
+             for k, w in (conv_slack() if conv_slack else {}).items()}
+    bad = {k: r + slack.get(k, (0.0,)) for k, r in rows.items()
+           if not r[0] <= ONESTAGE_FACTOR * r[1] + ONESTAGE_FLOOR
+           + slack.get(k, (0.0,))[0]}
+    # the conv weights whose gradient needed cuDNN's witness to hold
+    needed = sorted((k for k in slack if rows[k][0] > ONESTAGE_FACTOR
+                     * rows[k][1] + ONESTAGE_FLOOR), key=lambda k: -rows[k][0])
+    worst = sorted(rows.items(), key=lambda kv: -kv[1][0])[:3]
+    log(f"zoo[{name}] fp32 card vs CPU, batch {ZOO_BATCH}: "
+        f"{len(rows)} tensors ({len(grads)} gradients); distance from the "
+        f"CPU's float64 (card, CPU; rule card <= {ONESTAGE_FACTOR} x CPU + "
+        f"{ONESTAGE_FLOOR} + cuDNN's witness for a conv weight): "
+        + ", ".join(f"{k} {r[0]:.2e}, {r[1]:.2e}" for k, r in rows.items()
+                    if k[:4] != "grad")
+        + "; largest on the card: "
+        + ", ".join(f"{k} {r[0]:.2e}, {r[1]:.2e}" for k, r in worst)
+        + f"; worst card/CPU ratio "
+        f"{max(r[0] / max(r[1], 1e-30) for r in rows.values()):.3f}; "
+        f"moved by their own choice (card, CPU): targets {moved[1][0]}, "
+        f"{moved[2][0]} of the matched, kink decisions {moved[1][1]}, "
+        f"{moved[2][1]}"
+        + (f"; conv witnesses ({len(slack)} weights; cuDNN, torch's own "
+           f"route): largest " + ", ".join(
+               f"{k} {slack[k][0]:.2e}, {slack[k][1]:.2e}" for k in sorted(
+                   slack, key=lambda k: -slack[k][0])[:2])
+           + f"; largest of torch's own {max(w[1] for w in slack.values()):.2e}"
+           f"; held by the witness alone: "
+           + (", ".join(f"{k} {rows[k][0]:.2e} (CPU {rows[k][1]:.2e}, "
+                        f"witness {slack[k][0]:.2e}, {slack[k][1]:.2e})"
+                        for k in needed[:6]) or "none")
+           if slack else ""))
+    if bad:
+        raise AssertionError(f"zoo[{name}]: the card's float32 against the "
+                             f"CPU's float64 (card, CPU[, cuDNN witness, "
+                             f"torch's own]): {sorted(bad.items())[:6]}")
+
+
+@contextlib.contextmanager
+def recorded_convs(model, store):
+    """With a dict ``store``, records every conv of ``model`` that a run
+    calls: ``store[module name]`` = (the module, [[input, output
+    gradient], ...] per call), the gradients as autograd computes them;
+    with None, records nothing."""
+    import torch
+
+    handles = []
+    if store is not None:
+        def hook(name):
+            def record(module, inputs, out):
+                call = [inputs[0].detach(), None]
+                store.setdefault(name, (module, []))[1].append(call)
+                if out.requires_grad:
+                    out.register_hook(
+                        lambda g: call.__setitem__(1, g.detach()))
+            return record
+
+        handles = [m.register_forward_hook(hook(n))
+                   for n, m in model.named_modules()
+                   if isinstance(m, torch.nn.Conv2d)]
+    try:
+        yield store
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def conv_witness(store):
+    """For each conv weight in ``store`` (``recorded_convs`` of the float64
+    run): its gradient from those calls alone on the card in float64, and
+    in float32 through cuDNN and through torch's own CUDA convolution
+    (cuDNN off), on the float64 inputs rounded to float32.  Returns
+    {"grad <name>.weight": (max |cuDNN - float64|, max |torch's own -
+    float64|)}: the convolution's own float32 rounding on this run's data,
+    independent of the model code around it."""
+    import torch
+    from torch.nn.grad import conv2d_weight
+
+    out = {}
+    for name, (m, calls) in store.items():
+        if not m.weight.requires_grad:
+            continue
+        sums = {}
+        for x, g in calls:
+            if g is None:
+                continue
+            for key, dtype, cudnn in (("ref", torch.float64, True),
+                                      ("cudnn", torch.float32, True),
+                                      ("own", torch.float32, False)):
+                torch.backends.cudnn.enabled = cudnn
+                try:
+                    w = conv2d_weight(x.to("cuda", dtype), m.weight.shape,
+                                      g.to("cuda", dtype), m.stride,
+                                      m.padding, m.dilation, m.groups)
+                finally:
+                    torch.backends.cudnn.enabled = True
+                sums[key] = sums[key] + w.double() if key in sums else \
+                    w.double()
+        if sums:
+            out[f"grad {name}.weight"] = tuple(
+                (sums[k] - sums["ref"]).abs().max().item()
+                for k in ("cudnn", "own"))
+    return out
+
+
+def roberta_base_state_dict(seed):
+    """An HF roberta-base state dict in numpy (``roberta.`` prefix):
+    Linear and embedding weights N(0, 0.02), biases 0, LayerNorm 1 and 0,
+    as HF initialises the model."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, v = ROBERTA_BASE["hidden_size"], ROBERTA_BASE["vocab_size"]
+
+    def normal(*shape):
+        return rng.standard_normal(shape, np.float32) * np.float32(0.02)
+
+    sd = {"embeddings.word_embeddings.weight": normal(v, d),
+          "embeddings.position_embeddings.weight":
+              normal(ROBERTA_BASE["max_positions"], d),
+          "embeddings.token_type_embeddings.weight": normal(1, d),
+          "embeddings.LayerNorm.weight": np.ones(d, np.float32),
+          "embeddings.LayerNorm.bias": np.zeros(d, np.float32)}
+    for i in range(ROBERTA_BASE["num_layers"]):
+        for name, (o, n) in (("attention.self.query", (d, d)),
+                             ("attention.self.key", (d, d)),
+                             ("attention.self.value", (d, d)),
+                             ("attention.output.dense", (d, d)),
+                             ("intermediate.dense", (4 * d, d)),
+                             ("output.dense", (d, 4 * d))):
+            sd[f"encoder.layer.{i}.{name}.weight"] = normal(o, n)
+            sd[f"encoder.layer.{i}.{name}.bias"] = np.zeros(o, np.float32)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"encoder.layer.{i}.{name}.weight"] = np.ones(d, np.float32)
+            sd[f"encoder.layer.{i}.{name}.bias"] = np.zeros(d, np.float32)
+    return {"roberta." + k: a for k, a in sd.items()}
+
+
+def zoo_composed(name, cfg, model_cfg, requests, norm, card, launches,
+                 hf_state_dict=None, whole_canvas=False):
+    """One OneStageModel: the float32 check at batch ZOO_BATCH (the
+    train-mode forward with dropout off, loss terms, gradients), then the
+    bf16 train step at ZOO_TIMED_BATCH (one warm-up, ONESTAGE_STEPS
+    counted: median ms, peak memory) and the eval step there, on the
+    letterboxed canvases of ``requests``.  Weights: random from SEED, the
+    ``lan_enc`` from ``hf_state_dict`` through ``pretrained_state_dict``
+    where one is given.  ``whole_canvas``: every image's valid extent the
+    whole canvas (Swin: on a zero-padded canvas its padded windows stay
+    exactly 0 at flax's zero-bias init, each LayerNorm's backward
+    multiplies their gradient by 1/sqrt(1e-6), and float32 overflows, in
+    JAX too: ROADMAP.md §3)."""
+    import torch
+    from simvg_tpu_torch.convert import pretrained_state_dict
+    from simvg_tpu_torch.engine import (make_eval_step,
+                                        normalize_images_on_device)
+    from simvg_tpu_torch.engine.train import train_losses
+    from simvg_tpu_torch.models import build_model, init_random_weights
+
+    t0 = time.perf_counter()
+    model, loss_cfg = build_model(model_cfg, img_size=cfg.img_size,
+                                  device="cpu")
+    sd = init_random_weights(model, SEED).state_dict()
+    if hf_state_dict is not None:
+        mapped, unused = pretrained_state_dict(
+            {k: torch.from_numpy(v) for k, v in hf_state_dict.items()}, sd)
+        if unused or sorted(mapped) != sorted(
+                k for k in sd if k.startswith("lan_enc.")):
+            raise AssertionError(f"zoo[{name}]: the HF checkpoint left "
+                                 f"{unused} unused")
+        sd.update(mapped)
+    n_params = sum(v.numel() for v in sd.values())
+    log(f"zoo[{name}]: {type(model.vis_enc).__name__} + "
+        f"{type(model.lan_enc).__name__}, {n_params} params, random from "
+        f"seed {SEED}"
+        + (" (lan_enc from an HF roberta-base state dict)"
+           if hf_state_dict is not None else "")
+        + f" in {time.perf_counter() - t0:.1f} s")
+    del model
+
+    def model_on(dev, dtype):
+        """float32 parameters computing in ``dtype``; float64 ones for the
+        float64 reference."""
+        model, loss_cfg = build_model(model_cfg, img_size=cfg.img_size,
+                                      dtype=dtype, device=dev)
+        model.load_state_dict(sd)
+        return model.to(torch.promote_types(dtype, torch.float32)), loss_cfg
+
+    def batches_of(seed, n, batch):
+        reqs = requests(seed, n, batch)
+        for r in reqs if whole_canvas else ():
+            r["img_shape"][:] = cfg.img_size
+        return reqs
+
+    (batch,) = batches_of(SEED + 40, 1, ZOO_BATCH)
+    convs = {}  # the float64 run's convolutions, for conv_witness
+
+    def run(dev, dtype):
+        """The train-mode forward (dropout off), the loss terms and the
+        gradients, all in ``dtype``."""
+        model, loss_cfg = model_on(dev, dtype)
+        dropout_off(model)
+        b = {k: torch.as_tensor(batch[k]).to(dev) for k in TRAIN_KEYS}
+        image = normalize_images_on_device(b["image"], norm["mean"],
+                                           norm["std"], True, b["img_shape"])
+        with recorded_convs(model, convs if dtype == torch.float64
+                            else None):
+            losses, out = train_losses(
+                model, b, image,
+                branch_loss_weight=loss_cfg["branch_loss_weight"],
+                prepare_target_mode=loss_cfg["prepare_target_mode"],
+                distill_type=loss_cfg["distill_type"],
+                mlp_aux_loss=loss_cfg["mlp_aux_loss"])
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(losses["loss_total"], params,
+                                        allow_unused=True)
+        return dict(
+            {f"out {k}": out[k] for k in ("class_decoder", "bbox_decoder")},
+            **{f"loss {k}": v for k, v in losses.items()},
+            **{f"grad {n}": torch.zeros_like(p) if g is None else g
+               for n, p, g in zip(names, params, grads)})
+
+    hold_to_cpu_float64(name, run, card, lambda: conv_witness(convs))
+    convs.clear()
+
+    model, loss_cfg = model_on("cuda", torch.bfloat16)
+    step, state = make_train_step_for(cfg, model, loss_cfg, norm)
+    batches = [to_device(b, TRAIN_KEYS) for b in batches_of(
+        SEED + 41, ONESTAGE_STEPS + 1, ZOO_TIMED_BATCH)]
+    state, _ = step(state, batches[0], SEED)  # warm-up
+    ms, history = [], []
+
+    def counted():
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            history.append(step(state, b, SEED)[1])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    counted_run(f"zoo[{name} train]", counted, 0, 0, card, launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(torch.isfinite(v).all() for h in history for v in h.values()):
+        raise AssertionError(f"zoo[{name}] train step: non-finite {history}")
+    del state, step
+    torch.cuda.empty_cache()
+    eval_step = make_eval_step(model, device_norm=norm)
+    preds = eval_step(batches[1])
+    if not all(torch.isfinite(t.float()).all() for p in preds.values()
+               for t in p.values()):
+        raise AssertionError(f"zoo[{name}] eval: non-finite predictions")
+    eval_ms = counted_run(f"zoo[{name} eval]",
+                          lambda: cuda_ms(lambda: eval_step(batches[1]), 10),
+                          0, 0, card, launches)
+    ms.sort()
+    log(f"zoo[{name}] bf16, batch {ZOO_TIMED_BATCH}: train step median "
+        f"{ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max {ms[-1]:.3f}), "
+        f"peak {peak:.2f} GiB; eval step {eval_ms:.3f} ms [{card}]; "
+        f"loss_total {[h['loss_total'].item() for h in history]}")
+    del model, eval_step, batches
+    torch.cuda.empty_cache()
+
+
+def zoo_mixed(typ, card, launches):
+    """One mixed vision-language encoder through ``build_vis_enc`` at its
+    defaults: the float32 forward at batch ZOO_BATCH held to the CPU's
+    float64 (hold_to_cpu_float64), then a bf16 forward and backward at
+    ZOO_TIMED_BATCH (one warm-up, ONESTAGE_STEPS counted: median ms, peak
+    memory).  Text: ZOO_TEXT features (ViLT: word ids) with the last
+    ZOO_TEXT_PAD positions padded."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.models import init_random_weights
+    from simvg_tpu_torch.models.vis_enc_zoo import build_vis_enc
+
+    n_txt, width = ZOO_TEXT
+    cfg = {"type": typ}
+
+    def encoder(dev, dtype):
+        with torch.device(dev):
+            return build_vis_enc(cfg, dtype, ZOO_IMG, text_dim=width)
+
+    t0 = time.perf_counter()
+    sd = init_random_weights(encoder("cpu", torch.float32), SEED).state_dict()
+    log(f"zoo[{typ}]: {sum(v.numel() for v in sd.values())} params, random "
+        f"from seed {SEED} in {time.perf_counter() - t0:.1f} s")
+
+    def inputs(batch, seed, dev, dtype=torch.float32):
+        """(image, text, text mask); float arrays in ``dtype``."""
+        rng = np.random.default_rng(seed)
+        image = rng.standard_normal((batch, ZOO_IMG, ZOO_IMG, 3),
+                                    np.float32)
+        mask = np.zeros((batch, n_txt), bool)
+        mask[:, -ZOO_TEXT_PAD:] = True
+        if typ == "ViLTransformerSS":
+            text = rng.integers(1, 30522, (batch, n_txt))
+            text[mask] = 0
+        else:
+            text = rng.standard_normal((batch, n_txt, width), np.float32)
+        return [torch.as_tensor(a).to(dev, dtype) if a.dtype == np.float32
+                else torch.as_tensor(a).to(dev) for a in (image, text, mask)]
+
+    def run(dev, dtype):
+        enc = encoder(dev, dtype)
+        enc.load_state_dict(sd)
+        with torch.no_grad():
+            out = enc.to(dtype).eval()(*inputs(ZOO_BATCH, SEED + 42, dev,
+                                               dtype))
+        return {f"out {k}": v for k, v in out.items()}
+
+    hold_to_cpu_float64(typ, run, card)
+
+    enc = encoder("cuda", torch.bfloat16)
+    enc.load_state_dict(sd)
+    args = [inputs(ZOO_TIMED_BATCH, SEED + 43 + i, "cuda")
+            for i in range(ONESTAGE_STEPS + 1)]
+    ms = []
+
+    def fwd_bwd(image, text, mask):
+        out = enc(image, text, mask)
+        sum(v.float().square().mean() for v in out.values()).backward()
+
+    fwd_bwd(*args[0])  # warm-up
+
+    def counted():
+        for a in args[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd_bwd(*a)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    counted_run(f"zoo[{typ} fwd+bwd]", counted, 0, 0, card, launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(torch.isfinite(p.grad).all() for p in enc.parameters()
+               if p.grad is not None):
+        raise AssertionError(f"zoo[{typ}]: non-finite gradients")
+    ms.sort()
+    log(f"zoo[{typ}] bf16 forward + backward, batch {ZOO_TIMED_BATCH}: "
+        f"median {ms[len(ms) // 2]:.3f} ms (min {ms[0]:.3f}, max "
+        f"{ms[-1]:.3f}), peak {peak:.2f} GiB [{card}]")
+    del enc, args
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(card, root, synth, launches):
+    """The zoo at full width on random weights from SEED, TF32 off: each
+    pure-vision backbone (ZOO_BACKBONES) in ONESTAGE_FULL's OneStageModel
+    in place of DarkNet53, then DarkNet53 with the ALBERTA language encoder
+    at roberta-base's widths (its weights an HF-layout state dict through
+    ``convert_hf_bert``), each by ``zoo_composed``; then the mixed
+    vision-language encoders (ZOO_MIXED) by ``zoo_mixed``.  No K1 or K2
+    is on these paths."""
+    cfg, norm, requests = onestage_setup(root, synth)
+    for typ in ZOO_BACKBONES:
+        zoo_composed(typ, cfg, dict(cfg.model, vis_enc={"type": typ}),
+                     requests, norm, card, launches,
+                     whole_canvas=typ == "SwinTransformer")
+    zoo_composed("ALBERTA", cfg, dict(cfg.model, lan_enc=ROBERTA_BASE),
+                 requests, norm, card, launches,
+                 hf_state_dict=roberta_base_state_dict(SEED))
+    for typ in ZOO_MIXED:
+        zoo_mixed(typ, card, launches)
+
+
 def serving_phases(card, root, synth):
     """The serving entry points: "prune", "export", "serve", "demo" and
     "inference", each path's K1 launches counted from 0 around it.
@@ -3646,7 +4134,7 @@ def main() -> int:
         # phases after them compare models within the phase
         new = {}
         for name, fn in (("onestage", onestage_phase),
-                         ("tools", tools_phase)):
+                         ("tools", tools_phase), ("zoo", zoo_phase)):
             t0 = time.perf_counter()
             counts = []
             fn(card, root, synth, counts)
@@ -3671,11 +4159,12 @@ def main() -> int:
         f"{mixed_k1}, masks {masks_k1}, "
         + ", ".join(f"{k} {v}" for k, v in serving.items())
         + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}, onestage "
-        f"{new['onestage'][0]}, tools {new['tools'][0]}; K2 train "
+        f"{new['onestage'][0]}, tools {new['tools'][0]}, zoo "
+        f"{new['zoo'][0]}; K2 train "
         f"{train_k2}, options {options_k2}, cli {cli_k2}, grec {grec_k2}, "
         f"mixed {mixed_k2}, masks {masks_k2}, int8 {int8_k2}, remat "
         f"{remat_k2}, dist {dist_k2}, onestage {new['onestage'][1]}, tools "
-        f"{new['tools'][1]}")
+        f"{new['tools'][1]}, zoo {new['zoo'][1]}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train

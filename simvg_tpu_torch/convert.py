@@ -15,7 +15,8 @@ state dict (``vis_enc.*``, ``head.*``) or a BEiT-3 pretrain one
 (``beit3.*``) goes into the model under the port's names, with the vision
 position table and the patch projection interpolated to the model's grid
 and patch size (``interpolate_pos_embed``, ``interpolate_patch_proj``, the
-same bicubic resize).
+same bicubic resize); an HF BERT/roberta one goes into the ALBERTA
+``lan_enc`` (``convert_hf_bert``).
 
 ``export_composed`` does the same for a composed OneStageModel tree
 (``vis_enc``/``lan_enc``/``fusion``/``head``): conv kernels go from flax's
@@ -88,19 +89,19 @@ def pretrained_state_dict(sd: Dict[str, torch.Tensor],
     """Maps a checkpoint's state dict onto ``target``'s names and shapes:
     returns (the tensors to load, the checkpoint keys left unused).
     Dispatches by key inventory: ``vis_enc.*`` is a full SimVG state dict
-    under the port's own names, ``beit3.*`` a BEiT-3 pretrain one."""
+    under the port's own names, ``beit3.*`` a BEiT-3 pretrain one, and
+    ``embeddings.word_embeddings.weight`` (under ``roberta.``, ``bert.`` or
+    no prefix) an HF BERT/roberta one for the ALBERTA ``lan_enc``."""
     if any(k.startswith("vis_enc.") for k in sd):
         named = dict(sd)
     elif any(k.startswith("beit3.") for k in sd):
         named = {"vis_enc." + k: v for k, v in sd.items()
                  if k.startswith("beit3.")}
     elif any("embeddings.word_embeddings.weight" in k for k in sd):
-        raise NotImplementedError("HF BERT checkpoints feed the legacy "
-                                  "ALBERTA language encoder, not ported "
-                                  "yet (ROADMAP: M20b)")
+        named = convert_hf_bert(sd, target)
     else:
         raise ValueError("unknown checkpoint layout: neither vis_enc.* nor "
-                         "beit3.* keys")
+                         "beit3.* keys nor an HF BERT's")
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for key, value in named.items():
@@ -127,14 +128,66 @@ def pretrained_state_dict(sd: Dict[str, torch.Tensor],
     return out, unused
 
 
+# an HF BERT layer's modules and the ALBERTA encoder's names for them
+_HF_BERT_LAYER = (("attention.self.query", "q"), ("attention.self.key", "k"),
+                  ("attention.self.value", "v"),
+                  ("attention.output.dense", "o"),
+                  ("intermediate.dense", "fc1"), ("output.dense", "fc2"),
+                  ("attention.output.LayerNorm", "attn_ln"),
+                  ("output.LayerNorm", "ffn_ln"))
+
+
+def convert_hf_bert(sd: Dict, target: Dict[str, torch.Tensor],
+                    prefix: str = "lan_enc.") -> Dict[str, torch.Tensor]:
+    """An HF BERT/roberta state dict (``roberta.``/``bert.`` prefixes
+    dropped) -> the ALBERTA encoder's entries under ``prefix``; the port's
+    copy of ``tools/convert_checkpoint.py::convert_hf_bert``.  HF adds its
+    token-type row 0 to every position, so it is folded into the position
+    table; torch's Linear weights keep their layout.  Raises ValueError
+    unless the checkpoint has as many layers as ``target`` (a state dict
+    naming ``{prefix}q_{i}.weight``)."""
+    for model_prefix in ("roberta.", "bert."):
+        if any(k.startswith(model_prefix + "embeddings.") for k in sd):
+            sd = {k[len(model_prefix):]: v for k, v in sd.items()
+                  if k.startswith(model_prefix)}
+            break
+
+    def f32(key):
+        v = sd[key]
+        return v.float() if torch.is_tensor(v) else torch.as_tensor(
+            np.asarray(v, np.float32))
+
+    pos = f32("embeddings.position_embeddings.weight").clone()
+    if "embeddings.token_type_embeddings.weight" in sd:
+        pos += f32("embeddings.token_type_embeddings.weight")[0]
+    out = {prefix + "word_embeddings.weight":
+           f32("embeddings.word_embeddings.weight"),
+           prefix + "position_embeddings.weight": pos,
+           prefix + "embeddings_ln.weight": f32("embeddings.LayerNorm.weight"),
+           prefix + "embeddings_ln.bias": f32("embeddings.LayerNorm.bias")}
+    i = 0
+    while f"encoder.layer.{i}.attention.self.query.weight" in sd:
+        for src, dst in _HF_BERT_LAYER:
+            for leaf in ("weight", "bias"):
+                out[f"{prefix}{dst}_{i}.{leaf}"] = f32(
+                    f"encoder.layer.{i}.{src}.{leaf}")
+        i += 1
+    n_target = sum(1 for k in target if k.startswith(prefix + "q_")
+                   and k.endswith(".weight"))
+    if i != n_target:
+        raise ValueError(f"HF checkpoint has {i} layers, encoder expects "
+                         f"{n_target}")
+    return out
+
+
 @torch.no_grad()
 def load_pretrained_into_model(model: torch.nn.Module, path: str,
                                logger: Optional[logging.Logger] = None
                                ) -> List[str]:
-    """Loads a reference ``.pth`` (full SimVG or BEiT-3 pretrain) into
-    ``model`` in place; logs the keys it loaded, the model keys it left as
-    they were and the checkpoint keys it did not use.  Returns the loaded
-    keys."""
+    """Loads a reference ``.pth`` (full SimVG, BEiT-3 pretrain or HF BERT)
+    into ``model`` in place; logs the keys it loaded, the model keys it
+    left as they were and the checkpoint keys it did not use.  Returns the
+    loaded keys."""
     target = model.state_dict()
     mapped, unused = pretrained_state_dict(_torch_load(path), target)
     for key, value in mapped.items():

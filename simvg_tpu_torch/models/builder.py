@@ -21,7 +21,7 @@ from .heads.simple_head import DETRHead, DETRHeadConfig
 from .heads.tgqs_head import TGQSHeadConfig
 from .lan_encs import build_lan_enc
 from .model import SimVGConfig, SimVGModel
-from .vis_enc_zoo import GroupNorm, build_vis_enc
+from .vis_enc_zoo import MIXED_TYPES, GroupNorm, build_vis_enc
 
 # scan_layers only changes how JAX compiles the same forward, and gelu_impl
 # only picks JAX's erf form: the port reads neither (but refuses scan_layers
@@ -44,15 +44,21 @@ def _resolve_device(device):
     return device
 
 
-def build_composed_model(model_cfg: Dict[str, Any], *,
+def build_composed_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
                          dtype: torch.dtype = torch.float32, device=None
                          ) -> Tuple[ComposedOneStageModel, Dict[str, Any]]:
-    """The reference's OneStageModel from its config dict: a zoo
-    ``vis_enc`` (DarkNet53), a GRU ``lan_enc``, the cross-attention
+    """The reference's OneStageModel from its config dict: a pure-vision
+    zoo ``vis_enc`` (its position tables and windows sized for the canvas
+    ``img_size``), a GRU or ALBERTA ``lan_enc``, the cross-attention
     ``fusion`` and the ``DETRHead``.  Returns (model, loss_cfg), the loss
     settings completed with ``LOSS_DEFAULTS``; ``freeze_layer`` and
-    ``pretrain`` are read from ``vis_enc`` as JAX reads them."""
+    ``pretrain`` are read from ``vis_enc`` as JAX reads them.  A mixed
+    vision-language ``vis_enc`` raises: the model calls its backbone on
+    the image alone, where JAX's fails."""
     ve = dict(model_cfg.get("vis_enc") or {})
+    if ve.get("type") in MIXED_TYPES:
+        raise TypeError(f"vis_enc type {ve['type']!r} takes text beside the "
+                        "image, which OneStageModel does not give it")
     le = dict(model_cfg.get("lan_enc") or {})
     fu = dict(model_cfg.get("fusion") or {})
     hd = dict(model_cfg.get("head") or {})
@@ -63,7 +69,7 @@ def build_composed_model(model_cfg: Dict[str, Any], *,
                                        "mlp_aux_loss", "as_target_query_thr")
                 if k in hd}
     with torch.device(_resolve_device(device)):
-        vis_enc = build_vis_enc(ve, dtype)
+        vis_enc = build_vis_enc(ve, dtype, img_size)
         lan_enc = build_lan_enc(le, dtype)
         head_cfg = DETRHeadConfig(dtype=dtype, **hd)
         fusion = CrossAttentionFusion(vis_enc.out_channels,
@@ -90,7 +96,8 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
     its parameters).  With no device given and no card present it
     raises."""
     if model_cfg.get("type") == "OneStageModel":
-        return build_composed_model(model_cfg, dtype=dtype, device=device)
+        return build_composed_model(model_cfg, img_size=img_size,
+                                    dtype=dtype, device=device)
     if model_cfg.get("type", "MIXDETRMB") != "MIXDETRMB":
         raise KeyError(f"unknown model type {model_cfg.get('type')!r}")
     ve = dict(model_cfg.get("vis_enc") or {})
@@ -168,6 +175,12 @@ def build_model(model_cfg: Dict[str, Any], *, img_size: int = 640,
 _TRUNC_STD = 0.87962566103423978
 
 
+_BEIT3 = "vis_enc.beit3."
+# the zoo's learned tables, drawn from flax's normal(0.02)
+_ZOO_TABLES = ("pos_embed", "det_tokens", "det_pos", "img_pos", "txt_pos",
+               "cls_token", "type_embed")
+
+
 def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
     """(kind, std) of the flax initialiser of the JAX counterpart of
     ``path``: "ones", "zeros", "normal" or "truncated" (two-std cut, ``std``
@@ -178,10 +191,14 @@ def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
         return "truncated", p[0].numel() ** -0.5 / _TRUNC_STD
     if isinstance(module, (nn.LayerNorm, GroupNorm)):
         return ("ones", 0.0) if name == "weight" else ("zeros", 0.0)
+    if name == "rel_pos_bias":  # vis_enc_zoo.py: truncated_normal(0.02)
+        return "truncated", 0.02
     if name.endswith("bias") or name == "mask_token":
         return "zeros", 0.0
-    if name == "cls_token":  # beit3.py: truncated_normal(0.02)
-        return "truncated", 0.02
+    if name == "cls_token" and path.startswith(_BEIT3):
+        return "truncated", 0.02  # beit3.py: truncated_normal(0.02)
+    if name in _ZOO_TABLES:  # vis_enc_zoo.py, vis_encs.py: normal(0.02)
+        return "normal", 0.02
     if isinstance(module, nn.Embedding):
         if path == "head.query_embed.weight":  # tgqs_head.py: normal(1.0)
             return "normal", 1.0
@@ -190,7 +207,7 @@ def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
         # text_embed: normal(D^-1/2); the position tables: flax's Embed
         # default, variance_scaling(1, fan_in, normal) over D
         return "normal", p.shape[1] ** -0.5
-    if path.startswith("vis_enc.") and isinstance(module, nn.Linear):
+    if path.startswith(_BEIT3) and isinstance(module, nn.Linear):
         return "truncated", 0.02  # beit3.py::_dense
     if isinstance(module, (nn.Linear, nn.Conv2d)) or \
             name == "in_proj_weight":
@@ -209,7 +226,10 @@ def init_random_weights(model: nn.Module, seed) -> nn.Module:
     the embedding tables, N(0, 1) on ``query_embed``, lecun_normal on the
     patch conv and every head Dense, LayerNorm scales 1.  The composed
     family's: lecun_normal on the convs, the Dense layers and the GRU's
-    weights, GroupNorm scales 1, N(0, 0.02) on the word embedding.
+    weights, GroupNorm scales 1, N(0, 0.02) on the GRU's word embedding
+    and the zoo's learned tables (``_ZOO_TABLES``), truncated N(0.02) on
+    Swin's ``rel_pos_bias``, N(0, D^-1/2) on the other embedding tables
+    (ALBERTA's, ViLT's ``word_embed``).
 
     ``seed``: an int or a CPU ``torch.Generator``.  Every draw is made on
     the CPU in float32 and copied to the parameter's device, so one seed

@@ -1,5 +1,6 @@
-"""The legacy language encoder of the OneStageModel family (port of
-``simvg_tpu/models/lan_encs.py``): a (bi)GRU over word embeddings.
+"""The legacy language encoders of the OneStageModel family (port of
+``simvg_tpu/models/lan_encs.py``): a (bi)GRU over word embeddings, and
+HF BERT.
 
 JAX's recurrence (a ``lax.scan``) has the gates r, z, n in that order
 with n = tanh(i_n + r * (h W_hn + b_hn)), which is torch's ``nn.GRU``
@@ -9,9 +10,12 @@ position.  ``convert.py`` transposes JAX's ``ih`` and ``hh`` kernels of
 ``gru_fwd``/``gru_bwd`` into ``weight_ih_l0``/``weight_hh_l0`` (and their
 ``_reverse``).
 
-``BERTLanguageEncoder`` (``ALBERTA``) is not ported (ROADMAP: M20b), nor
-is the JAX encoder's pretrained ``word_emb`` table (GloVe), which no
-config sets: the word embedding starts from N(0, 0.02).
+``BERTLanguageEncoder`` is the ``ALBERTA`` type: HF BERT/roberta's post-LN
+layout under JAX's names (``word_embeddings``, ``q_i``, ``attn_ln_i``, ...),
+which ``convert.convert_hf_bert`` fills from an HF state dict.
+
+Not ported: the JAX GRU encoder's pretrained ``word_emb`` table (GloVe),
+which no config sets: the word embedding starts from N(0, 0.02).
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import warnings
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from .layers import Linear
+from simvg_tpu_torch.ops.attention import multihead_attention
+from .layers import LayerNorm, Linear
 
 
 class PhraseAttention(nn.Module):
@@ -119,15 +125,63 @@ class LSTMLanguageEncoder(nn.Module):
         return {"text_feat": y_word, "text_mask": y_mask}
 
 
+class BERTLanguageEncoder(nn.Module):
+    """The ``ALBERTA`` language encoder: HF BERT/roberta's post-LN layout
+    (residual add, then LayerNorm with epsilon 1e-12; exact GELU).  Word
+    plus position embeddings (positions from ``position_offset``: 2 for
+    roberta, 0 for BERT; HF's token-type row 0 is folded into the position
+    table by ``convert_hf_bert``), then per layer attention, ``o``,
+    ``attn_ln``, ``fc1``, ``fc2``, ``ffn_ln``.  As in JAX, the padding is
+    where the word id is 0 unless a mask is given."""
+
+    def __init__(self, vocab_size: int = 30522, hidden_size: int = 256,
+                 num_layers: int = 3, num_heads: int = 8,
+                 max_positions: int = 512, position_offset: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_layers, self.num_heads = num_layers, num_heads
+        self.position_offset, self.dtype = position_offset, dtype
+        d = hidden_size
+        self.word_embeddings = nn.Embedding(vocab_size, d)
+        self.position_embeddings = nn.Embedding(max_positions, d)
+        self.embeddings_ln = LayerNorm(d, eps=1e-12)
+        for i in range(num_layers):
+            for name in ("q", "k", "v", "o"):
+                self.add_module(f"{name}_{i}", Linear(d, d, dtype))
+            self.add_module(f"attn_ln_{i}", LayerNorm(d, eps=1e-12))
+            self.add_module(f"fc1_{i}", Linear(d, 4 * d, dtype))
+            self.add_module(f"fc2_{i}", Linear(4 * d, d, dtype))
+            self.add_module(f"ffn_ln_{i}", LayerNorm(d, eps=1e-12))
+        self.out_channels = d
+
+    def forward(self, ids: torch.Tensor, padding_mask=None):
+        dt, m = self.dtype, self.get_submodule
+        if padding_mask is None:
+            padding_mask = ids == 0
+        pos = torch.arange(ids.shape[1], device=ids.device) \
+            + self.position_offset
+        x = (F.embedding(ids, self.word_embeddings.weight).to(dt)
+             + F.embedding(pos, self.position_embeddings.weight).to(dt))
+        x = self.embeddings_ln(x).to(dt)
+        for i in range(self.num_layers):
+            a = multihead_attention(m(f"q_{i}")(x), m(f"k_{i}")(x),
+                                    m(f"v_{i}")(x), num_heads=self.num_heads,
+                                    key_padding_mask=padding_mask, dtype=dt)
+            x = m(f"attn_ln_{i}")(x + m(f"o_{i}")(a)).to(dt)
+            h = m(f"fc2_{i}")(F.gelu(m(f"fc1_{i}")(x)))
+            x = m(f"ffn_ln_{i}")(x + h).to(dt)
+        return {"text_feat": x, "text_mask": padding_mask.bool()}
+
+
 def build_lan_enc(cfg: dict, dtype: torch.dtype = torch.float32
-                  ) -> LSTMLanguageEncoder:
+                  ) -> nn.Module:
     """The language encoder of a reference-style ``lan_enc`` dict: the
-    ``LSTM``/``RNN`` types, "original" output unless the dict says."""
+    ``LSTM``/``RNN`` types ("original" output unless the dict says) and
+    ``ALBERTA``."""
     cfg = dict(cfg)
     typ = cfg.pop("type", "LSTM")
     if typ == "ALBERTA":
-        raise NotImplementedError("lan_enc type 'ALBERTA' (the HF BERT "
-                                  "encoder) is not ported (ROADMAP: M20b)")
+        return BERTLanguageEncoder(dtype=dtype, **cfg)
     if typ not in ("LSTM", "RNN"):
         raise KeyError(f"unknown lan_enc type {typ!r}")
     cfg.setdefault("output_type", "original")

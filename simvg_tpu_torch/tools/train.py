@@ -38,8 +38,9 @@ The optimizer is the config's ``optimizer_config.type`` (Adam, AdamW with
 ``with_mask`` carries ``gt_mask_rle`` and ``is_crowd`` into evaluation.
 The OneStageModel family (``configs/smoke/tiny_synth_onestage.py``) trains
 with the loss settings of ``make_train_step``'s defaults where its head
-dict gives none.  Not ported yet, raising with its ROADMAP item: the other
-legacy backbones and language encoders, and ``VGTRAugment`` (M20b).
+dict gives none, with any pure-vision backbone of the zoo and the GRU or
+ALBERTA language encoder.  Not ported yet, raising with its ROADMAP item:
+``VGTRAugment`` (M20).
 """
 
 from __future__ import annotations

@@ -10,8 +10,7 @@ the CPU with ``configs/smoke/tiny_synth.py`` and synthetic data.
 - the port's gates accept every top-level config under ``configs/``;
 - both default to the card and raise without one; the M16 settings
   (``--distributed``, ``fsdp``, ``model_parallel``, ``seq_parallel``) pass
-  the gates and train, the options that are not ported yet raise
-  NotImplementedError naming their ROADMAP item, and
+  the gates and train, as does a OneStageModel with a Swin backbone, and
   ``--quant-collection`` on a model without int8_static layers raises.
 """
 
@@ -102,16 +101,16 @@ def test_clis_default_to_the_card(tmp_path, synth):
     (["--cfg-options", "fsdp=True"], "M16"),
     (["--cfg-options", "model_parallel=2"], "M16"),
     (["--cfg-options", "model.vis_enc.seq_parallel=True"], "M16"),
-    (["--cfg-options", "model.type=OneStageModel",
-      "model.vis_enc.type=SwinTransformer"], "M20b"),
+    (["--cfg-options", "scheduler_config.max_epoch=1"], "M20b"),
     ([], "masks"),
 ])
 def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
     """The M16 settings pass the gates, build and train one epoch
     (``--distributed`` in a 1-rank gloo group, DDP; the others on one
-    device, where fsdp and the model axis shard nothing); a OneStageModel
-    with a backbone other than DarkNet53 raises naming its ROADMAP item
-    (M20b); "masks" (ported) trains one epoch of a config whose
+    device, where fsdp and the model axis shard nothing); "M20b"
+    (ported) trains one epoch of ``tiny_synth_onestage.py`` with a tiny
+    Swin in place of DarkNet53; "masks" (ported) trains one epoch of a
+    config whose
     pipelines set ``with_mask`` (the train one with SampleMaskVertices) on
     masked annotations, and its evaluation's batches carry each sample's
     ``gt_mask_rle`` and ``is_crowd`` in their meta."""
@@ -119,14 +118,19 @@ def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
 
     if item == "masks":
         return _train_with_masks(tmp_path, synth, monkeypatch)
-    argv = [TINY, "--work-dir", str(tmp_path), "--device", "cpu"]
+    config = TINY
+    if item == "M20b":
+        config = tmp_path / "tiny_swin_onestage.py"
+        config.write_text(SWIN_CONFIG.format(onestage=ONESTAGE))
+    argv = [str(config), "--work-dir", str(tmp_path), "--device", "cpu"]
     if extra[0] == "--cfg-options":
         argv += ["--cfg-options", *synth, *extra[1:]]
     else:
         argv += extra + ["--cfg-options", *synth]
-    if item != "M16":
-        with pytest.raises(NotImplementedError, match=item):
-            train_cli.main(argv)
+    if item == "M20b":
+        res = train_cli.main(argv)
+        assert res["step"] == 2 and res["eval"]["val"]["n_samples"] == 8
+        assert "SwinTransformer" in (tmp_path / "config.py").read_text()
         return
     for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
                      MASTER_PORT=str(free_port())).items():
@@ -136,6 +140,13 @@ def test_unported_options_raise(tmp_path, synth, extra, item, monkeypatch):
     assert osp.isfile(tmp_path / "latest" / "meta.json")
 
 
+ONESTAGE = osp.join(REPO, "configs", "smoke", "tiny_synth_onestage.py")
+# the OneStage smoke config with a two-stage Swin 8 wide (window 7 on the
+# 16x16 grid of 64 px, so the blocks pad and shift)
+SWIN_CONFIG = """_base_ = [{onestage!r}]
+model = dict(vis_enc=dict(_delete_=True, type="SwinTransformer", patch_size=4,
+                          embed_dim=8, depths=(2, 2), num_heads=(2, 2)))
+"""
 MASK_CONFIG = """_base_ = [{tiny!r}]
 train_pipeline = [
     dict(type="LoadImageAnnotationsFromFile", max_token=10, with_bbox=True,

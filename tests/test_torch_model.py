@@ -318,6 +318,7 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.ops.raster, simvg_tpu_torch.losses.distill, "
         "simvg_tpu_torch.engine.evaluate, simvg_tpu_torch.engine.metrics, "
         "simvg_tpu_torch.models.vis_enc_zoo, simvg_tpu_torch.models.lan_encs, "
+        "simvg_tpu_torch.models.vis_encs, "
         "simvg_tpu_torch.models.fusion, "
         "simvg_tpu_torch.models.heads.simple_head, "
         "simvg_tpu_torch.tools.vis_cam, simvg_tpu_torch.tools.heatmap, "

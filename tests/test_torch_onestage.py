@@ -490,11 +490,23 @@ def test_train_cli_one_epoch_then_test_cli(tmp_path, synth):
     ("vis_enc", dict(type="SwinTransformer"), "M20b"),
     ("lan_enc", dict(type="ALBERTA"), "M20b")])
 def test_unported_parts_raise(pair, part, value, item):
+    """The parts of ROADMAP item M20b that were refused are ported: a Swin
+    ``vis_enc`` and an ALBERTA ``lan_enc`` at their defaults build on
+    ``meta`` with the names and shapes of JAX's ``init``."""
+    from simvg_tpu.models.builder import build_model as jax_build
     from simvg_tpu_torch.models import build_model
 
     model_cfg = dict(pair[3].model, **{part: value})
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(model_cfg, img_size=64, device="meta")
+    model, _ = build_model(model_cfg, img_size=64, device="meta")
+    jm, _ = jax_build(model_cfg, img_size=64)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            **_jax(_batch()))
+    want = export_params(jax.tree.map(
+        lambda a: np.zeros(a.shape, np.float32), shapes))
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
+        {k: v.shape for k, v in want.items()}
+    assert type(getattr(model, part)).__name__ == {
+        "vis_enc": "SwinTransformer", "lan_enc": "BERTLanguageEncoder"}[part]
 
 
 @pytest.mark.parametrize("opts,option", [
