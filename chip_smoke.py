@@ -99,6 +99,19 @@ encoder at roberta-base's widths (from an HF-layout state dict), then the
 four mixed vision-language encoders alone: each float32 check at batch 2
 held to the CPU's float64 (``hold_to_cpu_float64``), bf16 steps at batch 8
 timed.
+Then "legacy": the five BEiT-3 task heads at BEiT3-base widths (batch 8,
+bf16, K1; the public BEiT-3 recipes' resolutions: ImageNet classification
+at 224 px, VQAv2 at 480 px with 3129 answers and 32 question tokens,
+NLVR2 at 224 px, COCO retrieval at 384 px, captioning at 480 px), each
+forward held by the bf16 rule and every K1 call by the per-call rule, the
+VQA head's loss gradients through K2 too, K1 counted (12, 12, 24, 24 and 0
+for captioning, whose uni-directional mask takes the plain path, and its
+8-step ``greedy_generate``), each forward timed; the SeqTR/MDETR
+transformers at their JAX defaults over a [8, 20, 20, 1024] map, float32
+on the card held to the CPU's float64 (``generate``'s ids too), and the
+three legacy losses on the card against the CPU's; the flagship with
+refcoco-unc_vgtr.py's VGTRAugment pipeline through the train CLI on the
+synthetic JPEGs, the VGTR pixel ops on the card against the CPU's.
 K1/K2 launches are counted from 0 around each path.
 
 Every phase raises on failure; there is no CPU path.
@@ -153,6 +166,12 @@ K1_CHECKS = [  # (batch, seq, heads, head_dim, dtype name, bound)
     # token pruning at keep=300 after layer 4: 1 + 300 patches + 20 text
     (8, 321, 12, 64, "bfloat16", 2e-2),
     (TRAIN_BATCH, 321, 12, 64, "bfloat16", 2e-2),
+    # the BEiT-3 task heads ("legacy"): vision-only at 224 and 384 px,
+    # joint at 480 px with 32 text tokens, text-only (one partial K/V tile)
+    (8, 197, 12, 64, "bfloat16", 2e-2),
+    (8, 577, 12, 64, "bfloat16", 2e-2),
+    (8, 933, 12, 64, "bfloat16", 2e-2),
+    (8, 32, 12, 64, "bfloat16", 2e-2),
 ]
 # K2 vs its plain version.  float32: the gradient bounds of
 # tests/test_pallas_attention.py.  bf16: 2e-2 of each gradient's max |value|,
@@ -165,6 +184,7 @@ K2_CHECKS = [  # (batch, seq, heads, head_dim, dtype name)
     (8, 421, 12, 64, "float32"),
     (2, 1621, 16, 64, "bfloat16"),  # patch-16 sequence, large heads
     (TRAIN_BATCH, 277, 12, 64, "bfloat16"),  # Mixed at 512 px
+    (8, 933, 12, 64, "bfloat16"),  # the VQA head's backward ("legacy")
 ]
 K2_FP32_ATOL, K2_FP32_RTOL = 3e-4, 1e-3
 K2_BF16_REL = 2e-2
@@ -3627,7 +3647,8 @@ ZOO_TEXT_PAD = 6  # padded text positions at the end of each sample
 ZOO_IMG = 640  # the mixed encoders' canvas (the OneStage models: the config's)
 
 
-def hold_to_cpu_float64(name, run, card, conv_slack=None):
+def hold_to_cpu_float64(name, run, card, conv_slack=None, label="zoo",
+                        batch=ZOO_BATCH):
     """``run(device, dtype)`` -> {name: tensor} on the CPU in float64, then
     on the card and the CPU in float32, each float32 run on the float64
     run's side of every discrete choice: the Hungarian matchings
@@ -3657,7 +3678,7 @@ def hold_to_cpu_float64(name, run, card, conv_slack=None):
             got.append({k: v.detach().double().cpu()
                         for k, v in run(dev, dtype).items()})
         moved.append((moves, kinks))
-        log(f"zoo[{name}] {str(dtype)[6:]} {dev}: "
+        log(f"{label}[{name}] {str(dtype)[6:]} {dev}: "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
     ref, on_card, on_cpu = got
     grads = [v.abs().max().item() for k, v in ref.items() if k[:4] == "grad"]
@@ -3678,7 +3699,7 @@ def hold_to_cpu_float64(name, run, card, conv_slack=None):
     needed = sorted((k for k in slack if rows[k][0] > ONESTAGE_FACTOR
                      * rows[k][1] + ONESTAGE_FLOOR), key=lambda k: -rows[k][0])
     worst = sorted(rows.items(), key=lambda kv: -kv[1][0])[:3]
-    log(f"zoo[{name}] fp32 card vs CPU, batch {ZOO_BATCH}: "
+    log(f"{label}[{name}] fp32 card vs CPU, batch {batch}: "
         f"{len(rows)} tensors ({len(grads)} gradients); distance from the "
         f"CPU's float64 (card, CPU; rule card <= {ONESTAGE_FACTOR} x CPU + "
         f"{ONESTAGE_FLOOR} + cuDNN's witness for a conv weight): "
@@ -3702,7 +3723,7 @@ def hold_to_cpu_float64(name, run, card, conv_slack=None):
                         for k in needed[:6]) or "none")
            if slack else ""))
     if bad:
-        raise AssertionError(f"zoo[{name}]: the card's float32 against the "
+        raise AssertionError(f"{label}[{name}]: the card's float32 against the "
                              f"CPU's float64 (card, CPU[, cuDNN witness, "
                              f"torch's own]): {sorted(bad.items())[:6]}")
 
@@ -4033,6 +4054,427 @@ def zoo_phase(card, root, synth, launches):
         zoo_mixed(typ, card, launches)
 
 
+# -- "legacy": the BEiT-3 task heads, the SeqTR/MDETR layers and
+# losses, VGTRAugment ------------------------------------------------------
+
+LEGACY_BATCH = 8
+HEAD_ITERS = 5  # timed forwards (or VQA steps) a head, after one warm-up
+# the public BEiT-3 fine-tuning recipes (microsoft/unilm beit3/): image
+# size at patch 16, and K1 launches of one forward (12 layers an encode)
+HEADS = {"classification": (224, 12),  # ImageNet, vision-only S=197
+         "vqa": (480, 12),  # VQAv2, joint S=901+32
+         "reasoning": (224, 24),  # NLVR2, two joint encodes
+         "retrieval": (384, 24),  # COCO, vision-only S=577, text-only S=32
+         "captioning": (480, 0)}  # COCO captioning, uni-mask: plain path
+VQA_ANSWERS = 3129
+HEAD_TEXT, HEAD_TEXT_PAD = 32, 8  # question tokens, the padded ones
+CAPTION_STEPS = 8  # greedy_generate steps (max_len 9)
+# the legacy transformers at their JAX defaults over a [8, 20, 20, 1024] map
+LEGACY_MAP = (20, 20, 1024)
+MDETR_TEXT = (20, 768)  # text tokens, feature width
+LOSS_REL = 1e-6  # the card's legacy losses against the CPU's, relative
+VGTR_BASE = os.path.join(REPO, "configs", "_base_", "datasets", "detection",
+                         "refcoco-unc_vgtr.py")
+
+
+def head_model(name, impl, dtype, state=None):
+    """A BEiT3-base task head on the card (bf16 or float32 compute,
+    ``attn_impl`` ``impl``): random weights from SEED, or ``state``."""
+    import torch
+    from simvg_tpu_torch.models import init_random_weights
+    from simvg_tpu_torch.models import beit3_heads as bh
+    from simvg_tpu_torch.models.beit3 import BEiT3Config
+
+    cfg = BEiT3Config.base(img_size=HEADS[name][0], patch_size=16,
+                           drop_path_rate=0.0, attn_impl=impl, dtype=dtype)
+    make = {"classification": lambda: bh.BEiT3ForImageClassification(
+                cfg, 1000),
+            "vqa": lambda: bh.BEiT3ForVisualQuestionAnswering(
+                cfg, VQA_ANSWERS),
+            "reasoning": lambda: bh.BEiT3ForVisualReasoning(cfg),
+            "retrieval": lambda: bh.BEiT3ForRetrieval(cfg),
+            "captioning": lambda: bh.BEiT3ForCaptioning(cfg)}[name]
+    with torch.device("meta"):
+        model = make()
+    model = model.to_empty(device="cuda")
+    if state is None:
+        init_random_weights(model, SEED)
+    else:
+        model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def head_inputs(name, seed):
+    """The head's keyword inputs at LEGACY_BATCH: N(0, 1) images, word ids
+    of HEAD_TEXT tokens with the last HEAD_TEXT_PAD padded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    size = HEADS[name][0]
+
+    def image():
+        return torch.as_tensor(rng.standard_normal(
+            (LEGACY_BATCH, size, size, 3), np.float32)).cuda()
+
+    ids = torch.as_tensor(rng.integers(2, 64010, (LEGACY_BATCH,
+                                                  HEAD_TEXT))).cuda()
+    pad = torch.zeros_like(ids)
+    pad[:, -HEAD_TEXT_PAD:] = 1
+    return {"classification": lambda: dict(image=image()),
+            "vqa": lambda: dict(image=image(), question_ids=ids,
+                                padding_mask=pad),
+            "reasoning": lambda: dict(image_a=image(), image_b=image(),
+                                      text_ids=ids, padding_mask=pad),
+            "retrieval": lambda: dict(image=image(), text_ids=ids,
+                                      padding_mask=pad),
+            "captioning": lambda: dict(image=image(), text_ids=ids,
+                                       padding_mask=pad)}[name]()
+
+
+def head_outputs(model, kw):
+    out = model(**kw)
+    out = out if isinstance(out, tuple) else (out,)
+    return [o.float() for o in out if o is not None]
+
+
+def timed_ms(fn, iters):
+    """Median ms (host clock around a synchronised call) of ``iters`` calls
+    after one warm-up, and the peak allocated GiB."""
+    import torch
+
+    fn()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    return ms[len(ms) // 2], torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def heads_part(card, launches):
+    """Each BEiT-3 task head at BEiT3-base widths (HEADS), bf16 with the
+    kernels, on random weights from SEED at LEGACY_BATCH: its forward with
+    K1 counted; every output held by the bf16 rule to the float32 model
+    with plain attention on the same weights (beside the bf16 plain
+    model), every K1 call by the per-call rule; the forward timed.  VQA:
+    one backward of its loss through K2, the loss and gradients held by
+    the bf16 rule and every K1/K2 call by the per-call rule, the step
+    timed.  Captioning: an 8-step ``greedy_generate``, 0 K1, its ids the
+    plain bf16 model's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    for name, (size, want_k1) in HEADS.items():
+        t0 = time.perf_counter()
+        kern = head_model(name, "pallas", torch.bfloat16)
+        state = kern.state_dict()
+        plain = head_model(name, "xla", torch.bfloat16, state)
+        ref32 = head_model(name, "xla", torch.float32, state)
+        kw = head_inputs(name, SEED + 50)
+        with torch.no_grad():
+            with recorded_attention() as calls:
+                out = counted_run(f"legacy[{name} forward]",
+                                  lambda: head_outputs(kern, kw), want_k1,
+                                  0, card, launches)
+            ref = head_outputs(ref32, kw)
+            out_p = head_outputs(plain, kw)
+        d_k = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+        d_p = [(o - r).abs().max().item() for o, r in zip(out_p, ref)]
+        if not all(torch.isfinite(o).all() for o in out) or not all(
+                a <= BF16_REF_FACTOR * b + OUT_FLOOR for a, b in zip(d_k, d_p)):
+            raise AssertionError(f"legacy[{name}]: bf16 outputs with the "
+                                 f"kernels {d_k}, plain {d_p} from float32")
+        if want_k1:
+            hold_calls_against_fp32(f"legacy[{name}]", calls)
+        with torch.no_grad():
+            ms, gib = timed_ms(lambda: head_outputs(kern, kw), HEAD_ITERS)
+        log(f"legacy[{name}] BEiT3-base at {size} px, batch {LEGACY_BATCH}, "
+            f"bf16: outputs {[tuple(o.shape) for o in out]}, max abs "
+            f"distance from the float32 plain model with the kernels {d_k}, "
+            f"plain {d_p} (bound {BF16_REF_FACTOR} x plain + {OUT_FLOOR}); "
+            f"forward median {ms:.3f} ms, peak {gib:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+        if name == "vqa":
+            rng = np.random.default_rng(SEED + 51)
+            target = torch.as_tensor(
+                (rng.random((LEGACY_BATCH, VQA_ANSWERS)) < 2e-3)
+                * rng.random((LEGACY_BATCH, VQA_ANSWERS)),
+                dtype=torch.float32).cuda()
+
+            def step(model):
+                model.zero_grad(set_to_none=True)
+                logits = model(**kw)
+                loss = F.binary_cross_entropy_with_logits(
+                    logits.float(), target) * VQA_ANSWERS
+                loss.backward()
+                return loss
+
+            runs = {}
+            for label, model in (("fp32 plain", ref32), ("kernels", kern),
+                                 ("plain", plain)):
+                if label == "kernels":
+                    with recorded_attention() as calls:
+                        loss = counted_run("legacy[vqa backward]",
+                                           lambda: step(kern), 12, 12, card,
+                                           launches)
+                else:
+                    loss = step(model)
+                runs[label] = (loss.item(), {
+                    n: p.grad.float() for n, p in model.named_parameters()
+                    if p.grad is not None})
+            loss32, grads32 = runs.pop("fp32 plain")
+            gmax = max(g.abs().max().item() for g in grads32.values())
+            gnorm = l2(grads32.values())
+            dist = {label: dict(
+                loss=abs(loss - loss32) / abs(loss32),
+                grad_max=max((grads[n] - g).abs().max().item()
+                             for n, g in grads32.items()) / gmax,
+                grad_l2=l2(grads[n] - g for n, g in grads32.items()) / gnorm)
+                for label, (loss, grads) in runs.items()}
+            log(f"legacy[vqa] one backward, bf16, distance from the float32 "
+                f"plain model, relative: with K1/K2 {dist['kernels']}, plain "
+                f"{dist['plain']} (bound {BF16_REF_FACTOR} x plain + "
+                f"{LOSS_FLOOR} or {GRAD_FLOOR})")
+            bad = [k for k, v in dist["kernels"].items()
+                   if not v <= BF16_REF_FACTOR * dist["plain"][k]
+                   + (GRAD_FLOOR if k.startswith("grad") else LOSS_FLOOR)]
+            if bad:
+                raise AssertionError(f"legacy[vqa]: the backward with K1/K2 "
+                                     f"is further from float32 than the "
+                                     f"bound in {bad}")
+            hold_calls_against_fp32("legacy[vqa backward]", calls)
+            ms, gib = timed_ms(lambda: step(kern), HEAD_ITERS)
+            log(f"legacy[vqa] forward + backward, batch {LEGACY_BATCH}, "
+                f"bf16 with K1/K2: median {ms:.3f} ms, peak {gib:.2f} GiB "
+                f"[{card}]")
+            for model in (kern, plain, ref32):
+                model.zero_grad(set_to_none=True)
+
+        if name == "captioning":
+            image = kw["image"]
+            ids = counted_run("legacy[captioning greedy_generate]",
+                              lambda: kern.greedy_generate(
+                                  image, bos_id=0, eos_id=2,
+                                  max_len=CAPTION_STEPS + 1),
+                              0, 0, card, launches)
+            ids_p = plain.greedy_generate(image, bos_id=0, eos_id=2,
+                                          max_len=CAPTION_STEPS + 1)
+            if not torch.equal(ids, ids_p) or not (
+                    (ids >= 0) & (ids < 64010)).all():
+                raise AssertionError(f"legacy[captioning]: greedy ids {ids} "
+                                     f"against the plain model's {ids_p}")
+            ms, _ = timed_ms(lambda: kern.greedy_generate(
+                image, bos_id=0, eos_id=2, max_len=CAPTION_STEPS + 1), 1)
+            log(f"legacy[captioning] greedy_generate, {CAPTION_STEPS} steps "
+                f"at batch {LEGACY_BATCH}: ids {tuple(ids.shape)} equal to "
+                f"the plain model's, {ms:.3f} ms [{card}]")
+        del kern, plain, ref32, state
+        torch.cuda.empty_cache()
+
+
+def legacy_layers_part(card, launches):
+    """AutoRegressiveTransformer and MDETRTransformer at their JAX defaults
+    over a LEGACY_MAP feature map at LEGACY_BATCH (some samples padded),
+    random weights from SEED: each float32 forward on the card held to the
+    CPU's float64 by ``hold_to_cpu_float64``, ``generate``'s ids the
+    float64 run's; then the three legacy losses on the card against the
+    CPU's.  Plain attention: no K1 or K2."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.losses import legacy as losses
+    from simvg_tpu_torch.models import init_random_weights
+    from simvg_tpu_torch.models.legacy_layers import (
+        AutoRegressiveTransformer, MDETRTransformer)
+
+    h, w, c = LEGACY_MAP
+    rng = np.random.default_rng(SEED + 60)
+    x = rng.standard_normal((LEGACY_BATCH, h, w, c), np.float32)
+    mask = np.zeros((LEGACY_BATCH, h, w), bool)
+    for i in range(LEGACY_BATCH):  # letterboxed maps: padded right, bottom
+        mask[i, h - i // 2:] = True
+        mask[i, :, w - i:] = True
+    n_txt, width = MDETR_TEXT
+    text = rng.standard_normal((LEGACY_BATCH, n_txt, width), np.float32)
+    tmask = np.zeros((LEGACY_BATCH, n_txt), bool)
+    for i in range(LEGACY_BATCH):
+        tmask[i, n_txt - 3 - i:] = True
+    seq = rng.integers(0, 1003, (LEGACY_BATCH, 5))
+    models = {"AutoRegressiveTransformer": lambda dt: AutoRegressiveTransformer(
+                  c, dtype=dt),
+              "MDETRTransformer": lambda dt: MDETRTransformer(
+                  c, text_dim=width, dtype=dt)}
+    ids = {}
+    for name, make in models.items():
+        sd = init_random_weights(make(torch.float32), SEED).state_dict()
+
+        def run(dev, dtype, name=name, make=make):
+            with torch.device(dev):
+                model = make(dtype)
+            model.load_state_dict(sd)
+            model.eval()
+            args = [torch.as_tensor(a).to(dev) for a in (x, mask, text,
+                                                         tmask)]
+            args[0], args[2] = args[0].to(dtype), args[2].to(dtype)
+            with torch.no_grad():
+                if name == "MDETRTransformer":
+                    return {"out": model(*args)}
+                s = torch.as_tensor(seq).to(dev)
+                ids[dev, dtype] = model.generate(args[0], 0, 4).cpu()
+                return {"logits": model(args[0], s, args[1])}
+
+        counted_run(f"legacy[{name} fp32 card vs float64 CPU]",
+                    lambda: hold_to_cpu_float64(name, run, card,
+                                                label="legacy",
+                                                batch=LEGACY_BATCH),
+                    0, 0, card, launches)
+    ref = ids["cpu", torch.float64]
+    same = {f"{d} {str(t)[6:]}": bool(torch.equal(v, ref))
+            for (d, t), v in ids.items()}
+    log(f"legacy[AutoRegressiveTransformer] generate, 4 steps: ids equal to "
+        f"the CPU's float64 run's: {same}")
+    if not same["cuda float32"]:
+        raise AssertionError(f"legacy: generate's ids on the card "
+                             f"{ids['cuda', torch.float32]} against float64 "
+                             f"{ref}")
+
+    # the losses: the card's float32 against the CPU's
+    logits = rng.standard_normal((LEGACY_BATCH, 5, 1003), np.float32) * 3
+    tgt = rng.integers(0, 1003, (LEGACY_BATCH, 5))
+    wts = rng.random((LEGACY_BATCH, 5)).astype(np.float32)
+
+    def boxes(*shape):
+        return np.stack([rng.uniform(0.3, 0.7, shape),
+                         rng.uniform(0.3, 0.7, shape),
+                         rng.uniform(0.05, 0.3, shape),
+                         rng.uniform(0.05, 0.3, shape)], -1).astype(
+                             np.float32)
+
+    pred, gt = boxes(LEGACY_BATCH), boxes(LEGACY_BATCH)
+    q_logits = rng.standard_normal((LEGACY_BATCH, 100, 256), np.float32)
+    q_boxes, t_boxes = boxes(LEGACY_BATCH, 100), boxes(LEGACY_BATCH, 4)
+    valid = np.arange(4)[None] < (np.arange(LEGACY_BATCH) % 5)[:, None]
+    pmap = (rng.random((LEGACY_BATCH, 4, 256)) < 0.05).astype(np.float32)
+    pmap /= np.maximum(pmap.sum(-1, keepdims=True), 1)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        def t(a, dev=dev):
+            return torch.as_tensor(a).to(dev)
+
+        lg = t(logits).requires_grad_()
+        ce = losses.label_smooth_ce(lg, t(tgt), t(wts))
+        ce.backward()
+        p = t(pred).requires_grad_()
+        total, l1, giou = losses.box_loss(p, t(gt))
+        total.backward()
+        c4r, r4c = losses.mdetr_hungarian_match(
+            t(q_logits), t(q_boxes), t(t_boxes), t(valid), t(pmap))
+        got[dev] = dict(ce=ce, ce_grad=lg.grad, box=total, l1=l1, giou=giou,
+                        box_grad=p.grad, col4row=c4r, row4col=r4c)
+    dist = {}
+    for k, a in got["cpu"].items():
+        b = got["cuda"][k].cpu()
+        if a.dtype == torch.int64:
+            if not torch.equal(a, b):
+                raise AssertionError(f"legacy[{k}]: card {b} against CPU {a}")
+            continue
+        dist[k] = (a.detach() - b.detach()).abs().max().item() / max(
+            a.detach().abs().max().item(), 1e-30)
+    log(f"legacy losses at batch {LEGACY_BATCH} (label_smooth_ce over 1003 "
+        f"classes, box_loss, the mdetr matching of 100 queries): card "
+        f"float32 against the CPU's, relative {dist} (bound {LOSS_REL}); "
+        f"matchings equal")
+    if not all(v <= LOSS_REL for v in dist.values()):
+        raise AssertionError(f"legacy losses: {dist}")
+
+
+def vgtr_part(card, root, opts, launches):
+    """VGTRAugment on the card: the flagship with refcoco-unc_vgtr.py's
+    pipelines (VGTRAugment at 512 px in train, a 512 px resize in
+    evaluation) through the train CLI for one epoch on the synthetic JPEGs,
+    K1/K2 counted; the VGTR pixel ops of 8 samples on their nvJPEG-decoded
+    images on the card against the same ops on the CPU on the same decoded
+    images; the dataset's host ms a sample and the card's pixel-op ms."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data.builder import build_dataset_from_cfg
+    from simvg_tpu_torch.data.image_ops import apply_pixel_ops
+    from simvg_tpu_torch.data.jpeg import decode
+    from simvg_tpu_torch.tools import train as train_cli
+
+    base = Config.fromfile(VGTR_BASE)
+    path = os.path.join(root, "vgtr.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{FLAGSHIP!r}]\n"
+                f"train_pipeline = {base.train_pipeline!r}\n"
+                f"test_pipeline = {base.val_pipeline!r}\n"
+                "data = dict(" + ", ".join(
+                    f"{s}=dict(pipeline={p}_pipeline)" for s, p in
+                    (("train", "train"), ("val", "test"), ("testA", "test"),
+                     ("testB", "test"))) + ")\n")
+    wd = os.path.join(root, "vgtr_work")
+    steps, evals = N_SYNTH_TRAIN // TRAIN_BATCH, 3
+    res = counted_run("legacy[VGTR train CLI]", lambda: train_cli.main(
+        [path, "--work-dir", wd, "--cfg-options", *opts,
+         "scheduler_config.max_epoch=1"]),
+        K1_STEP * (steps + evals), K1_STEP * steps, card, launches)
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss_total"] for line in f
+                  if '"train"' in line]
+    if res["step"] != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"VGTR train CLI: {res['step']} steps, losses "
+                             f"{losses}")
+    ep = res["epochs"][0]
+
+    cfg = Config.fromfile(path)
+    cfg.merge_from_dict(parse_cfg_options(opts))
+    ds = build_dataset_from_cfg(cfg.data.train, dataset_type=cfg.dataset,
+                                seed=cfg.seed)
+    n = min(16, len(ds))
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in range(n)]
+    host = (time.perf_counter() - t0) * 1e3 / n
+    worst, differ, dev_ms = 0, 0, []
+    for s in samples[:8]:
+        img = decode(s["img_bytes"], "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = apply_pixel_ops(img, s["pixel_ops"])
+        torch.cuda.synchronize()
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+        on_cpu = apply_pixel_ops(img.cpu(), s["pixel_ops"])
+        diff = (on_card.cpu().int() - on_cpu.int()).abs()
+        worst, differ = max(worst, diff.max().item()), differ + int(
+            (diff > 0).sum())
+    bound = len(samples[0]["pixel_ops"])
+    log(f"legacy[VGTR]: train CLI {steps} steps of {TRAIN_BATCH}, loss_total "
+        f"{losses}, epoch {ep['seconds']:.2f} s ({ep['images_per_s']:.1f} "
+        f"images/s), eval {res['eval']['val']}; dataset host {host:.3f} ms a "
+        f"sample (VGTR draws and geometry, no pixels); pixel ops on the "
+        f"card {np.median(dev_ms):.3f} ms a 480x640 sample (median of 8); "
+        f"card against CPU on the same decoded images: max {worst} levels, "
+        f"{differ} values differ (bound {bound}: a level an op) [{card}]")
+    if worst > bound:
+        raise AssertionError(f"VGTR pixel ops: the card {worst} levels from "
+                             f"the CPU")
+
+
+def legacy_phase(card, root, synth, launches):
+    """The BEiT-3 task heads (``heads_part``), the SeqTR/MDETR layers and
+    the legacy losses (``legacy_layers_part``), and VGTRAugment through the
+    train CLI (``vgtr_part``)."""
+    heads_part(card, launches)
+    legacy_layers_part(card, launches)
+    vgtr_part(card, root, synth, launches)
+
+
 def serving_phases(card, root, synth):
     """The serving entry points: "prune", "export", "serve", "demo" and
     "inference", each path's K1 launches counted from 0 around it.
@@ -4134,7 +4576,8 @@ def main() -> int:
         # phases after them compare models within the phase
         new = {}
         for name, fn in (("onestage", onestage_phase),
-                         ("tools", tools_phase), ("zoo", zoo_phase)):
+                         ("tools", tools_phase), ("zoo", zoo_phase),
+                         ("legacy", legacy_phase)):
             t0 = time.perf_counter()
             counts = []
             fn(card, root, synth, counts)
@@ -4160,11 +4603,12 @@ def main() -> int:
         + ", ".join(f"{k} {v}" for k, v in serving.items())
         + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}, onestage "
         f"{new['onestage'][0]}, tools {new['tools'][0]}, zoo "
-        f"{new['zoo'][0]}; K2 train "
+        f"{new['zoo'][0]}, legacy {new['legacy'][0]}; K2 train "
         f"{train_k2}, options {options_k2}, cli {cli_k2}, grec {grec_k2}, "
         f"mixed {mixed_k2}, masks {masks_k2}, int8 {int8_k2}, remat "
         f"{remat_k2}, dist {dist_k2}, onestage {new['onestage'][1]}, tools "
-        f"{new['tools'][1]}, zoo {new['zoo'][1]}")
+        f"{new['tools'][1]}, zoo {new['zoo'][1]}, legacy "
+        f"{new['legacy'][1]}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train

@@ -24,6 +24,9 @@ same bicubic resize); an HF BERT/roberta one goes into the ALBERTA
 GRU's kernels are transposed (the GRU's into ``nn.GRU``'s names), and the
 DETR head's decoder, encoder,
 ``input_proj`` and ``query_embed`` take the flagship head's names.
+``export_beit3_heads`` maps a BEiT-3 task head's tree (``beit3`` plus
+the head's own modules, ``models/beit3_heads.py``) and ``export_legacy``
+a SeqTR/MDETR transformer's (``models/legacy_layers.py``).
 ``export_params`` picks the exporter from the tree's top-level keys.
 
 ``quant_key_to_jax`` and ``quant_keys_from_jax`` name the int8 serving
@@ -203,9 +206,9 @@ def load_pretrained_into_model(model: torch.nn.Module, path: str,
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict) -> torch.nn.Module:
-    """Loads a flax param tree (``{"params": {"beit3": ..., "head": ...}}``
-    or a composed model's, numpy or JAX arrays) into ``model`` with
-    ``strict=True``."""
+    """Loads a flax param tree (``{"params": {"beit3": ..., "head": ...}}``,
+    a composed model's, a BEiT-3 task head's or a legacy transformer's,
+    numpy or JAX arrays) into ``model`` with ``strict=True``."""
     sd = {k: torch.from_numpy(np.array(v, np.float32))
           for k, v in export_params(params).items()}
     model.load_state_dict(sd, strict=True)
@@ -213,12 +216,57 @@ def load_jax_params(model: torch.nn.Module, params: Dict) -> torch.nn.Module:
 
 
 def export_params(params: Dict) -> Dict[str, np.ndarray]:
-    """A flax param (or gradient) tree of either family -> the port's state
-    dict: ``export_composed`` for a OneStageModel tree, else
-    ``export_simvg_full``."""
-    if "vis_enc" in params["params"]:
+    """A flax param (or gradient) tree -> the port's state dict:
+    ``export_composed`` for a OneStageModel tree, ``export_simvg_full`` for
+    a SimVG model's (``beit3`` and the DETR ``head``), ``export_beit3_heads``
+    for a BEiT-3 task head's (``beit3`` beside the head's own modules; NLVR2's
+    ``head`` is a TwoLayerMLP), else ``export_legacy``."""
+    top = params["params"]
+    if "vis_enc" in top:
         return export_composed(params)
-    return export_simvg_full(params)
+    if "beit3" in top:
+        if set(top) == {"beit3", "head"} and "dense1" not in top["head"]:
+            return export_simvg_full(params)
+        return export_beit3_heads(params)
+    return export_legacy(params)
+
+
+def export_beit3_heads(params: Dict) -> Dict[str, np.ndarray]:
+    """A BEiT-3 task head's flax tree (``{"params": {"beit3": ..., "pooler"
+    / "head" / "fc_norm" / ...}}``) -> the port's state dict: the encoder
+    under ``beit3.`` by ``_export_beit3_key``, the rest by ``_torch_leaf``."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in _flatten(params["params"]).items():
+        top, _, rest = path.partition("/")
+        if top != "beit3":
+            name, value = _torch_leaf(path, v)
+        elif rest == "vision_embed/proj/kernel":
+            name, value = ("beit3.vision_embed.proj.weight",
+                           np.transpose(v, (3, 2, 0, 1)))
+        else:
+            key, transpose = _export_beit3_key(rest.split("/"))
+            name, value = "beit3." + key, (v.T if transpose else v)
+        sd[name] = np.ascontiguousarray(value)
+    return sd
+
+
+# the legacy transformers' lists of layers: flax ``<name>_<i>``
+_LEGACY_LISTS = ("encoder_layers", "decoder_layers", "enc", "dec")
+
+
+def export_legacy(params: Dict) -> Dict[str, np.ndarray]:
+    """An ``AutoRegressiveTransformer`` or ``MDETRTransformer`` flax tree ->
+    the port's state dict: ``encoder_layers_0`` -> ``encoder_layers.0``
+    (``enc_0`` -> ``enc.0``), then ``_torch_leaf``."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in _flatten(params["params"]).items():
+        parts = path.split("/")
+        base, _, idx = parts[0].rpartition("_")
+        if base in _LEGACY_LISTS and idx.isdigit():
+            parts[0] = f"{base}.{idx}"
+        name, value = _torch_leaf("/".join(parts), v)
+        sd[name] = np.ascontiguousarray(value)
+    return sd
 
 
 # JAX's GRU module -> the suffix of nn.GRU's parameter names

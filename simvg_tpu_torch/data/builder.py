@@ -10,8 +10,8 @@
   collation replaces them.
 
 ``SampleMaskVertices`` samples the mask's contour on the host;
-``VGTRAugment`` (the legacy VGTR family, M20) is not ported yet and
-raises.
+``VGTRAugment`` (the legacy VGTR family, ``vgtr_aug.py``) draws on the host
+and records its pixel ops for the loader's device.
 """
 
 from __future__ import annotations
@@ -21,9 +21,9 @@ from typing import Any, Dict, Optional, Tuple
 from . import transforms as T
 from .datasets import BaseDataset, build_dataset
 from .loader import DataLoader
+from .vgtr_aug import VGTRAugment
 
 _NOOP_TYPES = {"DefaultFormatBundle", "CollectData"}
-_NOT_PORTED = {"VGTRAugment": "M20"}
 
 
 def build_pipeline(pipeline_cfg, normalize_on_device: bool = False
@@ -54,9 +54,8 @@ def build_pipeline(pipeline_cfg, normalize_on_device: bool = False
             tfs.append(T.Pad(**op))
         elif kind == "SampleMaskVertices":
             tfs.append(T.SampleMaskVertices(**op))
-        elif kind in _NOT_PORTED:
-            raise NotImplementedError(f"pipeline op {kind!r} is not ported "
-                                      f"yet (ROADMAP: {_NOT_PORTED[kind]})")
+        elif kind == "VGTRAugment":
+            tfs.append(VGTRAugment(**op))
         elif kind in _NOOP_TYPES:
             continue
         else:

@@ -176,7 +176,15 @@ class BaseDataset:
             self._load_bbox(s, ann, expr_idx)
         if self.with_mask:
             self._load_mask(s, ann)
-        return self.pipeline(s)
+        s = self.pipeline(s)
+        if s["expression"] != expression:
+            # a transform rewrote the text (VGTRAugment's flip swaps left
+            # and right): the ids encoded above would keep the old side
+            ids, mask = self.tokenizer.encode(s["expression"],
+                                              self.max_token)
+            s["ref_expr_inds"] = ids
+            s["text_attention_mask"] = mask
+        return s
 
     def _load_mask(self, s: dict, ann: dict):
         """Polygon-or-RLE GT mask -> bitmap, RLE and is_crowd."""

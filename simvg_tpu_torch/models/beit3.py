@@ -17,8 +17,10 @@ multiway ``Linear``s of each layer (``quant``, ``ops/quant.py``); and
 activation checkpointing of each layer (``remat``, ``remat_policy``); and
 ``seq_parallel``, the residual stream sharded over the sequence between
 the blocks when a tensor-parallel layout sets ``seq_mesh``
-(``parallel/mesh.py``).  Left out: ``scan_layers`` (a JAX compile device),
-``attn_bias`` and the single-modality modes.
+(``parallel/mesh.py``); the vision-only and text-only encodes (an empty
+other segment) and an additive ``attn_bias``, which the BEiT-3 task heads
+use (``models/beit3_heads.py``).  Left out: ``scan_layers`` (a JAX compile
+device).
 """
 
 from __future__ import annotations
@@ -161,11 +163,13 @@ class MultiwayAttention(nn.Module):
         self.inner_attn_ln = _multiway(
             lambda: LayerNorm(d, eps=cfg.layernorm_eps))
 
-    def forward(self, xs, key_padding_mask, return_cls_attn: bool = False):
+    def forward(self, xs, key_padding_mask, return_cls_attn: bool = False,
+                attn_bias=None):
         """With ``return_cls_attn`` also returns the CLS query's attention
         over the joint sequence, float32 [B, S] averaged over heads (the
         token-pruning score); the attention output still comes from
-        ``multihead_attention`` (K1 with ``attn_impl="pallas"``)."""
+        ``multihead_attention`` (K1 with ``attn_impl="pallas"``, unless an
+        additive ``attn_bias`` [S, S] sends it to the plain path)."""
         cfg = self.cfg
         split = xs[0].shape[1]
 
@@ -180,6 +184,7 @@ class MultiwayAttention(nn.Module):
             q, k, proj(self.v_proj),
             num_heads=heads,
             key_padding_mask=key_padding_mask,
+            attn_bias=attn_bias,
             dropout_rate=cfg.attention_dropout,
             deterministic=not self.training,
             dtype=cfg.dtype,
@@ -227,13 +232,13 @@ class EncoderLayer(nn.Module):
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, xs, key_padding_mask, return_cls_attn: bool = False,
-                seq=None):
+                seq=None, attn_bias=None):
         """With ``seq`` (a ``SeqShard``) ``xs`` and the result are this
         rank's sequence shards, and each block takes the whole sequence
         after its LayerNorm."""
         gather = seq.gather if seq is not None else (lambda h: h)
         hs = self.self_attn(gather(self.self_attn_layer_norm(xs)),
-                            key_padding_mask, return_cls_attn)
+                            key_padding_mask, return_cls_attn, attn_bias)
         if return_cls_attn:
             hs, cls_attn = hs
         hs = self.drop_path(hs)
@@ -256,7 +261,7 @@ def _save_param_matmuls(ctx, op, *args, **kwargs):
 
 
 def remat_layer(layer: nn.Module, xs, pad, policy: str = "full",
-                seq=None):
+                seq=None, attn_bias=None):
     """``layer(xs, pad)`` under activation checkpointing
     (``torch.utils.checkpoint``, non-reentrant): ``"full"`` keeps the
     layer's inputs only, ``"dots"`` also its parameter matmuls' outputs.
@@ -275,12 +280,12 @@ def remat_layer(layer: nn.Module, xs, pad, policy: str = "full",
     def run(xs, pad):
         if not replay:  # the forward
             replay.append(True)
-            return layer(xs, pad, seq=seq)
+            return layer(xs, pad, seq=seq, attn_bias=attn_bias)
         now = [g.get_state() for g in gens]
         for g, state in zip(gens, saved):
             g.set_state(state)
         try:
-            return layer(xs, pad, seq=seq)
+            return layer(xs, pad, seq=seq, attn_bias=attn_bias)
         finally:
             for g, state in zip(gens, now):
                 g.set_state(state)
@@ -386,9 +391,19 @@ class BEiT3Encoder(nn.Module):
     token pruning P is ``token_prune_keep``, and ``return_prune_idx`` adds
     the kept patches' [B, K] indices in the original grid (None when
     pruning is off).
+
+    ``text_ids=None`` gives a vision-only encode and ``images=None`` a
+    text-only one: the same layers run with an empty other segment, and
+    the absent modality's outputs are None.  ``attn_bias`` is an additive
+    [S, S] mask over the joint sequence (captioning's uni-directional
+    mask); it takes the plain attention path.
     """
 
-    def __init__(self, cfg: BEiT3Config):
+    def __init__(self, cfg: BEiT3Config, text: bool = True):
+        """``text=False`` builds no text embedding, text positions or final
+        text LayerNorm, as JAX's ``init`` of a vision-only encode makes
+        none (the classification head's encoder); such an encoder refuses
+        ``text_ids``."""
         super().__init__()
         if cfg.quant not in ("none", "int8", "int8_calib", "int8_static",
                              "int8_qat"):
@@ -400,13 +415,22 @@ class BEiT3Encoder(nn.Module):
         # the model axis of a sequence-parallel layout (parallel/mesh.py
         # shard_model), None otherwise
         self.seq_mesh = None
-        self.text_embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        self.text_embed = (nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+                           if text else None)
         self.vision_embed = VisionEmbedding(cfg)
         self.encoder = _EncoderStack(cfg)
+        if not text:
+            self.encoder.embed_positions.B = None
+            self.encoder.layer_norm.B = None
 
-    def forward(self, images, text_ids, text_padding_mask=None,
-                return_prune_idx: bool = False):
+    def forward(self, images=None, text_ids=None, text_padding_mask=None,
+                return_prune_idx: bool = False, attn_bias=None):
         cfg, dt = self.cfg, self.cfg.dtype
+        if images is None and text_ids is None:
+            raise ValueError("the encoder needs images, text_ids or both")
+        if text_ids is not None and self.text_embed is None:
+            raise ValueError("this encoder was built without text "
+                             "parameters (text=False)")
         if self.training and cfg.quant not in ("none", "int8_qat"):
             # ValueError, not assert: int8 rounding has no gradient, so a
             # train step in a serving mode would silently kill the
@@ -414,26 +438,39 @@ class BEiT3Encoder(nn.Module):
             raise ValueError(
                 f"quant={cfg.quant!r} is serving-only; train with "
                 "quant='int8_qat' (STE) and serve with int8_static")
+        if self.prune_layer is not None and (images is None
+                                             or attn_bias is not None):
+            raise ValueError("token_prune_keep needs vision input and no "
+                             "attn_bias")
         remat = cfg.remat and torch.is_grad_enabled()
         pos = self.encoder.embed_positions
-        x_vis = self.vision_embed(images)
-        b, split = x_vis.shape[:2]
-        if split != cfg.seq_vision:
-            raise ValueError(f"image gives {split} vision tokens, the "
-                             f"config {cfg.seq_vision}")
-        dev = x_vis.device
-        # fairseq positions start at 2 (padding_idx + 1)
-        x_vis = x_vis + pos.A.weight[2:split + 2].to(dt)
-
-        t = text_ids.shape[1]
-        x_txt = self.text_embed.weight.to(dt)[text_ids] \
-            + pos.B.weight[2:t + 2].to(dt)
-        if text_padding_mask is None:
-            pad_txt = torch.zeros(b, t, dtype=torch.bool, device=dev)
+        if images is not None:
+            x_vis = self.vision_embed(images)
+            b, split = x_vis.shape[:2]
+            if split != cfg.seq_vision:
+                raise ValueError(f"image gives {split} vision tokens, the "
+                                 f"config {cfg.seq_vision}")
+            # fairseq positions start at 2 (padding_idx + 1)
+            x_vis = x_vis + pos.A.weight[2:split + 2].to(dt)
+            dev = x_vis.device
         else:
-            pad_txt = text_padding_mask.to(torch.bool)
-        # padded text positions are zeroed after embedding
-        x_txt = x_txt * (1.0 - pad_txt.to(dt))[..., None]
+            b, split, dev = text_ids.shape[0], 0, text_ids.device
+            x_vis = torch.zeros(b, 0, cfg.embed_dim, dtype=dt, device=dev)
+
+        if text_ids is not None:
+            t = text_ids.shape[1]
+            x_txt = self.text_embed.weight.to(dt)[text_ids] \
+                + pos.B.weight[2:t + 2].to(dt)
+            if text_padding_mask is None:
+                pad_txt = torch.zeros(b, t, dtype=torch.bool, device=dev)
+            else:
+                pad_txt = text_padding_mask.to(torch.bool)
+            # padded text positions are zeroed after embedding
+            x_txt = x_txt * (1.0 - pad_txt.to(dt))[..., None]
+        else:
+            t = 0
+            x_txt = torch.zeros(b, 0, cfg.embed_dim, dtype=dt, device=dev)
+            pad_txt = torch.zeros(b, 0, dtype=torch.bool, device=dev)
 
         pad = torch.cat([torch.zeros(b, split, dtype=torch.bool, device=dev),
                          pad_txt], dim=1)
@@ -445,10 +482,13 @@ class BEiT3Encoder(nn.Module):
             seq = SeqShard(self.seq_mesh, (split, t))
             xs = seq.shard(xs)
         prune_idx = None
+        # the joint and single-modality encodes call the layers as before
+        bias = {} if attn_bias is None else {"attn_bias": attn_bias}
         for i, layer in enumerate(self.encoder.layers):
             if i != self.prune_layer:
-                xs = (remat_layer(layer, xs, pad, cfg.remat_policy, seq)
-                      if remat else layer(xs, pad, seq=seq))
+                xs = (remat_layer(layer, xs, pad, cfg.remat_policy, seq,
+                                  **bias)
+                      if remat else layer(xs, pad, seq=seq, **bias))
                 continue
             xs, cls_attn = layer(xs, pad, return_cls_attn=True)
             # rank the patch tokens (positions 1..split-1) by the CLS
@@ -463,9 +503,13 @@ class BEiT3Encoder(nn.Module):
             pad = torch.cat([torch.zeros(b, split, dtype=torch.bool,
                                          device=dev), pad_txt], dim=1)
 
-        x_vis, text_feat = self.encoder.layer_norm(xs)
+        ln = self.encoder.layer_norm
+        x_vis = ln.A(xs[0])
+        text_feat = None if text_ids is None else ln.B(xs[1])
         if seq is not None:
             x_vis, text_feat = seq.gather((x_vis, text_feat))
+        img_feat = x_vis[:, 1:] if split else None
+        cls_feat = x_vis[:, 0] if split else None
         if return_prune_idx:
-            return x_vis[:, 1:], text_feat, x_vis[:, 0], prune_idx
-        return x_vis[:, 1:], text_feat, x_vis[:, 0]
+            return img_feat, text_feat, cls_feat, prune_idx
+        return img_feat, text_feat, cls_feat

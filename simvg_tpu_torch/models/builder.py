@@ -10,6 +10,7 @@ the JAX builder, from the unchanged files under ``configs/``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -21,7 +22,7 @@ from .heads.simple_head import DETRHead, DETRHeadConfig
 from .heads.tgqs_head import TGQSHeadConfig
 from .lan_encs import build_lan_enc
 from .model import SimVGConfig, SimVGModel
-from .vis_enc_zoo import MIXED_TYPES, GroupNorm, build_vis_enc
+from .vis_enc_zoo import MIXED_TYPES, build_vis_enc
 
 # scan_layers only changes how JAX compiles the same forward, and gelu_impl
 # only picks JAX's erf form: the port reads neither (but refuses scan_layers
@@ -176,6 +177,8 @@ _TRUNC_STD = 0.87962566103423978
 
 
 _BEIT3 = "vis_enc.beit3."
+# the BEiT-3 encoder under the SimVG model and under the task heads
+_BEIT3_PATHS = (_BEIT3, "beit3.")
 # the zoo's learned tables, drawn from flax's normal(0.02)
 _ZOO_TABLES = ("pos_embed", "det_tokens", "det_pos", "img_pos", "txt_pos",
                "cls_token", "type_embed")
@@ -183,19 +186,21 @@ _ZOO_TABLES = ("pos_embed", "det_tokens", "det_pos", "img_pos", "txt_pos",
 
 def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
     """(kind, std) of the flax initialiser of the JAX counterpart of
-    ``path``: "ones", "zeros", "normal" or "truncated" (two-std cut, ``std``
-    before the cut)."""
+    ``path``: "ones", "zeros", "const" (the value in ``std``'s place),
+    "normal" or "truncated" (two-std cut, ``std`` before the cut)."""
     if isinstance(module, nn.GRU):  # lan_encs.py: Dense "ih", "hh_kernel"
         if name.startswith("bias"):
             return "zeros", 0.0
         return "truncated", p[0].numel() ** -0.5 / _TRUNC_STD
-    if isinstance(module, (nn.LayerNorm, GroupNorm)):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return ("ones", 0.0) if name == "weight" else ("zeros", 0.0)
     if name == "rel_pos_bias":  # vis_enc_zoo.py: truncated_normal(0.02)
         return "truncated", 0.02
     if name.endswith("bias") or name == "mask_token":
         return "zeros", 0.0
-    if name == "cls_token" and path.startswith(_BEIT3):
+    if name == "logit_scale":  # beit3_heads.py: log(1 / 0.07)
+        return "const", math.log(1.0 / 0.07)
+    if name == "cls_token" and path.startswith(_BEIT3_PATHS):
         return "truncated", 0.02  # beit3.py: truncated_normal(0.02)
     if name in _ZOO_TABLES:  # vis_enc_zoo.py, vis_encs.py: normal(0.02)
         return "normal", 0.02
@@ -207,7 +212,9 @@ def _initializer(path: str, module: nn.Module, name: str, p: torch.Tensor):
         # text_embed: normal(D^-1/2); the position tables: flax's Embed
         # default, variance_scaling(1, fan_in, normal) over D
         return "normal", p.shape[1] ** -0.5
-    if path.startswith(_BEIT3) and isinstance(module, nn.Linear):
+    if name == "query_embed":  # legacy_layers.py MDETR: normal(1.0)
+        return "normal", 1.0
+    if path.startswith(_BEIT3_PATHS) and isinstance(module, nn.Linear):
         return "truncated", 0.02  # beit3.py::_dense
     if isinstance(module, (nn.Linear, nn.Conv2d)) or \
             name == "in_proj_weight":
@@ -245,8 +252,8 @@ def init_random_weights(model: nn.Module, seed) -> nn.Module:
         for name, p in module.named_parameters(recurse=False):
             path = f"{mod_name}.{name}" if mod_name else name
             kind, std = _initializer(path, module, name, p)
-            if kind in ("ones", "zeros"):
-                p.fill_(1.0 if kind == "ones" else 0.0)
+            if kind in ("ones", "zeros", "const"):
+                p.fill_({"ones": 1.0, "zeros": 0.0}.get(kind, std))
                 continue
             t = torch.empty(p.shape, dtype=torch.float32)
             t.normal_(0.0, std, generator=generator)

@@ -404,7 +404,8 @@ class SeqShard:
     ``shard`` takes a rank's part of whole segments; ``gather`` puts the
     whole segments back together before a block's column-parallel
     products (its backward keeps the rank's part of the gradient, which
-    the column-parallel products have already all-reduced)."""
+    the column-parallel products have already all-reduced).  An empty
+    segment (a single-modality encode) passes through both as it is."""
 
     def __init__(self, mesh: DeviceMesh, lengths: Tuple[int, int]):
         self.mesh = mesh
@@ -414,11 +415,14 @@ class SeqShard:
         return tuple(DTensor.from_local(x, self.mesh, [Replicate()],
                                         run_check=False)
                      .redistribute(self.mesh, [Shard(1)]).to_local()
-                     for x in xs)
+                     if n else x for x, n in zip(xs, self.lengths))
 
     def gather(self, xs):
         out = []
         for x, n in zip(xs, self.lengths):
+            if not n:
+                out.append(x)
+                continue
             shape = (x.shape[0], n) + tuple(x.shape[2:])
             stride = torch.empty(shape, device="meta").stride()
             out.append(DTensor.from_local(

@@ -39,8 +39,8 @@ The optimizer is the config's ``optimizer_config.type`` (Adam, AdamW with
 The OneStageModel family (``configs/smoke/tiny_synth_onestage.py``) trains
 with the loss settings of ``make_train_step``'s defaults where its head
 dict gives none, with any pure-vision backbone of the zoo and the GRU or
-ALBERTA language encoder.  Not ported yet, raising with its ROADMAP item:
-``VGTRAugment`` (M20).
+ALBERTA language encoder, and a pipeline may set the legacy
+``VGTRAugment`` (``configs/_base_/datasets/detection/refcoco-unc_vgtr.py``).
 """
 
 from __future__ import annotations

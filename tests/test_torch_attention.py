@@ -34,6 +34,7 @@ from simvg_tpu.ops.pallas_attention import _probs as jax_probs
 from simvg_tpu_torch.ops.fused_attention import (
     _logits, attention_bwd, attention_residual_reference, attention_row_term,
     fused_attention, fused_attention_bwd_reference, fused_attention_reference)
+from util_torch_port import one_torch_thread  # noqa: F401
 
 
 def _qkv(b, sq, sk, d, seed):

@@ -36,6 +36,7 @@ from simvg_tpu_torch.convert import (convert_hf_bert, export_composed,
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_checkpoint import convert_hf_bert as jax_convert_hf_bert  # noqa: E402,E501
+from util_torch_port import one_torch_thread  # noqa: F401
 
 # roberta's layout at tiny widths: position ids from padding_idx + 1 = 2
 TINY = dict(vocab_size=60, hidden_size=32, num_layers=2, num_heads=4,

@@ -24,13 +24,15 @@ import pytest
 import torch
 
 from util_synth import make_refcoco_style
-from util_torch_port import (jax_params_from_port, jax_tiny_model, np_batch,
-                             to_jax, to_torch, torch_tiny_model)
+from util_torch_port import (cheap_jit, jax_params_from_port,
+                             jax_tiny_model, np_batch, to_jax, to_torch,
+                             torch_tiny_model)
 
 from simvg_tpu_torch.engine import create_optimizer, create_train_state
 from simvg_tpu_torch.models import init_random_weights
 from simvg_tpu_torch.tools import train as train_cli
 from simvg_tpu_torch.utils import checkpoint as ckpt
+from util_torch_port import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -222,7 +224,7 @@ def test_port_weights_round_trip_into_the_jax_forward():
     batch = np_batch()
     jm = jax_tiny_model()
     params = jax_params_from_port(jm, batch, model.state_dict())
-    ref = jax.jit(lambda p, b: jm.apply(p, **b, deterministic=True))(
+    ref = cheap_jit(lambda p, b: jm.apply(p, **b, deterministic=True))(
         params, to_jax(batch))
     with torch.no_grad():
         out = model(**to_torch(batch))

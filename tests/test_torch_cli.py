@@ -11,7 +11,9 @@ the CPU with ``configs/smoke/tiny_synth.py`` and synthetic data.
 - both default to the card and raise without one; the M16 settings
   (``--distributed``, ``fsdp``, ``model_parallel``, ``seq_parallel``) pass
   the gates and train, as does a OneStageModel with a Swin backbone, and
-  ``--quant-collection`` on a model without int8_static layers raises.
+  ``--quant-collection`` on a model without int8_static layers raises;
+- the VGTR dataset base passes the gates under the flagship, and the train
+  CLI trains an epoch with its ``VGTRAugment`` pipeline.
 """
 
 import json
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from util_synth import make_grefcoco_style, make_refcoco_style
+from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
 
 from simvg_tpu_torch.tools import test as test_cli
 from simvg_tpu_torch.tools import train as train_cli
@@ -331,7 +334,7 @@ def test_evaluate_on_jax_init_weights_and_batches_matches_jax(synth):
                                    seed=cfg.seed)
     batches = list(loader)
     model, _ = build_model(cfg.model, img_size=64, dtype=jnp.float32)
-    params = jax.jit(model.init)(
+    params = cheap_jit(model.init)(
         jax.random.PRNGKey(3), **{k: jnp.asarray(batches[0][k]) for k in (
             "image", "text_ids", "text_padding_mask", "img_shape")})
     want = evaluate(model, params, batches)
@@ -370,7 +373,7 @@ def test_test_cli_on_jax_weights_matches_jax_evaluate_grec(tmp_path):
                                    max_gt=cfg.max_gt, seed=cfg.seed)
     model, _ = build_model(cfg.model, img_size=64, dtype=jnp.float32)
     batch = next(iter(loader))
-    params = jax.jit(model.init)(
+    params = cheap_jit(model.init)(
         jax.random.PRNGKey(5), **{k: jnp.asarray(batch[k]) for k in (
             "image", "text_ids", "text_padding_mask", "img_shape")})
     want = evaluate(model, params, loader, is_grec=True)
@@ -456,3 +459,66 @@ def test_port_gates_accept_the_mask_bases_under_the_flagship():
                               annsfile=osp.join(REPO, "no_such_dir", "a.json"),
                               with_mask=True,
                               with_bbox=load.get("with_bbox", False))
+
+
+VGTR_BASE = osp.join(REPO, "configs", "_base_", "datasets", "detection",
+                     "refcoco-unc_vgtr.py")
+# the tiny config with the VGTR base's train pipeline at 64 px
+VGTR_CONFIG = """_base_ = [{tiny!r}]
+train_pipeline = [
+    dict(type="LoadImageAnnotationsFromFile", max_token=10, with_bbox=True,
+         dataset="RefCOCOUNC", use_token_type="beit3"),
+    dict(type="VGTRAugment", img_size=64),
+    dict(type="Normalize", mean=[123.675, 116.28, 103.53],
+         std=[58.395, 57.12, 57.375]),
+    dict(type="Pad", size_divisor=32),
+    dict(type="DefaultFormatBundle"),
+    dict(type="CollectData", keys=["img", "ref_expr_inds", "gt_bbox"]),
+]
+data = dict(train=dict(pipeline=train_pipeline))
+"""
+
+
+def test_port_gates_accept_the_vgtr_base_under_the_flagship():
+    """``refcoco-unc_vgtr.py``, the one dataset base that sets
+    VGTRAugment, under the flagship model: its splits' pipelines build
+    (VGTRAugment at 512 px in train only) and its dataset class is
+    found."""
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.data.builder import build_pipeline
+    from simvg_tpu_torch.data.datasets import build_dataset
+    from simvg_tpu_torch.data.vgtr_aug import VGTRAugment
+    from simvg_tpu_torch.models import build_model
+
+    flagship = Config.fromfile(osp.join(
+        REPO, "configs", "single", "ViT-base", "refcoco",
+        "refcoco_onestage.py"))
+    train_cli.check_ported(flagship)
+    build_model(flagship.model, device="meta")
+    cfg = Config.fromfile(VGTR_BASE)
+    for split in ("train", "val"):
+        tfs, load = build_pipeline(cfg.data[split]["pipeline"])
+        vgtr = [t for t in tfs if isinstance(t, VGTRAugment)]
+        assert [t.img_size for t in vgtr] == ([512] if split == "train"
+                                              else []), split
+        assert load["with_bbox"] and load["max_token"] == 20
+        with pytest.raises(FileNotFoundError):
+            build_dataset(cfg.data[split]["type"], imgsfile="",
+                          annsfile=osp.join(REPO, "no_such_dir", "a.json"),
+                          with_bbox=True)
+
+
+def test_train_cli_with_the_vgtr_pipeline(tmp_path, synth):
+    """One epoch of the train CLI with VGTRAugment in the train pipeline:
+    it trains (finite losses) and evaluates."""
+    config = tmp_path / "tiny_vgtr.py"
+    config.write_text(VGTR_CONFIG.format(tiny=TINY))
+    wd = tmp_path / "run"
+    res = train_cli.main([str(config), "--work-dir", str(wd), "--device",
+                          "cpu", "--cfg-options", *synth,
+                          "scheduler_config.max_epoch=1"])
+    assert res["step"] == 2 and res["eval"]["val"]["n_samples"] == 8
+    assert "VGTRAugment" in (wd / "config.py").read_text()
+    with open(wd / "metrics.jsonl") as f:
+        train = [json.loads(line) for line in f if '"train"' in line]
+    assert train and all(np.isfinite(m["loss_total"]) for m in train)

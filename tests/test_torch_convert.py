@@ -11,6 +11,7 @@ import jax
 
 from tools.convert_checkpoint import export_simvg_full as original
 from util_torch_port import jax_tiny_model, np_batch, to_jax
+from util_torch_port import one_torch_thread  # noqa: F401
 
 
 def _random_tree(seed):

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from simvg_tpu.losses import criterion as jc
 from simvg_tpu_torch.losses import criterion as tc
+from util_torch_port import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-7
 

@@ -10,7 +10,7 @@ The data pipeline's card route is held here too: nvJPEG's encode -> decode
 round trip (shape exact, mean |difference| <= 2 levels at quality 95, on
 smooth images), grayscale and EXIF-oriented files, and the pixel ops on the
 card against the same ops on the CPU, on the same decoded pixels (1 level
-per resampling; the geometry exact).
+per resampling; the geometry exact; VGTRAugment's ops a level an op).
 
 The attention cases reach what chip_smoke.py's flagship shapes do not: Sq != Sk,
 fewer keys than one tile, a row with one live key, S = 100 (not a
@@ -379,6 +379,60 @@ def test_pixel_ops_on_the_card_match_the_cpu(gen):
     for i, s in enumerate(samples):  # the pad region stays 0
         h, w = s["img_shape"][:2]
         assert not card[i, h:].any() and not card[i, :, w:].any()
+
+
+# the BEiT-3 task heads' sequences (models/beit3_heads.py at BEiT3-base,
+# batch 8): vision-only at 224 and 384 px (no padding), joint at 480 px with
+# 32 question tokens, 8 of them padded, and text-only, 32 tokens (one
+# partial K/V tile), padded
+HEAD_SHAPES = [(197, None), (577, None),
+               (933, [933 - 8 - i % 3 for i in range(8)]),
+               (32, [24 - i % 5 for i in range(8)])]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,lengths", HEAD_SHAPES)
+def test_attention_at_the_task_heads_shapes(gen, dtype, atol, s, lengths):
+    """K1 (with the residual, as a backward wants it) and K2 against their
+    plain versions at the heads' shapes."""
+    q, k, v, dout, pad = _inputs(gen, dtype, 8, s, s, 12, 64, lengths)
+    out = fused_attention(q, k, v, pad)
+    torch.testing.assert_close(out.float(), fused_attention_reference(
+        q, k, v, pad).float(), atol=atol, rtol=0)
+    out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+    grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), fused_attention_reference(
+        q, k, v, pad).float(), atol=atol, rtol=0)
+    _assert_grads_close(grads, fused_attention_bwd_reference(
+        q, k, v, dout, pad), dtype, pad)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_vgtr_pixel_ops_on_the_card_match_the_cpu(gen, seed):
+    """VGTRAugment's ops (data/vgtr_aug.py) on a decoded image on the card
+    against the same ops on the CPU: each op's arithmetic is OpenCV's and
+    the same on both, but for the colour jitter's mean (another summation
+    order), so at most a level an op."""
+    import random
+
+    from simvg_tpu_torch.data.image_ops import apply_pixel_ops
+    from simvg_tpu_torch.data.jpeg import decode, encode
+    from simvg_tpu_torch.data.vgtr_aug import VGTRAugment
+
+    h, w = ((480, 640), (427, 640), (640, 480), (333, 500))[seed]
+    img = decode(encode(torch.from_numpy(smooth_image(h, w, seed)).cuda(),
+                        95), "cuda")
+    s = VGTRAugment(512)(dict(
+        pixel_ops=[], img_shape=(h, w, 3), expression="the left one",
+        gt_bbox=np.asarray([40.0, 30.0, 300.0, 200.0]),
+        aug_rng=random.Random(seed)))
+    card = apply_pixel_ops(img, s["pixel_ops"])
+    cpu = apply_pixel_ops(img.cpu(), s["pixel_ops"])
+    assert card.shape == cpu.shape == (512, 512, 3)
+    diff = (card.cpu().int() - cpu.int()).abs().max().item()
+    assert diff <= len(s["pixel_ops"]), diff
 
 
 # token pruning's sequences: keep=300 (the flagship's in-envelope point,

@@ -31,6 +31,7 @@ from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
 from simvg_tpu_torch.data.image_ops import render, resize_u8
 from simvg_tpu_torch.data.jpeg import decode, encode, jpeg_geometry
 from simvg_tpu_torch.data.tokenization import build_tokenizer
+from util_torch_port import one_torch_thread  # noqa: F401
 
 TINY = "configs/smoke/tiny_synth.py"
 STD = np.asarray([58.395, 57.12, 57.375], np.float32)
@@ -225,16 +226,20 @@ def test_tokenizer_copy_matches_jax(spm_file, kind):
 
 
 def test_unported_datasets_and_ops_raise(synth):
-    """VGTRAugment (M20) raises; with_mask builds (the mask path,
-    tests/test_torch_masks.py) and, as JAX's dataset, needs a ``mask`` in
-    each annotation, which the box-only synthetic data lacks."""
+    """Nothing is left unported: VGTRAugment builds and gives a square
+    sample (tests/test_torch_vgtr.py holds it to JAX's); with_mask builds
+    (the mask path, tests/test_torch_masks.py) and, as JAX's dataset, needs
+    a ``mask`` in each annotation, which the box-only synthetic data
+    lacks."""
     cfg = Config.fromfile(TINY)
     cfg.merge_from_dict(_opts(synth))
     vgtr = [dict(type="LoadImageAnnotationsFromFile", with_bbox=True),
-            dict(type="VGTRAugment")]
-    with pytest.raises(NotImplementedError, match="M20"):
-        build_dataset_from_cfg(dict(cfg.data.val, pipeline=vgtr),
-                               dataset_type=cfg.dataset)
+            dict(type="VGTRAugment", img_size=64)]
+    ds = build_dataset_from_cfg(dict(cfg.data.val, pipeline=vgtr),
+                                dataset_type=cfg.dataset)
+    sample = ds[0]
+    assert tuple(sample["img_shape"]) == (64, 64, 3)
+    assert [op[0] for op in sample["pixel_ops"]][:2] == ["hsv", "jitter"]
     pipe = [dict(type="LoadImageAnnotationsFromFile", with_bbox=True,
                  with_mask=True)]
     ds = build_dataset_from_cfg(dict(cfg.data.val, pipeline=pipe),

@@ -35,6 +35,7 @@ from simvg_tpu_torch.export import (attention_op_count, export_serving,
 from simvg_tpu_torch.models import init_random_weights
 from simvg_tpu_torch.models.model import SimVGModel
 from simvg_tpu_torch.tools import export_serving as export_cli
+from util_torch_port import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")

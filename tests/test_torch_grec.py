@@ -37,6 +37,7 @@ from simvg_tpu_torch.engine.metrics import grec_f1_nacc
 from simvg_tpu_torch.tools import test as test_cli
 from simvg_tpu_torch.tools import train as train_cli
 from simvg_tpu_torch.tools.train import gt_settings
+from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SMOKE = osp.join(REPO, "configs", "smoke")
@@ -222,7 +223,7 @@ def grec_weights():
     cfg = JaxConfig.fromfile(GREC)
     model, _ = jax_build(cfg.model, img_size=cfg.img_size, dtype=jnp.float32)
     t = cfg.max_token
-    params = jax.jit(model.init)(
+    params = cheap_jit(model.init)(
         jax.random.PRNGKey(11),
         image=jnp.zeros((1, cfg.img_size, cfg.img_size, 3), jnp.float32),
         text_ids=jnp.ones((1, t), jnp.int32),
@@ -265,7 +266,7 @@ def test_evaluate_grec_on_exported_weights_matches_jax(grec_data,
 
     # the decoded predictions F1/N-acc are computed from, in fp32
     keys = ("image", "text_ids", "text_padding_mask", "img_shape")
-    jp = jax.jit(jax_eval_step(jmodel))(
+    jp = cheap_jit(jax_eval_step(jmodel))(
         jparams, {k: jnp.asarray(batches[0][k]) for k in keys})
     tp = step({k: torch.as_tensor(batches[0][k]) for k in keys})
     for branch in ("decoder", "token"):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from simvg_tpu.ops.hungarian import hungarian_assign as jax_assign
 from simvg_tpu_torch.ops.hungarian import hungarian_assign
+from util_torch_port import one_torch_thread  # noqa: F401
 
 
 def _costs(kind, rng):

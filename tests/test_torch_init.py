@@ -22,6 +22,7 @@ from simvg_tpu_torch.convert import export_simvg_full
 from simvg_tpu_torch.models import build_model, init_random_weights
 from simvg_tpu_torch.tools import test as test_cli
 from simvg_tpu_torch.tools import train as train_cli
+from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -46,7 +47,7 @@ def jax_init_sd(request):
     cfg.model.head.update(HEADS[request.param])
     model, _ = jax_build(cfg.model, img_size=cfg.img_size, dtype=jnp.float32)
     t = cfg.max_token
-    params = jax.jit(model.init)(
+    params = cheap_jit(model.init)(
         jax.random.PRNGKey(0),
         image=jnp.zeros((1, cfg.img_size, cfg.img_size, 3), jnp.float32),
         text_ids=jnp.ones((1, t), jnp.int32),

@@ -36,6 +36,7 @@ from simvg_tpu_torch.ops import raster
 from simvg_tpu_torch.ops import rle as trle
 
 from util_synth import make_refcoco_style
+from util_torch_port import one_torch_thread  # noqa: F401
 
 
 def _random_mask(r, h, w):

@@ -20,8 +20,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from util_torch_port import (jax_tiny_model, np_batch, to_jax, to_torch,
-                             torch_tiny_model)
+from util_torch_port import (cheap_jit, jax_tiny_model, np_batch, to_jax,
+                             to_torch, torch_tiny_model)
+from util_torch_port import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 FIXTURE = osp.join(REPO, "tests", "fixtures", "simvg_full_tiny.pth")
@@ -36,7 +37,7 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2",
 def jax_pair():
     """(model, params) of the tiny JAX model, params from PRNGKey(7)."""
     model = jax_tiny_model()
-    params = jax.jit(model.init)(jax.random.PRNGKey(7), **to_jax(np_batch()))
+    params = cheap_jit(model.init)(jax.random.PRNGKey(7), **to_jax(np_batch()))
     return model, jax.tree.map(np.asarray, params)
 
 
@@ -62,9 +63,9 @@ def test_fixture_loads_strict_and_matches_jax():
     batch = np_batch()
     ref_model = jax_tiny_model()
     # the fixture was generated from PRNGKey(1234) on this config
-    ref_params = jax.jit(ref_model.init)(jax.random.PRNGKey(1234),
-                                         **to_jax(batch))
-    out_j = jax.jit(ref_model.apply)(ref_params, **to_jax(batch))
+    ref_params = cheap_jit(ref_model.init)(jax.random.PRNGKey(1234),
+                                           **to_jax(batch))
+    out_j = cheap_jit(ref_model.apply)(ref_params, **to_jax(batch))
     with torch.no_grad():
         out_t = model(**to_torch(batch))
     _assert_outputs(out_t, out_j, atol=1e-5)
@@ -73,7 +74,7 @@ def test_fixture_loads_strict_and_matches_jax():
 def test_load_jax_params_matches_jax_forward(jax_pair, torch_model):
     model, params = jax_pair
     batch = np_batch(seed=1)
-    out_j = jax.jit(model.apply)(params, **to_jax(batch))
+    out_j = cheap_jit(model.apply)(params, **to_jax(batch))
     with torch.no_grad():
         out_t = torch_model(**to_torch(batch))
     _assert_outputs(out_t, out_j, atol=1e-5)
@@ -87,7 +88,7 @@ def test_single_branch_and_dummy_outputs_match_jax(jax_pair, torch_model,
                                                    branches):
     model, params = jax_pair
     batch = np_batch(seed=2)
-    out_j = jax.jit(model.apply, static_argnames="branches")(
+    out_j = cheap_jit(model.apply, static_argnames="branches")(
         params, **to_jax(batch), branches=branches)
     with torch.no_grad():
         out_t = torch_model(**to_torch(batch), branches=branches)
@@ -103,10 +104,10 @@ def test_encoder_alone_matches_jax(jax_pair, torch_model):
     model, params = jax_pair
     batch = np_batch(seed=3)
     enc = BEiT3Encoder(model.cfg.beit3)
-    out_j = jax.jit(enc.apply)({"params": params["params"]["beit3"]},
-                               jnp.asarray(batch["image"]),
-                               jnp.asarray(batch["text_ids"]),
-                               jnp.asarray(batch["text_padding_mask"]))
+    out_j = cheap_jit(enc.apply)({"params": params["params"]["beit3"]},
+                                 jnp.asarray(batch["image"]),
+                                 jnp.asarray(batch["text_ids"]),
+                                 jnp.asarray(batch["text_padding_mask"]))
     tb = to_torch(batch)
     with torch.no_grad():
         out_t = torch_model.vis_enc["beit3"](tb["image"], tb["text_ids"],
@@ -132,9 +133,9 @@ def test_head_alone_matches_jax(jax_pair, torch_model):
     tmask = np.array([[0] * t, [0, 0, 0, 1, 1, 1], [0, 1, 1, 1, 1, 1]],
                      np.int32)
     head = TGQSKDDETRHead(model.cfg.head)
-    out_j = jax.jit(head.apply)({"params": params["params"]["head"]},
-                                *map(jnp.asarray,
-                                     (x_mm, pad, cls, text, tmask)))
+    out_j = cheap_jit(head.apply)({"params": params["params"]["head"]},
+                                  *map(jnp.asarray,
+                                       (x_mm, pad, cls, text, tmask)))
     with torch.no_grad():
         out_t = torch_model.head(*map(torch.from_numpy,
                                       (x_mm, pad, cls, text, tmask)))
@@ -148,7 +149,7 @@ def test_eval_step_and_prec_match_jax(jax_pair, torch_model):
 
     model, params = jax_pair
     batch = np_batch(b=4, seed=5)
-    preds_j = jax.jit(jax_eval_step(model))(params, to_jax(batch))
+    preds_j = cheap_jit(jax_eval_step(model))(params, to_jax(batch))
     preds_t = make_eval_step(torch_model)(to_torch(batch))
     gt = np.asarray(preds_j["decoder"]["best_box"]) + 3.0
     valid = np.array([1, 1, 1, 0], bool)
@@ -325,7 +326,10 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.tools.attn_visual, simvg_tpu_torch.tools.parameters, "
         "simvg_tpu_torch.tools.browse_dataset, "
         "simvg_tpu_torch.tools.dataset_token_count, "
-        "simvg_tpu_torch.tools.encoder_ablation, simvg_tpu_torch.ops._build\n"
+        "simvg_tpu_torch.tools.encoder_ablation, simvg_tpu_torch.ops._build, "
+        "simvg_tpu_torch.models.beit3_heads, "
+        "simvg_tpu_torch.models.legacy_layers, "
+        "simvg_tpu_torch.losses.legacy, simvg_tpu_torch.data.vgtr_aug\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")

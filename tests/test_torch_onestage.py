@@ -45,6 +45,7 @@ import jax.numpy as jnp
 from util_synth import make_refcoco_style
 
 from simvg_tpu_torch.convert import export_composed, export_params
+from util_torch_port import cheap_jit
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 ONESTAGE = osp.join(REPO, "configs", "smoke", "tiny_synth_onestage.py")
@@ -135,7 +136,7 @@ def pair():
 
     cfg = Config.fromfile(ONESTAGE)
     jm, _ = jax_build(cfg.model, img_size=64)
-    params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+    params = jax.tree.map(np.asarray, cheap_jit(jm.init)(
         jax.random.PRNGKey(1), **_jax(_batch())))
     tm, _ = build_model(cfg.model, img_size=64, device="cpu")
     return jm, params, load_jax_params(tm, params).eval(), cfg
@@ -172,7 +173,7 @@ def test_gru_encoder_matches_jax(mode, bidirectional):
     ids = _ids(vocab=50)
     jm = JaxEnc(**kw)
     params = random_params(jm, jnp.asarray(ids), seed=4)
-    want = jax.jit(jm.apply)(params, jnp.asarray(ids))
+    want = cheap_jit(jm.apply)(params, jnp.asarray(ids))
     tm = _port_part(LSTMLanguageEncoder(**kw), "lan_enc", params)
     with torch.no_grad():
         got = tm(torch.from_numpy(ids))
@@ -208,7 +209,7 @@ def test_fusion_matches_jax():
     jm = JaxFusion(embed_dim=16, num_heads=2)
     args = (jnp.asarray(img), jnp.asarray(text), jnp.asarray(mask))
     params = random_params(jm, *args, seed=6)
-    want = jax.jit(jm.apply)(params, *args)
+    want = cheap_jit(jm.apply)(params, *args)
     tm = _port_part(CrossAttentionFusion(24, 16, embed_dim=16, num_heads=2),
                     "fusion", params)
     with torch.no_grad():
@@ -235,7 +236,7 @@ def test_detr_head_matches_jax(only_decoder):
     pad[1, :, 2] = pad[2, 1] = True
     jm = JaxHead(JaxHeadConfig(**kw))
     params = random_params(jm, jnp.asarray(x), jnp.asarray(pad), seed=8)
-    want = jax.jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(pad))
+    want = cheap_jit(jm.apply)(params, jnp.asarray(x), jnp.asarray(pad))
     tm = _port_part(DETRHead(DETRHeadConfig(**kw)), "head", params)
     with torch.no_grad():
         got = tm(torch.from_numpy(x), torch.from_numpy(pad))
@@ -249,7 +250,7 @@ def test_detr_head_matches_jax(only_decoder):
 def test_composed_model_matches_jax(pair):
     jm, params, tm, _ = pair
     batch = _batch(seed=1)
-    want = jax.jit(jm.apply)(params, **_jax(batch))
+    want = cheap_jit(jm.apply)(params, **_jax(batch))
     with torch.no_grad():
         got = tm(**_torch(batch, INPUTS))
     assert sorted(got) == sorted(want)
@@ -306,10 +307,10 @@ def one_step(pair):
     blw = {"decoder": 1.0}
 
     tx = jax_optimizer(**kw)
-    step_j = jax.jit(jax_train_step(jm, tx, branch_loss_weight=blw))
+    step_j = cheap_jit(jax_train_step(jm, tx, branch_loss_weight=blw))
     state_j, sj = step_j(jax_state(params, tx), _jax(batch, batch),
                          jax.random.PRNGKey(0))
-    preds_j = jax.jit(jax_eval_step(jm))(state_j.params, _jax(batch))
+    preds_j = cheap_jit(jax_eval_step(jm))(state_j.params, _jax(batch))
 
     tm, loss_cfg = build_model(cfg.model, img_size=64, device="cpu")
     load_jax_params(tm, params)
@@ -363,7 +364,7 @@ def _jax_grads(model, params, batch, blw):
         return simvg_branch_losses(out, targets,
                                    branch_loss_weight=blw)["loss_total"]
 
-    return jax.jit(jax.grad(loss_fn))(params)
+    return cheap_jit(jax.grad(loss_fn))(params)
 
 
 def test_train_step_scalars_match_jax(one_step):

@@ -11,6 +11,7 @@ import simvg_tpu.ops.boxes as jb
 import simvg_tpu.ops.sine_embed as js
 import simvg_tpu_torch.ops.boxes as tb
 import simvg_tpu_torch.ops.sine_embed as ts
+from util_torch_port import one_torch_thread  # noqa: F401
 
 
 def _boxes(shape, seed):

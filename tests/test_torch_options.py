@@ -20,8 +20,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from util_torch_port import (jax_tiny_model, np_batch, to_jax, to_torch,
-                             torch_tiny_model)
+from util_torch_port import (cheap_jit, jax_tiny_model, np_batch, to_jax,
+                             to_torch, torch_tiny_model)
+from util_torch_port import one_torch_thread  # noqa: F401
 
 ENCODER = dict(only_decoder=False, num_encoder_layers=2)
 OUT_KEYS = ("class_decoder", "bbox_decoder", "class_token", "bbox_token")
@@ -33,7 +34,7 @@ def encoder_pair():
     from simvg_tpu_torch.convert import load_jax_params
 
     jm = jax_tiny_model(**ENCODER)
-    params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+    params = jax.tree.map(np.asarray, cheap_jit(jm.init)(
         jax.random.PRNGKey(3), **to_jax(np_batch())))
     return jm, params, load_jax_params(torch_tiny_model(**ENCODER), params)
 

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from util_synth import make_refcoco_style
-from util_torch_port import run_ranks
+from util_torch_port import one_torch_thread, run_ranks  # noqa: F401
 
 from simvg_tpu_torch.config import Config
 from simvg_tpu_torch.models import build_model

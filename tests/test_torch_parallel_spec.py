@@ -28,6 +28,7 @@ from simvg_tpu.parallel.mesh import param_partition_spec as jax_spec
 from simvg_tpu_torch.convert import _flatten, export_simvg_full
 from simvg_tpu_torch.parallel import init_distributed, param_partition_spec
 from util_torch_port import free_port, jax_tiny_model, np_batch, to_jax
+from util_torch_port import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -38,7 +38,8 @@ from simvg_tpu_torch.engine.train import train_losses
 from simvg_tpu_torch.models import init_random_weights
 from simvg_tpu_torch.parallel import param_partition_spec
 from test_torch_train import BLW, TINY_BEIT3, TINY_HEAD, _batch, _models
-from util_torch_port import jax_params_from_port, run_ranks
+from util_torch_port import cheap_jit, jax_params_from_port, run_ranks
+from util_torch_port import one_torch_thread  # noqa: F401
 
 OPT = dict(lr=1e-3, steps_per_epoch=1000)
 MIN_SIZE = 2048
@@ -64,8 +65,8 @@ def _jax_run(jm, params, batch, dp):
     and EMA after them, by exported name."""
     tx = jax_create_optimizer(**OPT)
     state = jax_create_train_state(params, tx, ema=True)
-    step = jax.jit(jax_make_train_step(jm, tx, branch_loss_weight=BLW,
-                                       ema_alpha=0.99, dp_size=dp))
+    step = cheap_jit(jax_make_train_step(jm, tx, branch_loss_weight=BLW,
+                                         ema_alpha=0.99, dp_size=dp))
     scalars = []
     for _ in range(2):
         state, s = step(state, batch, jax.random.PRNGKey(1))

@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from util_torch_port import (TINY_BEIT3, TINY_HEAD, assert_int8_close,
-                             jax_tiny_model,
-                             np_batch, to_jax, to_torch)
+                             cheap_jit, jax_tiny_model, np_batch, to_jax,
+                             to_torch)
 
 from simvg_tpu_torch.convert import export_simvg_full, load_jax_params
 from simvg_tpu_torch.models import build_model, init_random_weights
@@ -27,6 +27,7 @@ from simvg_tpu_torch.models.beit3 import (BEiT3Config, BEiT3Encoder,
                                           stable_top_k)
 from simvg_tpu_torch.models.heads.tgqs_head import TGQSHeadConfig
 from simvg_tpu_torch.models.model import SimVGConfig, SimVGModel
+from util_torch_port import one_torch_thread  # noqa: F401
 
 KW = dict(img_size=64, patch_size=16, embed_dim=32, num_heads=4,
           ffn_dim=64, num_layers=3, vocab_size=60, drop_path_rate=0.0)
@@ -232,8 +233,8 @@ def test_prune_envelope_through_builder():
 @pytest.fixture(scope="module")
 def jax_init_params():
     """Params of JAX ``model.init`` on the tiny model (PRNGKey(11))."""
-    params = jax.jit(jax_tiny_model().init)(jax.random.PRNGKey(11),
-                                            **to_jax(np_batch()))
+    params = cheap_jit(jax_tiny_model().init)(jax.random.PRNGKey(11),
+                                              **to_jax(np_batch()))
     return jax.tree.map(np.asarray, params)
 
 

@@ -33,14 +33,15 @@ import torch
 
 from util_synth import make_refcoco_style
 from util_torch_port import (INT8_MEAN_ATOL, TINY_BEIT3, assert_int8_close,
-                             jax_tiny_model, np_batch, to_jax, to_torch,
-                             torch_tiny_model)
+                             cheap_jit, jax_tiny_model, np_batch, to_jax,
+                             to_torch, torch_tiny_model)
 
 from simvg_tpu_torch.convert import (export_simvg_full, load_jax_params,
                                      quant_key_to_jax, quant_keys_from_jax)
 from simvg_tpu_torch.models.beit3 import BEiT3Config, BEiT3Encoder
 from simvg_tpu_torch.models.layers import Linear
 from simvg_tpu_torch.ops import quant as q
+from util_torch_port import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -225,7 +226,7 @@ def _jax_calibrate(quant_model, params, batches, prefix=()):
     skel = jax.eval_shape(lambda: calib.init(jax.random.PRNGKey(0),
                                              *batches[0]))["quant"]
     amax = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), skel)
-    step = jax.jit(lambda a, batch: calib.apply(
+    step = cheap_jit(lambda a, batch: calib.apply(
         {"params": params, "quant": a}, *batch, mutable=["quant"])[1])
     for batch in batches:
         amax = step(amax, batch)["quant"]
@@ -298,8 +299,8 @@ def _port_model(quant):
 
 @pytest.fixture(scope="module")
 def model_params():
-    params = jax.jit(jax_tiny_model().init)(jax.random.PRNGKey(7),
-                                            **to_jax(np_batch()))
+    params = cheap_jit(jax_tiny_model().init)(jax.random.PRNGKey(7),
+                                              **to_jax(np_batch()))
     return jax.tree.map(np.asarray, params["params"])
 
 
@@ -696,7 +697,7 @@ def test_each_cli_takes_quant_collection(cli, trained, synth, tmp_path):
         assert np.isfinite(out["score"])
     elif cli == "serve":
         assert out.batcher.batches == 1  # the int8 warm-up batch
-        thread = threading.Thread(target=out.serve_forever)
+        thread = threading.Thread(target=out.serve_forever, daemon=True)
         thread.start()
         out.close()
         thread.join(timeout=60)

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from util_torch_port import TINY_BEIT3, TINY_HEAD
+from util_torch_port import TINY_BEIT3, TINY_HEAD, cheap_jit
 
 from simvg_tpu.losses.criterion import normalize_targets as jax_targets
 from simvg_tpu.losses.criterion import simvg_branch_losses as jax_losses
@@ -29,6 +29,7 @@ from simvg_tpu_torch.convert import export_simvg_full, load_jax_params
 from simvg_tpu_torch.engine.train import train_losses
 from simvg_tpu_torch.models import beit3
 from simvg_tpu_torch.models.layers import set_generator
+from util_torch_port import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 BLW = {"decoder": 1.0, "balanced_distill": {"token": 2.0, "distill": 1.0}}
@@ -164,7 +165,7 @@ def jax_remat():
                                 head=TGQSHeadConfig(**HEAD)))
     batch = _batch(seed=1)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+    params = jax.tree.map(np.asarray, cheap_jit(jm.init)(
         jax.random.PRNGKey(0), **{k: jb[k] for k in KEYS}))
 
     def loss_fn(p):
@@ -174,7 +175,7 @@ def jax_remat():
                               jb["gt_valid"], jb["img_shape"])
         return jax_losses(out, targets, branch_loss_weight=BLW)["loss_total"]
 
-    grads = jax.jit(jax.grad(loss_fn))(params)
+    grads = cheap_jit(jax.grad(loss_fn))(params)
     return params, batch, export_simvg_full(jax.tree.map(np.asarray, grads))
 
 

@@ -41,6 +41,7 @@ from simvg_tpu_torch.tools import export_serving as export_cli
 from simvg_tpu_torch.tools import serve
 from simvg_tpu_torch.tools.test import serving_model
 from simvg_tpu_torch.utils.checkpoint import save_checkpoint
+from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -72,7 +73,7 @@ def jax_weights(tmp_path_factory):
                  text_ids=jnp.zeros((1, t), jnp.int32),
                  text_padding_mask=jnp.zeros((1, t), jnp.int32),
                  img_shape=jnp.full((1, 2), 64, jnp.int32))
-    params = jax.tree.map(np.asarray, jax.jit(model.init)(
+    params = jax.tree.map(np.asarray, cheap_jit(model.init)(
         jax.random.PRNGKey(2), **dummy))
     sd = {k: torch.from_numpy(v.copy())
           for k, v in export_simvg_full(params).items()}
@@ -82,11 +83,14 @@ def jax_weights(tmp_path_factory):
 
 
 class _Running:
-    """A server serving on a thread; ``close()`` stops it."""
+    """A server serving on a daemon thread (which cannot keep the test
+    process alive if a test fails before ``close()``); ``close()`` stops
+    it."""
 
     def __init__(self, argv):
         self.server = serve.build_server(argv)
-        self.thread = threading.Thread(target=self.server.serve_forever)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
         self.thread.start()
         self.port = self.server.server_port
 
@@ -170,7 +174,8 @@ def test_serve_dynamic_batching(live):
         results[i] = _predict(live.port, _jpg(i), f"object {i}",
                               timeout=120)
 
-    threads = [threading.Thread(target=hit, args=(i,)) for i in range(6)]
+    threads = [threading.Thread(target=hit, args=(i,), daemon=True)
+               for i in range(6)]
     for t in threads:
         t.start()
     for t in threads:
@@ -191,7 +196,7 @@ def test_serve_response_matches_jax_eval_step(live, jax_weights):
     assert status == 200
     pre = RawPreprocessor(Config.fromfile(TINY), "cpu")
     batch = pre.collate([pre(data, expr)])
-    want = jax.tree.map(np.asarray, jax.jit(jax_eval_step(model))(
+    want = jax.tree.map(np.asarray, cheap_jit(jax_eval_step(model))(
         params, {k: jnp.asarray(np.asarray(batch[k]))
                  for k in SERVING_INPUTS}))
     sf = batch["scale_factor"][0]

@@ -40,6 +40,7 @@ from simvg_tpu_torch.tools import inference as inference_cli
 from simvg_tpu_torch.utils.checkpoint import save_checkpoint
 from simvg_tpu_torch.utils.visualize import (attention_overlay, draw_boxes,
                                              jet_table)
+from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -78,7 +79,7 @@ def _jax_model_and_checkpoint(jcfg, work, seed):
                  text_ids=jnp.zeros((1, t), jnp.int32),
                  text_padding_mask=jnp.zeros((1, t), jnp.int32),
                  img_shape=jnp.full((1, 2), 64, jnp.int32))
-    params = jax.tree.map(np.asarray, jax.jit(model.init)(
+    params = jax.tree.map(np.asarray, cheap_jit(model.init)(
         jax.random.PRNGKey(seed), **dummy))
     sd = {k: torch.from_numpy(v.copy())
           for k, v in export_simvg_full(params).items()}
@@ -89,7 +90,7 @@ def _jax_model_and_checkpoint(jcfg, work, seed):
 def _jax_preds(model, params, batch):
     from simvg_tpu.engine.train import make_eval_step
 
-    preds = jax.jit(make_eval_step(model))(
+    preds = cheap_jit(make_eval_step(model))(
         params, {k: jnp.asarray(np.asarray(batch[k])) for k in KEYS})
     return jax.tree.map(np.asarray, preds)
 

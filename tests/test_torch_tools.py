@@ -36,6 +36,7 @@ from util_synth import make_refcoco_style
 
 from simvg_tpu_torch.convert import export_params
 from test_torch_onestage import random_params
+from util_torch_port import cheap_jit
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -122,7 +123,7 @@ def test_compute_cam_matches_jax(families, family, branch):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_vis_cam, "np", types.SimpleNamespace(
             asarray=lambda x: x))
-        want = np.asarray(jax.jit(lambda p, i: jax_vis_cam.compute_cam(
+        want = np.asarray(cheap_jit(lambda p, i: jax_vis_cam.compute_cam(
             model, p, i, branch, 64, family=cfg.model.get("type")))(
             params, {k: jnp.asarray(batch[k]) for k in INPUTS}))
     got = compute_cam(port, _port_inputs(batch), branch).numpy()
@@ -145,7 +146,7 @@ def test_cross_attention_maps_match_jax_intermediates(families, family):
     from simvg_tpu_torch.tools.attn_visual import cross_attention_maps
 
     cfg, model, params, batch, port = families[family]
-    _, inter = jax.jit(lambda p, i: model.apply(
+    _, inter = cheap_jit(lambda p, i: model.apply(
         p, **i, mutable=["intermediates"]))(
         params, {k: jnp.asarray(batch[k]) for k in INPUTS})
     want = {name: np.asarray(layer["cross_attn"]["attn_weights"][0]).mean(1)

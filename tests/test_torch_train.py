@@ -38,6 +38,7 @@ from simvg_tpu.engine.train_state import ema_update as jax_ema_update
 from simvg_tpu.engine.train_state import make_lr_schedule as jax_schedule
 from simvg_tpu.losses.criterion import normalize_targets as jax_targets
 from simvg_tpu.losses.criterion import simvg_branch_losses as jax_losses
+from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
 from simvg_tpu_torch.engine import train_state as ts
 
 BLW = {"decoder": 1.0, "balanced_distill": {"token": 2.0, "distill": 1.0}}
@@ -331,7 +332,7 @@ def three_steps(request):
     batch = _batch(variant)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    params = jax.tree.map(np.asarray, jm.init(
+    params = jax.tree.map(np.asarray, cheap_jit(jm.init)(
         jax.random.PRNGKey(0), **{k: jb[k] for k in (
             "image", "text_ids", "text_padding_mask", "img_shape")}))
     load_jax_params(tm, params)

@@ -29,6 +29,7 @@ from util_synth import make_refcoco_style
 from simvg_tpu_torch.tools import quantize_serving
 from simvg_tpu_torch.tools import test as test_cli
 from simvg_tpu_torch.tools import train as train_cli
+from util_torch_port import one_torch_thread  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SMOKE = osp.join(REPO, "configs", "smoke")
@@ -93,14 +94,17 @@ def test_twostage_flow(tmp_path):
 
 def test_distill_proof_big_chain_runs(tmp_path):
     """The big tier's four-run chain (``tools/distill_proof_big.py``) cut to
-    one epoch of one step each: every run evaluates and stage 2 loads stage
-    1's latest."""
+    one epoch of one step each, on a 2-layer encoder 32 wide: every run
+    evaluates and stage 2 loads stage 1's latest."""
     from simvg_tpu_torch.tools import distill_proof_big
 
     summary = distill_proof_big.main([
         "--out", str(tmp_path), "--device", "cpu", "--n-train", "8",
         "--n-val", "4", "--cfg-options", "scheduler_config.max_epoch=1",
-        "evaluate_interval=1", "data.samples_per_gpu=8"])
+        "evaluate_interval=1", "data.samples_per_gpu=8",
+        "model.vis_enc.embed_dim=32", "model.vis_enc.num_heads=4",
+        "model.vis_enc.ffn_dim=64", "model.vis_enc.num_layers=2",
+        "model.head.in_channels=32", "model.head.embed_dim=32"])
     assert [name for name, _, _ in distill_proof_big.RUNS] == list(summary)
     for run in summary.values():
         assert run["epochs"] == run["last_eval_epoch"] == 1

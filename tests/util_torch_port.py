@@ -9,6 +9,7 @@ fixed seed and handed to both packages.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 TINY_BEIT3 = dict(img_size=64, patch_size=16, embed_dim=32, num_heads=4,
@@ -33,6 +34,33 @@ def assert_int8_close(got, want, err_msg=""):
     diff = np.abs(got - want)
     assert diff.max() <= INT8_MAX_ATOL, (err_msg, diff.max())
     assert diff.mean() <= INT8_MEAN_ATOL, (err_msg, diff.mean())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Runs a module's tests on one torch CPU thread and gives the thread
+    count back after it.  The suite runs six test processes on the machine's
+    cores; one torch thread each leaves the cores to the processes rather
+    than to torch threads that wait for one another (a test module that
+    imports this fixture takes it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# XLA with LLVM's cheap passes only: the JAX references of these tests
+# compile in a half to a third of the time and compute the same values up
+# to float32 rounding
+CHEAP_COMPILE = {"xla_backend_optimization_level": 0,
+                 "xla_llvm_disable_expensive_passes": True}
+
+
+def cheap_jit(fn, **kw):
+    """``jax.jit(fn)`` compiled with CHEAP_COMPILE."""
+    import jax
+
+    return jax.jit(fn, compiler_options=CHEAP_COMPILE, **kw)
 
 
 def jax_tiny_model(**head):
