@@ -37,6 +37,12 @@ weights from a seed:
   gradients held against plain attention with dropout off; the step timed
   with each.
 
+Then "headdim": the flagship's encoder as 24 heads of 32 and as 6 heads
+of 128 (K1/K2's other instantiations; the K1/K2 rows hold both and a
+padded head_dim of 48): per head_dim an eval batch of 8 (12 K1 launches)
+and a train step at batch 32 (12 K1, 12 K2), both held by the bf16 rules
+below and timed beside plain attention.
+
 A bf16 model with the kernels is held to the float32 model with plain
 attention on the same weights and inputs, no further from it than
 BF16_REF_FACTOR times the bf16 model with plain attention, and every
@@ -90,8 +96,10 @@ refcoco_onestage_fsdp8.py as written under FSDP2 on the remat phase's
 weights: one batch's loss terms and gradients bit for bit the unwrapped
 model's, held to float32 (the gradients and loss_total by the bf16 rule,
 every K1/K2 call too), K1/K2 a step, step time and peak memory
-beside the unwrapped model's, and one NCCL all-reduce of evaluation
-counters.  Before "remat", after the OneStage family ("onestage") and the
+beside the unwrapped model's, one NCCL all-reduce of evaluation
+counters, and the flagship with int8_qat whose layers take their
+activation max over the 1-rank group, bit for bit the single-process
+step.  Before "remat", after the OneStage family ("onestage") and the
 config-facing tools ("tools"), "zoo" takes the OneStage model with each
 other pure-vision backbone at its JAX defaults (ResNet-50, CSPDarknet,
 ViT-B/32, Swin-T, PVTv2, ViTDet-B/16) and with the ALBERTA language
@@ -172,7 +180,21 @@ K1_CHECKS = [  # (batch, seq, heads, head_dim, dtype name, bound)
     (8, 577, 12, 64, "bfloat16", 2e-2),
     (8, 933, 12, 64, "bfloat16", 2e-2),
     (8, 32, 12, 64, "bfloat16", 2e-2),
+    # the other instantiations ("headdim"): the flagship's D = 768 as 24
+    # heads of 32 and as 6 heads of 128, and a head_dim with none (48,
+    # zero-padded to 64 by the wrapper)
+    (TRAIN_BATCH, 421, 24, 32, "bfloat16", 2e-2),
+    (8, 421, 24, 32, "bfloat16", 2e-2),
+    (8, 421, 24, 32, "float32", 2e-5),
+    (TRAIN_BATCH, 421, 6, 128, "bfloat16", 2e-2),
+    (8, 421, 6, 128, "bfloat16", 2e-2),
+    (8, 421, 6, 128, "float32", 2e-5),
+    (8, 421, 16, 48, "bfloat16", 2e-2),
 ]
+# K1 as the train step calls it (with the residual r), at each instantiation
+# and the padded head_dim
+K1_TRAIN_CHECKS = [(TRAIN_BATCH, 421, 12, 64), (TRAIN_BATCH, 421, 24, 32),
+                   (TRAIN_BATCH, 421, 6, 128), (8, 421, 16, 48)]
 # K2 vs its plain version.  float32: the gradient bounds of
 # tests/test_pallas_attention.py.  bf16: 2e-2 of each gradient's max |value|,
 # five bf16 steps: K2 sums its P and dP in another order, so a rounding of P
@@ -185,6 +207,11 @@ K2_CHECKS = [  # (batch, seq, heads, head_dim, dtype name)
     (2, 1621, 16, 64, "bfloat16"),  # patch-16 sequence, large heads
     (TRAIN_BATCH, 277, 12, 64, "bfloat16"),  # Mixed at 512 px
     (8, 933, 12, 64, "bfloat16"),  # the VQA head's backward ("legacy")
+    (TRAIN_BATCH, 421, 24, 32, "bfloat16"),  # "headdim", as K1's rows
+    (8, 421, 24, 32, "float32"),
+    (TRAIN_BATCH, 421, 6, 128, "bfloat16"),
+    (8, 421, 6, 128, "float32"),
+    (8, 421, 16, 48, "bfloat16"),
 ]
 K2_FP32_ATOL, K2_FP32_RTOL = 3e-4, 1e-3
 K2_BF16_REL = 2e-2
@@ -384,7 +411,7 @@ def check_k1(gen, card):
         log(f"K1 {row} (library_ms: SDPA forward; device_ms: the kernel's "
             f"device time a call) [{card}]")
         rows.append(row)
-    rows.append(check_k1_train(gen, card))
+    rows += [check_k1_train(gen, card, *shape) for shape in K1_TRAIN_CHECKS]
     return rows
 
 
@@ -394,10 +421,10 @@ def check_k1(gen, card):
 K1_RESID_GAIN = 8.0
 
 
-def check_k1_train(gen, card):
+def check_k1_train(gen, card, b, s, h, hd):
     """K1 as the train step calls it (bf16, a gradient wanted: the operator
-    with grad=True writes the residual r beside out and lse), at (32, 421,
-    12, 64): out against fused_attention_reference, out + r against the
+    with grad=True writes the residual r beside out and lse), at (b, s, h,
+    hd): out against fused_attention_reference, out + r against the
     float32 output, timed beside attention_residual_reference and SDPA's
     forward with a graph; returns the row."""
     import torch
@@ -405,7 +432,6 @@ def check_k1_train(gen, card):
     from simvg_tpu_torch.ops.fused_attention import (
         attention_residual_reference, fused_attention_reference)
 
-    b, s, h, hd = TRAIN_BATCH, 421, 12, 64
     q, k, v, pad = text_padded_qkv(b, s, h, hd, torch.bfloat16, gen)
     op = torch.ops.simvg.attention_fwd
     out, lse, resid = op(q, k, v, pad, True)
@@ -726,33 +752,39 @@ def time_eval(steps, loader):
     return {n: sorted(ts) for n, ts in lat.items()}
 
 
-def serve_flagship(card):
+def serve_flagship(card, cfg=None, n_batches=N_BATCHES, name="flagship"):
+    """The serve path at full width: ``n_batches`` batches of BATCH
+    requests through evaluate after a warm-up, K1 launches counted; then
+    the outputs and every K1 call held against plain attention, and the
+    eval step timed with each.  ``cfg``: the flagship's by default.
+    Returns the K1 launches."""
     import numpy as np
     import torch
     from simvg_tpu_torch.config import Config
     from simvg_tpu_torch.engine import make_eval_step
 
-    cfg = Config.fromfile(FLAGSHIP)
+    cfg = cfg or Config.fromfile(FLAGSHIP)
     model, loss_cfg = build_flagship(cfg, "pallas", torch.bfloat16)
     enc = model.cfg.beit3
-    log(f"flagship: {enc.num_layers} layers, D={enc.embed_dim}, "
+    log(f"{name}: {enc.num_layers} layers, D={enc.embed_dim}, "
         f"{enc.num_heads} heads, S={enc.seq_vision + cfg.max_token}, "
         f"attn_impl={enc.attn_impl}, "
         f"{sum(p.numel() for p in model.parameters())} params (random, "
         f"seed {SEED}; pretrain {loss_cfg['pretrain']!r} not loaded), bf16")
     norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
                 to_rgb=True)
-    loader = make_requests(np.random.default_rng(SEED), N_BATCHES, BATCH,
+    loader = make_requests(np.random.default_rng(SEED), n_batches, BATCH,
                            enc.vocab_size, cfg.max_token, cfg.img_size)
 
     launches, times, metrics = serve(model, loader, norm)
-    want = enc.num_layers * N_BATCHES
+    want = enc.num_layers * n_batches
     if launches != want:
-        raise AssertionError(f"K1 launched {launches} times on the main "
-                             f"path, expected {want}")
-    if metrics["n_samples"] != N_BATCHES * BATCH:
+        raise AssertionError(f"{name}: K1 launched {launches} times on the "
+                             f"main path, expected {want}")
+    if metrics["n_samples"] != n_batches * BATCH:
         raise AssertionError(f"evaluate counted {metrics['n_samples']}")
-    log(f"served {N_BATCHES}x{BATCH} requests: K1 launches {launches}; "
+    log(f"{name}: served {n_batches}x{BATCH} requests: K1 launches "
+        f"{launches}; "
         f"per-batch ms through evaluate {times} [{card}]; decoder Prec@0.5 "
         f"{metrics['decoder_det_acc']:.2f}, token Prec@0.5 "
         f"{metrics['token_det_acc']:.2f} (random weights: shows the "
@@ -764,7 +796,8 @@ def serve_flagship(card):
                     loader)
     for impl, ts in lat.items():
         ms = ts[len(ts) // 2]
-        log(f"eval forward, batch {BATCH}, bf16, attn_impl={impl}: median "
+        log(f"{name}: eval forward, batch {BATCH}, bf16, attn_impl={impl}: "
+            f"median "
             f"{ms:.3f} ms/batch ({BATCH / ms * 1e3:.1f} images/s), min "
             f"{ts[0]:.3f}, max {ts[-1]:.3f}, {len(ts)} batches [{card}]")
     return launches
@@ -859,10 +892,12 @@ def losses_and_grads(model, batch, loss_cfg, norm, sharded=None,
              for n, p, g in zip(names, params, grads)})
 
 
-def train_flagship(card):
-    """The train path at full width: TRAIN_STEPS steps of TRAIN_BATCH after
+def train_flagship(card, cfg=None, steps=TRAIN_STEPS, name="flagship"):
+    """The train path at full width: ``steps`` steps of TRAIN_BATCH after
     a warm-up, K1/K2 launches counted; then kernel vs plain attention on
-    loss terms and gradients, and the step timed with each."""
+    loss terms and gradients, and the step timed with each.  ``cfg``: the
+    flagship's by default.  Returns (K1 launches, K2 launches, the K1
+    step's median ms)."""
     import numpy as np
     import torch
     from simvg_tpu_torch.config import Config
@@ -870,16 +905,16 @@ def train_flagship(card):
                                                      fused_attention)
     from simvg_tpu_torch.ops.hungarian import hungarian_assign
 
-    cfg = Config.fromfile(FLAGSHIP)
+    cfg = cfg or Config.fromfile(FLAGSHIP)
     model, loss_cfg = build_flagship(cfg, "pallas", torch.bfloat16)
     enc = model.cfg.beit3
     norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
                 to_rgb=True)
     batches = [to_device(b, TRAIN_KEYS) for b in make_requests(
-        np.random.default_rng(SEED + 1), TRAIN_STEPS + 1, TRAIN_BATCH,
+        np.random.default_rng(SEED + 1), steps + 1, TRAIN_BATCH,
         enc.vocab_size, cfg.max_token, cfg.img_size)]
     step, state = make_train_step_for(cfg, model, loss_cfg, norm)
-    log(f"train: flagship at full width, batch {TRAIN_BATCH}, bf16 compute, "
+    log(f"train: {name} at full width, batch {TRAIN_BATCH}, bf16 compute, "
         f"fp32 params, drop-path {enc.drop_path_rate}, head dropout "
         f"{model.head.cfg.attn_dropout}; lr {cfg.lr}, "
         f"{cfg.optimizer_config['type']} amsgrad="
@@ -896,19 +931,19 @@ def train_flagship(card):
             history.append(scalars)
     torch.cuda.synchronize()
     k1, k2 = fused_attention.launches, attention_bwd.launches
-    trips = hungarian_assign.round_trips / TRAIN_STEPS
-    want = enc.num_layers * TRAIN_STEPS
+    trips = hungarian_assign.round_trips / steps
+    want = enc.num_layers * steps
     if (k1, k2) != (want, want):
-        raise AssertionError(f"train path launched K1 {k1} and K2 {k2} "
-                             f"times, expected {want} each")
+        raise AssertionError(f"{name}: train path launched K1 {k1} and K2 "
+                             f"{k2} times, expected {want} each")
     values = {k: torch.stack([h[k] for h in history]).float().cpu()
               for k in history[0]}
     bad = sorted(k for k, v in values.items() if not torch.isfinite(v).all())
     if bad or "grad_norm" not in values:
         raise AssertionError(f"non-finite train scalars: {bad}")
-    log(f"trained {TRAIN_STEPS} steps of {TRAIN_BATCH}: K1 launches {k1}, "
-        f"K2 launches {k2}, Hungarian host round trips per step {trips}, "
-        f"host ms per step {sum(ms for ms, _ in calls) / TRAIN_STEPS:.2f} "
+    log(f"{name}: trained {steps} steps of {TRAIN_BATCH}: K1 launches "
+        f"{k1}, K2 launches {k2}, Hungarian host round trips per step "
+        f"{trips}, host ms per step {sum(ms for ms, _ in calls) / steps:.2f} "
         f"[{card}]; "
         f"loss_total {values['loss_total'].tolist()}, grad_norm "
         f"{values['grad_norm'].tolist()}")
@@ -920,15 +955,59 @@ def train_flagship(card):
     step_ms = {}
     for impl, (ts, peak) in timing.items():
         ms = step_ms[impl] = ts[len(ts) // 2]
-        log(f"train step, batch {TRAIN_BATCH}, bf16, attn_impl={impl}: "
+        log(f"{name}: train step, batch {TRAIN_BATCH}, bf16, "
+            f"attn_impl={impl}: "
             f"median {ms:.3f} ms/step ({TRAIN_BATCH / ms * 1e3:.1f} images/s), "
             f"min {ts[0]:.3f}, max {ts[-1]:.3f}, {len(ts)} steps; "
             f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; host round "
             f"trips per step {trips} [{card}]")
 
-    hold_train_against_plain("flagship", cfg, model.state_dict(), batches[1],
+    hold_train_against_plain(name, cfg, model.state_dict(), batches[1],
                              loss_cfg, norm)
     return k1, k2, step_ms["pallas"]
+
+
+# "headdim": the flagship's encoder at D = 768, FFN 3072, 12 layers, as 24
+# heads of 32 and 6 heads of 128 (BEiT3Config's width override, which both
+# builders take), so that K1 and K2 run their other instantiations on a
+# main path: head_dim -> heads
+HEADDIM_HEADS = {32: 24, 128: 6}
+
+
+def headdim_config(hd, heads):
+    """The flagship's config with its encoder at ``heads`` heads of
+    ``hd``; raises when the model it builds has another shape."""
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.models import build_model
+
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict({f"model.vis_enc.{k}": v for k, v in dict(
+        embed_dim=768, num_heads=heads, ffn_dim=3072,
+        num_layers=12).items()})
+    enc = build_model(copy.deepcopy(dict(cfg.model)), img_size=cfg.img_size,
+                      device="meta")[0].cfg.beit3
+    if (enc.embed_dim // enc.num_heads, enc.num_layers) != (hd, 12):
+        raise AssertionError(f"headdim: built {enc.num_heads} heads of "
+                             f"{enc.embed_dim // enc.num_heads}")
+    return cfg
+
+
+def headdim_phase(card):
+    """For each head_dim of HEADDIM_HEADS, the serve and train paths
+    (``serve_flagship``, ``train_flagship``) on the flagship with that
+    encoder, bf16, attn_impl="pallas": one batch of BATCH requests (12 K1
+    launches) and one train step of TRAIN_BATCH (12 K1 and 12 K2
+    launches), each after a warm-up, held by the bf16 rule and the
+    per-call rule and timed beside plain attention.  Returns {head_dim:
+    (K1 launches, K2 launches)} of the counted runs."""
+    out = {}
+    for hd, heads in HEADDIM_HEADS.items():
+        cfg = headdim_config(hd, heads)
+        name = f"headdim {hd} ({heads} heads x {hd})"
+        k1_eval = serve_flagship(card, cfg, n_batches=1, name=name)
+        k1, k2, _ = train_flagship(card, cfg, steps=1, name=name)
+        out[hd] = (k1_eval + k1, k2)
+    return out
 
 
 def hold_train_against_plain(name, cfg, state, batch, loss_cfg, norm):
@@ -2905,8 +2984,52 @@ def dist_phase(card, remat, state, launches):
             log(f"dist: NCCL all-reduce of eval counters on "
                 f"{summed.device}: {summed.tolist()}, exact")
             del model, sharded, step, tstate, box
+            torch.cuda.empty_cache()
+            hold_qat_group_max(card, mesh)
         finally:
             dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def hold_qat_group_max(card, mesh):
+    """int8 scales under data parallelism on one card: the flagship with
+    quant="int8_qat" (bf16, K1/K2, random weights from SEED), one batch's
+    loss terms and gradients, dropout off, with its int8 layers given the
+    1-rank NCCL data group of ``mesh`` (ops/quant.py all-reduces each
+    activation max over it, as JAX takes the max over the global batch)
+    against the same model with no group, the single-process path: bit
+    for bit, since a MAX over one rank is the rank's own."""
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config
+    from simvg_tpu_torch.ops.quant import quant_layers, set_groups
+
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict({"model.vis_enc.quant": "int8_qat"})
+    model, loss_cfg = build_flagship(cfg, "pallas", torch.bfloat16)
+    dropout_off(model)
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    batch = to_device(make_requests(
+        np.random.default_rng(SEED + 9), 1, TRAIN_BATCH,
+        model.cfg.beit3.vocab_size, cfg.max_token, cfg.img_size)[0],
+        TRAIN_KEYS)
+    alone = losses_and_grads(model, batch, loss_cfg, norm)
+    set_groups(model, mesh["data"].get_group())
+    layers = quant_layers(model)
+    if not layers or any(len(m.act_groups) != 1 for m in layers.values()):
+        raise AssertionError("int8_qat: the layers did not take the group")
+    grouped = losses_and_grads(model, batch, loss_cfg, norm)
+    set_groups(model)
+    if alone[0] != grouped[0] or any(
+            not torch.equal(g, grouped[1][n]) for n, g in alone[1].items()):
+        raise AssertionError("int8_qat with the 1-rank group's activation "
+                             "max differs from the single-process step")
+    log(f"dist: int8_qat at batch {TRAIN_BATCH}, {len(layers)} int8 layers "
+        f"taking their activation max over the 1-rank NCCL data group: loss "
+        f"terms and gradients bit for bit the single-process step's; "
+        f"loss_total {alone[0]['loss_total']} [{card}]")
+    del model
     torch.cuda.empty_cache()
 
 
@@ -4542,6 +4665,9 @@ def main() -> int:
     k2_rows = check_k2(gen, card)
     serve_k1 = serve_flagship(card)
     train_k1, train_k2, step_ms = train_flagship(card)
+    t0 = time.perf_counter()
+    headdim = headdim_phase(card)
+    log(f"headdim phase: {time.perf_counter() - t0:.1f} s")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # the slice-9 phases run before the earlier slices' checks: no phase
@@ -4603,25 +4729,30 @@ def main() -> int:
         + ", ".join(f"{k} {v}" for k, v in serving.items())
         + f", int8 {int8_k1}, remat {remat_k1}, dist {dist_k1}, onestage "
         f"{new['onestage'][0]}, tools {new['tools'][0]}, zoo "
-        f"{new['zoo'][0]}, legacy {new['legacy'][0]}; K2 train "
+        f"{new['zoo'][0]}, legacy {new['legacy'][0]}, headdim "
+        f"{ {hd: c[0] for hd, c in headdim.items()} }; K2 train "
         f"{train_k2}, options {options_k2}, cli {cli_k2}, grec {grec_k2}, "
         f"mixed {mixed_k2}, masks {masks_k2}, int8 {int8_k2}, remat "
         f"{remat_k2}, dist {dist_k2}, onestage {new['onestage'][1]}, tools "
         f"{new['tools'][1]}, zoo {new['zoo'][1]}, legacy "
-        f"{new['legacy'][1]}")
+        f"{new['legacy'][1]}, headdim "
+        f"{ {hd: c[1] for hd, c in headdim.items()} }")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
-    # step's shape (batch 32, S=421, bf16; the first row of each check);
-    # the other shapes are on the "K1" / "K2" lines above.  device_ms: the
-    # kernels' own device time a call (torch.profiler), beside ms.
-    # launches: the serve and train paths' counts, each taken from 0 just
-    # before its path
-    def entry(name, replaces, rows, launches):
+    # step's shape (batch 32, S=421, bf16; the first row of each
+    # instantiation's check); the other shapes are on the "K1" / "K2" lines
+    # above.  One entry an instantiation: head_dim 64 (every shipped
+    # config's), 32 and 128 ("headdim").  device_ms: the kernels' own
+    # device time a call (torch.profiler), beside ms.  launches: the main
+    # paths' counts, each taken from 0 just before its path
+    def entry(name, replaces, rows, launches, hd=64):
+        rows = [r for r in rows if r["shape"][3] == hd]
         main_row = rows[0]
         errs = [r["max_abs_err"] for r in rows]
         errs = [max(e.values()) if isinstance(e, dict) else e for e in errs]
-        return {"name": name, "route": "cuda",
+        return {"name": name if hd == 64 else f"{name}[head_dim={hd}]",
+                "route": "cuda",
                 "source": f"simvg_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs), "ms": main_row["ms"],
@@ -4640,7 +4771,11 @@ def main() -> int:
               k2_rows, train_k2 + options_k2 + cli_k2 + grec_k2 + mixed_k2
               + masks_k2 + int8_k2 + remat_k2 + dist_k2
               + sum(k2 for _, k2 in new.values())),
-    ]}), flush=True)
+    ] + [entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
+               k1_rows, headdim[hd][0], hd) for hd in HEADDIM_HEADS]
+        + [entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
+                 k2_rows, headdim[hd][1], hd) for hd in HEADDIM_HEADS]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

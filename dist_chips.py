@@ -5,6 +5,7 @@ across every card of one host: held against one card, then timed.
     python3 dist_chips.py                  # 2 or more CUDA cards (NCCL)
     python3 dist_chips.py --device cpu --config configs/smoke/tiny_synth.py \\
         --ranks 4                          # the same program, gloo
+    python3 dist_chips.py --num-layers 4 --only tp_int8   # one check, no timing
 
 One process per card, spawned here; the kernels are built first, once.
 The config (default ``configs/single/ViT-large/refcoco/
@@ -18,7 +19,17 @@ on random weights from a seed, ``samples_per_gpu`` samples a rank:
    sequence parallelism (model axis 2) against the same model unwrapped
    on rank 0 over the whole global batch (JAX's ``make_train_step(dp_size=
    dp)`` semantics): every loss term within rtol ``LOSS_RTOL``, every
-   gradient within ``GRAD_REL`` of its tensor's max |g|.
+   gradient within ``GRAD_REL`` of its tensor's max |g|; also with
+   ``quant="int8_qat"`` under tensor plus sequence parallelism, whose
+   scales are the global tensors': every activation scale of every rank
+   within ``SCALE_RTOL`` of the unwrapped model's (the outputs' distance
+   is logged beside the one that float rounding alone makes, the
+   unwrapped QAT model with its weights perturbed by ``NOISE``).  Then
+   the serving levers under tensor
+   parallelism, eval forwards against the unwrapped model on the whole
+   batch: dynamic int8 (within ``INT8_SHARE`` of the int8 model's own
+   distance from float32) and token pruning with sequence parallelism
+   (within ``GRAD_REL`` of each output's max |value|).
 2. **Timing.**  In the config's dtype and remat: 1 + ``STEPS`` train steps
    of the unwrapped model on rank 0 alone (the others wait), then of each
    layout on every rank: the step's median (host clock around a
@@ -36,6 +47,7 @@ It exits non-zero when fewer than 2 ranks are available or a check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import datetime
 import json
@@ -90,22 +102,82 @@ def global_batch(cfg, n, device):
     return {k: torch.as_tensor(b[k]).to(device) for k in KEYS}
 
 
-def layouts(world):
-    """name -> (model_parallel, fsdp, seq_parallel)."""
-    out = {"ddp": (1, False, False), "fsdp": (1, True, False)}
+def layouts(world, timed=False):
+    """name -> (model_parallel, fsdp, seq_parallel, more vis_enc settings);
+    ``timed``: the layouts that part 2 times (the int8_qat one is checked
+    only)."""
+    out = {"ddp": (1, False, False, {}), "fsdp": (1, True, False, {})}
     if world % 2 == 0:
-        out["tp_sp"] = (2, False, True)
+        out["tp_sp"] = (2, False, True, {})
+        if not timed:
+            out["tp_sp_int8_qat"] = (2, False, True, {"quant": "int8_qat"})
     return out
 
 
-def check_layouts(cfg, device, world, rank, results):
+def prune_settings(cfg):
+    """Token pruning as the flagship serves it (keep 300 of 400 patches
+    after layer 4), scaled to the config's patch grid and depth."""
+    ve = cfg.model.vis_enc
+    n = (cfg.img_size // ve.get("patch_size", 32)) ** 2
+    return dict(token_prune_keep=n * 3 // 4, token_prune_force=True,
+                token_prune_layer=min(4, ve.get("num_layers", 24) - 2),
+                scan_layers=False)
+
+
+# serving levers under tensor parallelism (model axis 2): name ->
+# (seq_parallel, vis_enc settings); "prune" takes prune_settings
+SERVING = {"tp_int8": (False, {"quant": "int8"}),
+           "tp_sp_prune": (True, "prune")}
+# a sharded int8 model's mean |distance| from the unwrapped int8 model, at
+# most this share of the int8 model's own mean distance from float32: an
+# activation that lands on a k + 0.5 boundary of its grid may round either
+# way under another summation order
+INT8_SHARE = 0.1
+# int8_qat's train check holds the scales, not the outputs: a
+# fake-quantized model moves under float rounding alone (an activation
+# crosses a rounding boundary of its grid), and at full width that motion
+# hides a rank's own scale (PERF.md §6).  Every per-tensor scale that a
+# rank's fake quant takes, in call order, within SCALE_RTOL of the
+# unwrapped model's: less than one step of the int8 grid, where a shard's
+# own max lies many steps below the global one; the outputs' distance is
+# logged beside the distance that weights times (1 + NOISE N(0, 1)) make,
+# the larger of NOISE_SEEDS
+SCALE_RTOL = 1 / 127
+NOISE = 1e-7
+NOISE_SEEDS = (1, 2)
+
+
+@contextlib.contextmanager
+def recorded_act_scales():
+    """The per-tensor scales (``dim`` None: the activations') that
+    ``ops/quant.py`` takes while the block runs, as floats in call
+    order."""
+    from simvg_tpu_torch.ops import quant
+
+    scales, orig = [], quant.quantize_symmetric
+
+    def record(w, dim=None, groups=()):
+        q, s = orig(w, dim, groups)
+        if dim is None:
+            scales.append(s.item())
+        return q, s
+
+    quant.quantize_symmetric = record
+    try:
+        yield scales
+    finally:
+        quant.quantize_symmetric = orig
+
+
+def check_layouts(cfg, device, world, rank, results, only=None):
     """Part 1: each layout's loss terms and gradients against the
-    unwrapped model's on the whole global batch, in float32.  Returns
-    (every layout within the bounds, on every rank; the weights)."""
+    unwrapped model's on the whole global batch, in float32; ``only``: the
+    names of the checks to run (default all).  Returns (every layout within
+    the bounds, on every rank; the weights)."""
     import torch
     import torch.distributed as dist
 
-    from chip_smoke import dropout_off, losses_and_grads
+    from chip_smoke import dropout_off, l2, losses_and_grads
     from simvg_tpu_torch.parallel import FSDP_MIN_SIZE, create_mesh
     from simvg_tpu_torch.parallel import shard_model
 
@@ -116,29 +188,85 @@ def check_layouts(cfg, device, world, rank, results):
     model, loss_cfg = build(cfg, torch.float32, device)
     state = {k: v.clone() for k, v in model.state_dict().items()}
     del model
-    ref = None
-    for name, (mp, fsdp, sp) in layouts(world).items():
-        dp = world // mp
-        if rank == 0 and (ref is None or ref[0] != dp):
-            plain, _ = build(cfg, torch.float32, device, state)
+    # (dp, quant, seed) -> the unwrapped model's loss terms, grads and
+    # activation scales; a seed perturbs its weights by a relative NOISE
+    refs = {}
+
+    def unwrapped(dp, quant, seed=None):
+        if (dp, quant, seed) not in refs:
+            weights = state
+            if seed is not None:
+                gen = torch.Generator(device=device).manual_seed(seed)
+                weights = {k: v * (1 + NOISE * torch.randn(
+                    v.shape, device=device, generator=gen))
+                    if v.is_floating_point() else v
+                    for k, v in state.items()}
+            plain, _ = build(cfg, torch.float32, device, weights,
+                             **({"quant": quant} if quant else {}))
             dropout_off(plain)
             batch = {k: v[:spg * dp] for k, v in whole.items()}
-            ref = (dp, losses_and_grads(plain, batch, loss_cfg, norm,
-                                        dp_size=dp))
-            del plain
+            with recorded_act_scales() as scales:
+                out = losses_and_grads(plain, batch, loss_cfg, norm,
+                                       dp_size=dp)
+            refs[(dp, quant, seed)] = (*out, scales)
+        return refs[(dp, quant, seed)]
+
+    def distance(a, b):  # loss_total's and the gradients' L2 distance
+        return (abs(a[0]["loss_total"] - b[0]["loss_total"]),
+                l2(a[1][n] - g for n, g in b[1].items()))
+
+    for name, (mp, fsdp, sp, vis) in layouts(world).items():
+        if only and name not in only:
+            continue
+        dp = world // mp
+        quant = vis.get("quant")
+        if rank == 0:
+            unwrapped(dp, quant)
         dist.barrier()
         model, _ = build(cfg, torch.float32, device, state,
-                         seq_parallel=sp)
+                         seq_parallel=sp, **vis)
         dropout_off(model)
         sharded = shard_model(model, create_mesh(mp, device.type),
                               fsdp=fsdp, fsdp_min_size=int(cfg.get(
                                   "fsdp_min_size", FSDP_MIN_SIZE)))
         r = sharded.dp_rank
         mine = {k: v[r * spg:(r + 1) * spg] for k, v in whole.items()}
-        losses, grads = losses_and_grads(model, mine, loss_cfg, norm,
-                                         sharded)
-        if rank == 0:
-            want_l, want_g = ref[1]
+        with recorded_act_scales() as scales:
+            losses, grads = losses_and_grads(model, mine, loss_cfg, norm,
+                                             sharded)
+        if quant:
+            every = [None] * world
+            dist.all_gather_object(every, scales)
+        if rank == 0 and quant:
+            # QAT rounds every activation to its grid, so another order of
+            # the float sums moves an element across a rounding boundary
+            # now and then, and the model amplifies it: the scales are
+            # held, the outputs' distance shown beside that noise
+            want = unwrapped(dp, quant)
+            n = len(want[2])
+            scale_err = max((abs(s - w) / w for r in every
+                             for s, w in zip(r, want[2])), default=0.0) \
+                if all(len(r) == n for r in every) else float("inf")
+            got = distance((losses, grads), want)
+            noise = [max(d) for d in zip(*(
+                distance(unwrapped(dp, quant, seed), want)
+                for seed in NOISE_SEEDS))]
+            ok = n > 0 and scale_err <= SCALE_RTOL
+            results[f"check_{name}"] = dict(
+                scale_rel_err=scale_err, scales=n, loss_total_dist=got[0],
+                grad_l2_dist=got[1], noise_dist=noise, ok=ok, dp=dp,
+                model_parallel=mp)
+            log(f"check[{name}]: {world} ranks (data {dp} x model {mp}), "
+                f"float32, global batch {spg * dp}: each rank's {n} "
+                f"activation scales against the unwrapped {quant} model's, "
+                f"max relative error {scale_err:.3e} (bound {SCALE_RTOL}); "
+                f"not bounded: loss_total and the gradients' L2 distance "
+                f"from that model {got}, its own with its weights x (1 + "
+                f"{NOISE} N(0, 1)) {noise} (the larger of "
+                f"{len(NOISE_SEEDS)} draws); loss_total "
+                f"{losses['loss_total']}")
+        elif rank == 0:
+            want_l, want_g, _ = unwrapped(dp, None)
             loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-12)
                            for k, v in want_l.items())
             grad_err = max(((grads[n] - g).abs().max()
@@ -159,9 +287,98 @@ def check_layouts(cfg, device, world, rank, results):
             torch.cuda.empty_cache()
     ok = [results.get(f"check_{n}", {}).get("ok", True)
           for n in layouts(world)]
+    if world % 2 == 0:
+        ok += check_serving(cfg, device, world, rank, results, state, only)
     flag = torch.tensor([float(all(ok))], device=device)
     dist.broadcast(flag, 0)
     return bool(flag.item()), state
+
+
+def eval_outputs(model, batch, norm):
+    """The model's eval outputs on ``batch``, float32."""
+    import torch
+    from simvg_tpu_torch.engine import normalize_images_on_device
+
+    image = normalize_images_on_device(batch["image"], norm["mean"],
+                                       norm["std"], True, batch["img_shape"])
+    with torch.no_grad():
+        out = model.eval()(image, batch["text_ids"],
+                           batch["text_padding_mask"],
+                           img_shape=batch["img_shape"])
+    return {k: out[k].float() for k in ("class_decoder", "bbox_decoder",
+                                        "class_token", "bbox_token")}
+
+
+def check_serving(cfg, device, world, rank, results, state, only=None):
+    """Part 1b: the serving levers under tensor parallelism (model axis 2,
+    data world / 2), in float32, one global batch: each eval forward,
+    gathered over the data axis, against the same model unwrapped on rank
+    0 over the whole batch.  Token pruning (with sequence parallelism)
+    within GRAD_REL of each output's max |value|; dynamic int8 (its scales
+    over the whole batch) within INT8_SHARE of the unwrapped int8 model's
+    mean distance from float32.  Returns each case's verdict (rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from simvg_tpu_torch.parallel import create_mesh, shard_model
+
+    norm = dict(mean=cfg.img_norm_cfg["mean"], std=cfg.img_norm_cfg["std"],
+                to_rgb=True)
+    spg = cfg.data.samples_per_gpu
+    whole = global_batch(cfg, spg * world, device)
+    float32 = None
+    verdicts = []
+    for name, (sp, vis) in SERVING.items():
+        if only and name not in only:
+            continue
+        vis = prune_settings(cfg) if vis == "prune" else vis
+        mesh = create_mesh(2, device.type)
+        dp = mesh["data"].size()
+        batch = {k: v[:spg * dp] for k, v in whole.items()}
+        if rank == 0:
+            plain, _ = build(cfg, torch.float32, device, state, **vis)
+            want = eval_outputs(plain, batch, norm)
+            if "quant" in vis and float32 is None:
+                base, _ = build(cfg, torch.float32, device, state)
+                float32 = eval_outputs(base, batch, norm)
+                del base
+            del plain
+        dist.barrier()
+        model, _ = build(cfg, torch.float32, device, state,
+                         seq_parallel=sp, **vis)
+        sharded = shard_model(model.eval(), mesh)
+        r = sharded.dp_rank
+        got = eval_outputs(model, {k: v[r * spg:(r + 1) * spg]
+                                   for k, v in batch.items()}, norm)
+        for k, t in got.items():
+            parts = [torch.empty_like(t) for _ in range(dp)]
+            dist.all_gather(parts, t.contiguous(),
+                            group=mesh["data"].get_group())
+            got[k] = torch.cat(parts, dim=1)  # [layers, batch, ...]
+        if rank == 0:
+            if "quant" in vis:
+                err = {k: (got[k] - w).abs().mean().item()
+                       for k, w in want.items()}
+                drift = {k: (w - float32[k]).abs().mean().item()
+                         for k, w in want.items()}
+                ok = all(err[k] <= INT8_SHARE * drift[k] for k in err)
+                bound = f"{INT8_SHARE} x the int8 model's drift {drift}"
+            else:
+                err = {k: ((got[k] - w).abs().max()
+                           / w.abs().max().clamp(min=1e-30)).item()
+                       for k, w in want.items()}
+                ok = all(e <= GRAD_REL for e in err.values())
+                bound = f"{GRAD_REL} of max |value|"
+            results[f"check_{name}"] = dict(err=err, ok=ok, dp=dp,
+                                            model_parallel=2, vis=vis)
+            log(f"check[{name}]: {world} ranks (data {dp} x model 2), "
+                f"float32, eval on a global batch of {spg * dp}, {vis}: "
+                f"distance from the unwrapped model {err} (bound {bound})")
+            verdicts.append(ok)
+        del model, sharded
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return verdicts
 
 
 def time_steps(step, state, batch, device):
@@ -245,7 +462,7 @@ def time_layouts(cfg, device, world, rank, results, state):
                 to_rgb=True)
     spg = cfg.data.samples_per_gpu
     whole = global_batch(cfg, spg * world, device)
-    runs = [("unwrapped", None)] + list(layouts(world).items())
+    runs = [("unwrapped", None)] + list(layouts(world, timed=True).items())
     for name, lay in runs:
         if lay is None and rank != 0:
             dist.barrier()
@@ -290,6 +507,19 @@ def time_layouts(cfg, device, world, rank, results, state):
             dist.barrier()
 
 
+def cut_depth(cfg, num_layers):
+    """The config's encoder cut to ``num_layers`` layers at its widths: the
+    builder takes the widths of ``vit_type`` only when none of them is
+    set, so all are set."""
+    from simvg_tpu_torch.models.beit3 import BEiT3Config
+
+    ve = cfg.model.vis_enc
+    preset = getattr(BEiT3Config, ve.get("vit_type", "base"))()
+    cfg.merge_from_dict({f"model.vis_enc.{k}": ve.get(k, getattr(preset, k))
+                         for k in ("embed_dim", "num_heads", "ffn_dim")})
+    cfg.merge_from_dict({"model.vis_enc.num_layers": num_layers})
+
+
 def worker(rank, world, port, args, out):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
@@ -310,12 +540,16 @@ def worker(rank, world, port, args, out):
     device = (torch.device("cuda", local_rank) if args.device == "cuda"
               else torch.device("cpu"))
     cfg = Config.fromfile(args.config)
+    if args.num_layers:
+        cut_depth(cfg, args.num_layers)
     results = {}
     try:
-        ok, state = check_layouts(cfg, device, world, rank, results)
+        ok, state = check_layouts(cfg, device, world, rank, results,
+                                  args.only)
         if not ok:
             raise SystemExit("a layout differs from the unwrapped model")
-        time_layouts(cfg, device, world, rank, results, state)
+        if not args.only:
+            time_layouts(cfg, device, world, rank, results, state)
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(results, f)
@@ -329,6 +563,13 @@ def main() -> int:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--ranks", type=int, default=None,
                    help="processes (default: every card)")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="the encoder's depth (default: the config's); "
+                        "the widths stay the config's")
+    p.add_argument("--only", nargs="+", default=None,
+                   choices=("ddp", "fsdp", "tp_sp", "tp_sp_int8_qat",
+                            *SERVING),
+                   help="run these checks of part 1 alone, no timing")
     args = p.parse_args()
     import torch
     import torch.multiprocessing as mp
@@ -351,7 +592,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     log(f"torch {torch.__version__}; {world} ranks on {args.device}; "
-        f"{os.path.relpath(args.config, REPO)}")
+        f"{os.path.relpath(args.config, REPO)}"
+        + (f", {args.num_layers} encoder layers" if args.num_layers else "")
+        + (f"; checks {args.only} only" if args.only else ""))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]

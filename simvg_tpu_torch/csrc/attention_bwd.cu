@@ -50,18 +50,20 @@
 //       walks the key tiles and accumulates dQ_i.
 //
 // bf16, on Hopper's warpgroup tensor-core product (attention_sm90.cuh):
-//   (a) dsum_kernel: D = rowsum(dO * (out + r)), 8 lanes a row, 16-byte
-//       loads; it reads three [B, S, H, 64] bf16 tensors and writes D.
+//   (a) dsum_kernel: D = rowsum(dO * (out + r)), HD / 8 lanes a row,
+//       16-byte loads; it reads three [B, S, H, HD] bf16 tensors and writes
+//       D.
 //   (b) dq_wgmma_kernel: one block per (64-query tile, head, batch): S = Q K^T,
 //       dP = dO V^T and dQ += round(dS) K, 3 products a key tile.
 //   (c) dkdv_wgmma_kernel: one block per (64-key tile, head, batch): S^T =
 //       K Q^T, dP^T = V dO^T, dV += round(P^T) dO and dK += round(dS^T) Q, 4
 //       products a query tile.
 // A block of (b) or (c) is one consumer warpgroup and one producer warp.  The
-// producer issues TMA loads of 64-row boxes straight from [B, S, H, 64] into a
-// 2-stage ring in the 128-byte swizzle, each stage guarded by a full and an
+// producer issues TMA loads of 64-row boxes straight from [B, S, H, HD] into
+// a 2-stage ring in wgmma's swizzle, each stage guarded by a full and an
 // empty mbarrier; TMA zero-fills the rows past S.  The consumers run every
-// product as wgmma.mma_async m64n64k16 on shared-memory descriptors; P and dS
+// product as wgmma.mma_async on shared-memory descriptors (attention_sm90.cuh,
+// Geom<HD>; instantiated at HD 32, 64 and 128); P and dS
 // go from the fp32 accumulators of the first products to the A operands of the
 // next in registers, rounded to bf16 on the way.  The results leave through
 // shared memory and a TMA store, which drops the rows past S.
@@ -420,19 +422,22 @@ using bf16 = __nv_bfloat16;
 constexpr int kStages = 2;                         // the ring of streamed tiles
 constexpr int kThreads = kWarpgroup + 32;          // consumers + the producer warp
 constexpr int kProducerWarp = kWarpgroup / 32;     // warp 4
-constexpr int kRowsPerDsumBlock = 32;              // dsum_kernel: 8 lanes a row
+constexpr int kDsumThreads = 256;
 
 // (a) D[b, h, i] = sum_d dO[b, i, h, d] * (out + r)[b, i, h, d] in fp32, out + r
-// formed in fp32.  8 lanes a row, 8 elements (16 bytes) each.
-__global__ void __launch_bounds__(8 * kRowsPerDsumBlock)
+// formed in fp32.  HD / 8 lanes a row, 8 elements (16 bytes) each.
+template <int HD>
+__global__ void __launch_bounds__(kDsumThreads)
 dsum_kernel(const bf16* __restrict__ out, const bf16* __restrict__ resid,
             const bf16* __restrict__ dout, float* __restrict__ dsum, long long rows, int sq,
             int heads) {
-  const long long r = (long long)blockIdx.x * kRowsPerDsumBlock + threadIdx.x / 8;
-  const int part = threadIdx.x % 8;
+  constexpr int kLanes = HD / 8;
+  constexpr int kRowsPerBlock = kDsumThreads / kLanes;
+  const long long r = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
+  const int part = threadIdx.x % kLanes;
   float acc = 0.f;
   if (r < rows) {
-    const long long at = r * kHd + part * 8;
+    const long long at = r * HD + part * 8;
     const uint4 o4 = *reinterpret_cast<const uint4*>(out + at);
     const uint4 r4 = *reinterpret_cast<const uint4*>(resid + at);
     const uint4 g4 = *reinterpret_cast<const uint4*>(dout + at);
@@ -443,9 +448,8 @@ dsum_kernel(const bf16* __restrict__ out, const bf16* __restrict__ resid,
     for (int d = 0; d < 8; ++d)
       acc = fmaf(__bfloat162float(g[d]), __bfloat162float(o[d]) + __bfloat162float(rr[d]), acc);
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (r < rows && part == 0) {
     // r = (b * sq + i) * heads + h  ->  D[(b * heads + h) * sq + i]
     const long long h = r % heads, bi = r / heads;
@@ -456,9 +460,13 @@ dsum_kernel(const bf16* __restrict__ out, const bf16* __restrict__ resid,
 
 // (b) dQ_i for one 64-query tile of one head.  Shared memory: Q_i, dO_i, and
 // kStages stages of K_j, V_j; the barriers after them.
-constexpr int kDqBytes = (2 + 2 * kStages) * kTileBytes;
-constexpr size_t kDqSmem = kDqBytes + 8 * (1 + 2 * kStages) + 1024;
+template <int HD>
+struct DqLayout {
+  static constexpr int kBytes = (2 + 2 * kStages) * Geom<HD>::kTileBytes;
+  static constexpr size_t kSmem = kBytes + 8 * (1 + 2 * kStages) + 1024;
+};
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -467,13 +475,15 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
                 const float* __restrict__ dsum, const uint8_t* __restrict__ pad, int sq,
                 int sk, int heads) {
+  using G = Geom<HD>;
+  constexpr int kTileBytes = G::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   char* smem = aligned_smem(smem_raw);
   char* q_s = smem;
   char* do_s = q_s + kTileBytes;
   char* k_s = do_s + kTileBytes;                // [kStages][kTileBytes]
   char* v_s = k_s + kStages * kTileBytes;       // [kStages][kTileBytes]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kDqBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + DqLayout<HD>::kBytes);
   uint64_t* q_bar = bars;                       // Q_i and dO_i have landed
   uint64_t* full = bars + 1;                    // stage s has landed
   uint64_t* empty = bars + 1 + kStages;         // stage s is free
@@ -495,14 +505,14 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (warp == kProducerWarp) {
     if (lane == 0) {
       mbar_arrive_expect_tx(q_bar, 2 * kTileBytes);
-      tma_load_tile(q_s, &tm_q, q_bar, head, q0, b);
-      tma_load_tile(do_s, &tm_do, q_bar, head, q0, b);
+      tma_load_tile<HD>(q_s, &tm_q, q_bar, head, q0, b);
+      tma_load_tile<HD>(do_s, &tm_do, q_bar, head, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
-        tma_load_tile(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
-        tma_load_tile(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
+        tma_load_tile<HD>(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
+        tma_load_tile<HD>(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
       }
     }
     return;
@@ -520,9 +530,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
 
-  float acc[32];
+  typename G::Acc acc;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < G::kAccFloats; ++i) acc[x][i] = 0.f;
 
   mbar_wait(q_bar, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -532,8 +544,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     float s[32], dp[32];
     wgmma_fence();
-    product_nt(s, q_s, kt);                       // S = Q K^T
-    product_nt(dp, do_s, v_s + st * kTileBytes);  // dP = dO V^T
+    product_nt<HD>(s, q_s, kt);                       // S = Q K^T
+    product_nt<HD>(dp, do_s, v_s + st * kTileBytes);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -558,7 +570,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
     fence_acc(acc);
-    product_pn(acc, dp, kt);  // dQ += round(dS) K
+    product_pn<HD>(acc, dp, kt);  // dQ += round(dS) K
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -567,11 +579,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // Q_i's tile is free once every consumer is past its last product
   named_barrier(1, kWarpgroup);
-  acc_to_tile(q_s, acc, warp, lane);
+  acc_to_tile<HD>(q_s, acc, warp, lane);
   fence_proxy_async();
   named_barrier(1, kWarpgroup);
   if (tid == 0) {
-    tma_store_tile(&tm_dq, q_s, head, q0, b);
+    tma_store_tile<HD>(&tm_dq, q_s, head, q0, b);
     tma_store_commit_and_wait();
   }
 }
@@ -582,11 +594,18 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // lse and D are per column there: the producer warp copies them beside each
 // query tile (zeros past Sq, where the zero-filled Q and dO rows make every
 // term vanish).  Shared memory: K_j, V_j, kStages stages of Q_i, dO_i, and of
-// lse_i, D_i; the barriers after them.
-constexpr int kDkdvTiles = (2 + 2 * kStages) * kTileBytes;
-constexpr int kDkdvBytes = kDkdvTiles + 2 * kStages * kRows * 4;
-constexpr size_t kDkdvSmem = kDkdvBytes + 8 * (1 + 2 * kStages) + 1024;
+// lse_i, D_i; the barriers after them.  At HD 128 the two dK/dV accumulators
+// take 128 registers a thread: one warpgroup holds both (no register cap: at
+// most 255 a thread, one block an SM), where splitting the head dim over two
+// warpgroups would compute S^T and dP^T twice.
+template <int HD>
+struct DkdvLayout {
+  static constexpr int kTiles = (2 + 2 * kStages) * Geom<HD>::kTileBytes;
+  static constexpr int kBytes = kTiles + 2 * kStages * kRows * 4;
+  static constexpr size_t kSmem = kBytes + 8 * (1 + 2 * kStages) + 1024;
+};
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -596,15 +615,18 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ lse,
                   const float* __restrict__ dsum, const uint8_t* __restrict__ pad, int sq,
                   int sk, int heads) {
+  using G = Geom<HD>;
+  using L = DkdvLayout<HD>;
+  constexpr int kTileBytes = G::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   char* smem = aligned_smem(smem_raw);
   char* k_s = smem;
   char* v_s = k_s + kTileBytes;
   char* q_s = v_s + kTileBytes;                 // [kStages][kTileBytes]
   char* do_s = q_s + kStages * kTileBytes;      // [kStages][kTileBytes]
-  float* lse_s = reinterpret_cast<float*>(smem + kDkdvTiles);  // [kStages][kRows]
-  float* d_s = lse_s + kStages * kRows;                        // [kStages][kRows]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kDkdvBytes);
+  float* lse_s = reinterpret_cast<float*>(smem + L::kTiles);  // [kStages][kRows]
+  float* d_s = lse_s + kStages * kRows;                       // [kStages][kRows]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBytes);
   uint64_t* kv_bar = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
@@ -627,8 +649,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (warp == kProducerWarp) {
     if (lane == 0) {
       mbar_arrive_expect_tx(kv_bar, 2 * kTileBytes);
-      tma_load_tile(k_s, &tm_k, kv_bar, head, k0, b);
-      tma_load_tile(v_s, &tm_v, kv_bar, head, k0, b);
+      tma_load_tile<HD>(k_s, &tm_k, kv_bar, head, k0, b);
+      tma_load_tile<HD>(v_s, &tm_v, kv_bar, head, k0, b);
     }
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
@@ -640,8 +662,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
-        tma_load_tile(q_s + st * kTileBytes, &tm_q, &full[st], head, i * kRows, b);
-        tma_load_tile(do_s + st * kTileBytes, &tm_do, &full[st], head, i * kRows, b);
+        tma_load_tile<HD>(q_s + st * kTileBytes, &tm_q, &full[st], head, i * kRows, b);
+        tma_load_tile<HD>(do_s + st * kTileBytes, &tm_do, &full[st], head, i * kRows, b);
       } else {
         mbar_arrive(&full[st]);
       }
@@ -658,9 +680,11 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     padded[h] = pad != nullptr && key < sk && pad[(long long)b * sk + key] != 0;
   }
 
-  float acc_dv[32], acc_dk[32];
+  typename G::Acc acc_dv, acc_dk;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_dv[i] = acc_dk[i] = 0.f;
+  for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < G::kAccFloats; ++i) acc_dv[x][i] = acc_dk[x][i] = 0.f;
 
   mbar_wait(kv_bar, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -671,8 +695,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     float s[32], dp[32];
     wgmma_fence();
-    product_nt(s, k_s, qt);    // S^T = K Q^T
-    product_nt(dp, v_s, dot);  // dP^T = V dO^T
+    product_nt<HD>(s, k_s, qt);    // S^T = K Q^T
+    product_nt<HD>(dp, v_s, dot);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -699,8 +723,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     fence_acc(acc_dv);
     fence_acc(acc_dk);
-    product_pn(acc_dv, s, dot);  // dV += round(P^T) dO
-    product_pn(acc_dk, dp, qt);  // dK += round(dS^T) Q
+    product_pn<HD>(acc_dv, s, dot);  // dV += round(P^T) dO
+    product_pn<HD>(acc_dk, dp, qt);  // dK += round(dS^T) Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc_dv);
@@ -709,55 +733,65 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   named_barrier(1, kWarpgroup);
-  acc_to_tile(k_s, acc_dk, warp, lane);
-  acc_to_tile(v_s, acc_dv, warp, lane);
+  acc_to_tile<HD>(k_s, acc_dk, warp, lane);
+  acc_to_tile<HD>(v_s, acc_dv, warp, lane);
   fence_proxy_async();
   named_barrier(1, kWarpgroup);
   if (tid == 0) {
-    tma_store_tile(&tm_dk, k_s, head, k0, b);
-    tma_store_tile(&tm_dv, v_s, head, k0, b);
+    tma_store_tile<HD>(&tm_dk, k_s, head, k0, b);
+    tma_store_tile<HD>(&tm_dv, v_s, head, k0, b);
     tma_store_commit_and_wait();
   }
 }
 
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* resid,
            const void* dout, const void* lse, const void* pad, void* dsum, void* dq, void* dk,
            void* dv, int batch, int sq, int sk, int heads, cudaStream_t stream) {
+  // TMA boxes and 16-byte loads start on 16-byte boundaries
+  if (resid == nullptr) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid |
+       (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15)
+    return (int)cudaErrorMisalignedAddress;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq, tm_dk, tm_dv;
-  if (!(make_tile_map(&tm_q, q, batch, sq, heads) && make_tile_map(&tm_k, k, batch, sk, heads) &&
-        make_tile_map(&tm_v, v, batch, sk, heads) &&
-        make_tile_map(&tm_do, dout, batch, sq, heads) &&
-        make_tile_map(&tm_dq, dq, batch, sq, heads) &&
-        make_tile_map(&tm_dk, dk, batch, sk, heads) &&
-        make_tile_map(&tm_dv, dv, batch, sk, heads)))
+  if (const cudaError_t err = bind_context(); err != cudaSuccess) return (int)err;
+  if (!(make_tile_map<HD>(&tm_q, q, batch, sq, heads) &&
+        make_tile_map<HD>(&tm_k, k, batch, sk, heads) &&
+        make_tile_map<HD>(&tm_v, v, batch, sk, heads) &&
+        make_tile_map<HD>(&tm_do, dout, batch, sq, heads) &&
+        make_tile_map<HD>(&tm_dq, dq, batch, sq, heads) &&
+        make_tile_map<HD>(&tm_dk, dk, batch, sk, heads) &&
+        make_tile_map<HD>(&tm_dv, dv, batch, sk, heads)))
     return (int)cudaErrorNotSupported;
   const float* lse_ = static_cast<const float*>(lse);
   const uint8_t* pad_ = static_cast<const uint8_t*>(pad);
   float* dsum_ = static_cast<float*>(dsum);
 
+  constexpr int kDsumRows = kDsumThreads / (HD / 8);
   const long long rows = (long long)batch * sq * heads;
-  const long long blocks = (rows + kRowsPerDsumBlock - 1) / kRowsPerDsumBlock;
+  const long long blocks = (rows + kDsumRows - 1) / kDsumRows;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  dsum_kernel<<<(unsigned)blocks, 8 * kRowsPerDsumBlock, 0, stream>>>(
+  dsum_kernel<HD><<<(unsigned)blocks, kDsumThreads, 0, stream>>>(
       static_cast<const bf16*>(out), static_cast<const bf16*>(resid),
       static_cast<const bf16*>(dout), dsum_, rows, sq, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDqSmem);
+  err = cudaFuncSetAttribute(dq_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DqLayout<HD>::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((sq + kRows - 1) / kRows, heads, batch);
-  dq_wgmma_kernel<<<grid_q, kThreads, kDqSmem, stream>>>(tm_q, tm_k, tm_v, tm_do, tm_dq, lse_,
-                                                         dsum_, pad_, sq, sk, heads);
+  dq_wgmma_kernel<HD><<<grid_q, kThreads, DqLayout<HD>::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, lse_, dsum_, pad_, sq, sk, heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(dkdv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDkdvSmem);
+  err = cudaFuncSetAttribute(dkdv_wgmma_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DkdvLayout<HD>::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_kv((sk + kRows - 1) / kRows, heads, batch);
-  dkdv_wgmma_kernel<<<grid_kv, kThreads, kDkdvSmem, stream>>>(
+  dkdv_wgmma_kernel<HD><<<grid_kv, kThreads, DkdvLayout<HD>::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, lse_, dsum_, pad_, sq, sk, heads);
   return (int)cudaGetLastError();
 }
@@ -766,12 +800,14 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/dq, out/dout and resid [B, Sq, H, HD],
-// k/v/dk/dv [B, Sk, H, HD] in that dtype; lse (from simvg_attention_fwd) and
-// the scratch dsum float32 [B, H, Sq]; pad uint8 [B, Sk] (1 = padded) or null.
-// resid is the forward's residual (simvg_attention_fwd with a gradient),
-// required in bf16 and not read in float32.  Launches three kernels on
-// `stream` and returns the first CUDA error (0 if none).
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128 (the wrapper pads
+// any other head_dim up to 128 with zero columns).  q/dq, out/dout and resid
+// [B, Sq, H, HD], k/v/dk/dv [B, Sk, H, HD] in that dtype; lse (from
+// simvg_attention_fwd) and the scratch dsum float32 [B, H, Sq]; pad uint8
+// [B, Sk] (1 = padded) or null.  resid is the forward's residual
+// (simvg_attention_fwd with a gradient), required in bf16 and not read in
+// float32.  Launches three kernels on `stream` and returns the first CUDA
+// error (0 if none).
 extern "C" int simvg_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* resid, const void* dout,
                                    const void* lse, const void* pad, void* dsum, void* dq,
@@ -780,17 +816,25 @@ extern "C" int simvg_attention_bwd(const void* q, const void* k, const void* v,
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, out, dout, lse, pad, dsum, dq, dk, dv, batch, sq,
-                             sk, heads, s);
-  if (dtype == 1 && head_dim == 64) {
-    // TMA boxes and 16-byte loads start on 16-byte boundaries
-    if (resid == nullptr) return (int)cudaErrorInvalidValue;
-    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid |
-         (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 15)
-      return (int)cudaErrorMisalignedAddress;
-    return hopper::launch(q, k, v, out, resid, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk,
-                          heads, s);
+#define SIMVG_BWD_ARGS \
+  q, k, v, out, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk, heads, s
+#define SIMVG_BWD_ARGS_BF16 \
+  q, k, v, out, resid, dout, lse, pad, dsum, dq, dk, dv, batch, sq, sk, heads, s
+  if (dtype == 0) {
+    switch (head_dim) {
+      case 32: return launch<float, 32>(SIMVG_BWD_ARGS);
+      case 64: return launch<float, 64>(SIMVG_BWD_ARGS);
+      case 128: return launch<float, 128>(SIMVG_BWD_ARGS);
+    }
   }
+  if (dtype == 1) {
+    switch (head_dim) {
+      case 32: return hopper::launch<32>(SIMVG_BWD_ARGS_BF16);
+      case 64: return hopper::launch<64>(SIMVG_BWD_ARGS_BF16);
+      case 128: return hopper::launch<128>(SIMVG_BWD_ARGS_BF16);
+    }
+  }
+#undef SIMVG_BWD_ARGS
+#undef SIMVG_BWD_ARGS_BF16
   return (int)cudaErrorInvalidValue;
 }

@@ -34,16 +34,17 @@
 //         head, batch): a producer warp loads the Q tile once and streams K_j,
 //         V_j and the tile's key caps (+inf, -1e30 for a padded key, -inf past
 //         Sk: the mask is read once per block, off the consumers' path)
-//         through a ring of 4 stages (3 with the residual) under full/empty
-//         mbarriers.  TMA reads 64-row
-//         boxes of [B, S, H, 64] in place, zero-fills rows past S and clips
-//         them on the store, so nothing is masked on a load or a store.  One
-//         consumer warpgroup runs S = Q K^T and O += round(P) V as wgmma
-//         m64n64k16, P going from the S accumulator to the A operand in
-//         registers.  Serving issues S_j with the product of tile j - 1, so
-//         that the softmax of S_j overlaps O += P_{j-1} V_{j-1} on the tensor
-//         cores.  The residual variant (a third product O_lo += round(P -
-//         round(P)) V) takes the tiles in turn instead: without S_j beside O,
+//         through a ring of K/V stages (kRing) under full/empty mbarriers.
+//         TMA reads 64-row boxes of [B, S, H, HD] in place, zero-fills rows
+//         past S and clips them on the store, so nothing is masked on a load
+//         or a store.  One consumer warpgroup runs S = Q K^T and O +=
+//         round(P) V as wgmma (m64n64k16; O += P V at N = HD, per
+//         attention_sm90.cuh's Geom<HD>), P going from the S accumulator to
+//         the A operand in registers (instantiated at HD 32, 64 and 128).
+//         Serving issues S_j with the product of tile j - 1, so that the
+//         softmax of S_j overlaps O += P_{j-1} V_{j-1} on the tensor cores.
+//         The residual variant (a third product O_lo += round(P - round(P))
+//         V) takes the tiles in turn instead: without S_j beside O,
 //         O_lo and both A operands it fits three blocks an SM.  out (and r)
 //         leave through the freed Q tile and a TMA store.
 //   fp32  attention_fwd_kernel: the CUDA cores in fp32 FMAs (16x16 threads, a
@@ -235,18 +236,24 @@ namespace hopper {
 using namespace simvg::sm90;
 
 constexpr int kThreads = kWarpgroup + 32;  // one consumer warpgroup + the producer warp
-// Blocks an SM that __launch_bounds__ sets the registers for (at most 128 a
-// thread; 2 blocks measured slower, 4 blocks spill).
-constexpr int kMinBlocks = 3;
-// K/V tiles in the ring: 4 serving (2 and 3 measured slower); 3 with the
-// residual, whose 128 registers spill with 4.
-template <bool kResid>
-constexpr int kRing = kResid ? 3 : 4;
+// Blocks an SM that __launch_bounds__ sets the registers for, and K/V tiles in
+// the ring.  HD 32 and 64: three blocks (at most 128 registers a thread; at
+// HD 64 2 blocks measured slower, 4 blocks spill), a ring of 4 serving (2 and
+// 3 measured slower), 3 with the residual, whose 128 registers spill with 4.
+// HD 128: the O accumulator doubles to 64 registers and a tile to 16 KB;
+// serving keeps two blocks (80 KB of shared memory each, so a ring of 2), and
+// the residual variant, whose O and O_lo alone take 128 registers, one block
+// with a ring of 4.
+template <int HD, bool kResid>
+constexpr int kMinBlocks = HD < 128 ? 3 : kResid ? 1 : 2;
+template <int HD, bool kResid>
+constexpr int kRing = HD < 128 ? (kResid ? 3 : 4) : (kResid ? 4 : 2);
 
 // Shared memory: the Q tile, the K and V stages, their key caps, the barriers.
-template <int kStages>
+template <int HD, int kStages>
 struct Layout {
-  static constexpr int kTiles = (1 + 2 * kStages) * kTileBytes;
+  static constexpr int kTile = Geom<HD>::kTileBytes;
+  static constexpr int kTiles = (1 + 2 * kStages) * kTile;
   static constexpr int kBytes = kTiles + kStages * kRows * 4;
   static constexpr size_t kSmem = kBytes + 8 * (1 + 2 * kStages) + 1024;
 };
@@ -309,15 +316,18 @@ __device__ __forceinline__ void probs_lo(uint32_t (&a)[4][4], float (&p)[32]) {
 }
 
 // sums *= alpha, row by row (index 0: row g, 1: row g + 8).
-__device__ __forceinline__ void rescale(float (&d)[32], const float (&alpha)[2]) {
+template <int X, int F>
+__device__ __forceinline__ void rescale(float (&d)[X][F], const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] *= alpha[(i >> 1) & 1];
+  for (int x = 0; x < X; ++x)
+#pragma unroll
+    for (int i = 0; i < F; ++i) d[x][i] *= alpha[(i >> 1) & 1];
 }
 
 // One block per (64-query tile, head, batch): warps 0-3 are the consumer
 // warpgroup, warp 4 the producer.
-template <bool kResid>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int HD, bool kResid>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<HD, kResid>))
 attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -325,8 +335,10 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_r,
                            const uint8_t* __restrict__ pad, float* __restrict__ lse, int sq,
                            int sk, int heads) {
-  constexpr int kStages = kRing<kResid>;
-  using L = Layout<kStages>;
+  using G = Geom<HD>;
+  constexpr int kStages = kRing<HD, kResid>;
+  constexpr int kTileBytes = G::kTileBytes;
+  using L = Layout<HD, kStages>;
   extern __shared__ unsigned char smem_raw[];
   char* smem = aligned_smem(smem_raw);
   char* q_s = smem;
@@ -356,7 +368,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer warp: Q once, then K_j, V_j and the caps of tile j ----
     if (lane == 0) {
       mbar_arrive_expect_tx(q_bar, kTileBytes);
-      tma_load_tile(q_s, &tm_q, q_bar, head, q0, b);
+      tma_load_tile<HD>(q_s, &tm_q, q_bar, head, q0, b);
     }
     const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
     for (int j = 0; j < n_tiles; ++j) {
@@ -370,8 +382,8 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
-        tma_load_tile(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
-        tma_load_tile(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
+        tma_load_tile<HD>(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
+        tma_load_tile<HD>(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
       } else {
         mbar_arrive(&full[st]);
       }
@@ -382,10 +394,13 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // ---- consumer warpgroup: rows 16 warp + g (index 0) and + 8 (index 1) ----
   const int g = lane >> 2, t = lane & 3;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
-  float s[32], o[32], o_lo[32];
+  float s[32];
+  typename G::Acc o, o_lo;
   uint32_t a_hi[4][4], a_lo[4][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = o_lo[i] = 0.f;
+  for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < G::kAccFloats; ++i) o[x][i] = o_lo[x][i] = 0.f;
 
   mbar_wait(q_bar, 0);
   if constexpr (!kResid) {
@@ -394,7 +409,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // last, O += P V alone
     mbar_wait(&full[0], 0);
     wgmma_fence();
-    product_nt(s, q_s, k_s);
+    product_nt<HD>(s, q_s, k_s);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -404,9 +419,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int st = j % kStages, prev = (j - 1) % kStages;
       mbar_wait(&full[st], (j / kStages) & 1);
       wgmma_fence();
-      product_nt(s, q_s, k_s + st * kTileBytes);    // S_j = Q K_j^T
+      product_nt<HD>(s, q_s, k_s + st * kTileBytes);    // S_j = Q K_j^T
       wgmma_commit();
-      product_an(o, a_hi, v_s + prev * kTileBytes);  // O += round(P_{j-1}) V_{j-1}
+      product_an<HD>(o, a_hi, v_s + prev * kTileBytes);  // O += round(P_{j-1}) V_{j-1}
       wgmma_commit();
       wgmma_wait<1>();
       fence_acc(s);
@@ -419,7 +434,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       probs_hi(a_hi, s);
     }
     wgmma_fence();
-    product_an(o, a_hi, v_s + ((n_tiles - 1) % kStages) * kTileBytes);
+    product_an<HD>(o, a_hi, v_s + ((n_tiles - 1) % kStages) * kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);
@@ -434,7 +449,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const char* v_t = v_s + st * kTileBytes;
       mbar_wait(&full[st], (j / kStages) & 1);
       wgmma_fence();
-      product_nt(s, q_s, k_s + st * kTileBytes);
+      product_nt<HD>(s, q_s, k_s + st * kTileBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(s);
@@ -442,11 +457,11 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       rescale(o, alpha);
       probs_hi(a_hi, s);
       wgmma_fence();
-      product_an(o, a_hi, v_t);
+      product_an<HD>(o, a_hi, v_t);
       rescale(o_lo, alpha);
       probs_lo(a_lo, s);
       wgmma_fence();
-      product_an(o_lo, a_lo, v_t);
+      product_an<HD>(o_lo, a_lo, v_t);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(o);
@@ -464,31 +479,34 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float x = o[i] * inv[(i >> 1) & 1];
-    // r = (O + O_lo) / l - round(O / l), the out stored below
-    if (kResid)
-      o_lo[i] = (o[i] + o_lo[i]) * inv[(i >> 1) & 1] - __bfloat162float(__float2bfloat16_rn(x));
-    o[i] = x;
-  }
+  for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < G::kAccFloats; ++i) {
+      const float y = o[x][i] * inv[(i >> 1) & 1];
+      // r = (O + O_lo) / l - round(O / l), the out stored below
+      if (kResid)
+        o_lo[x][i] = (o[x][i] + o_lo[x][i]) * inv[(i >> 1) & 1] -
+                     __bfloat162float(__float2bfloat16_rn(y));
+      o[x][i] = y;
+    }
 
   // The Q tile is free once every consumer is past its last product; out
   // (then r) goes through it to a TMA store, which drops rows past Sq.
   named_barrier(1, kWarpgroup);
-  acc_to_tile(q_s, o, warp, lane);
+  acc_to_tile<HD>(q_s, o, warp, lane);
   fence_proxy_async();
   named_barrier(1, kWarpgroup);
   if (tid == 0) {
-    tma_store_tile(&tm_out, q_s, head, q0, b);
+    tma_store_tile<HD>(&tm_out, q_s, head, q0, b);
     tma_store_commit_and_wait();
   }
   if (kResid) {
     named_barrier(1, kWarpgroup);  // the store has read the tile
-    acc_to_tile(q_s, o_lo, warp, lane);
+    acc_to_tile<HD>(q_s, o_lo, warp, lane);
     fence_proxy_async();
     named_barrier(1, kWarpgroup);
     if (tid == 0) {
-      tma_store_tile(&tm_r, q_s, head, q0, b);
+      tma_store_tile<HD>(&tm_r, q_s, head, q0, b);
       tma_store_commit_and_wait();
     }
   }
@@ -501,35 +519,51 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <bool kResid>
+template <int HD, bool kResid>
 int launch(const void* q, const void* k, const void* v, const void* pad, void* out, void* lse,
            void* resid, int batch, int sq, int sk, int heads, cudaStream_t stream) {
-  constexpr size_t smem = Layout<kRing<kResid>>::kSmem;
+  constexpr size_t smem = Layout<HD, kRing<HD, kResid>>::kSmem;
   CUtensorMap tm_q, tm_k, tm_v, tm_out, tm_r;
-  if (!(make_tile_map(&tm_q, q, batch, sq, heads) && make_tile_map(&tm_k, k, batch, sk, heads) &&
-        make_tile_map(&tm_v, v, batch, sk, heads) &&
-        make_tile_map(&tm_out, out, batch, sq, heads) &&
-        (!kResid || make_tile_map(&tm_r, resid, batch, sq, heads))))
+  if (const cudaError_t err = bind_context(); err != cudaSuccess) return (int)err;
+  if (!(make_tile_map<HD>(&tm_q, q, batch, sq, heads) &&
+        make_tile_map<HD>(&tm_k, k, batch, sk, heads) &&
+        make_tile_map<HD>(&tm_v, v, batch, sk, heads) &&
+        make_tile_map<HD>(&tm_out, out, batch, sq, heads) &&
+        (!kResid || make_tile_map<HD>(&tm_r, resid, batch, sq, heads))))
     return (int)cudaErrorNotSupported;
   if (!kResid) tm_r = tm_out;  // not read
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_wgmma_kernel<kResid>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(attention_fwd_wgmma_kernel<HD, kResid>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
-  attention_fwd_wgmma_kernel<kResid><<<grid, kThreads, smem, stream>>>(
+  attention_fwd_wgmma_kernel<HD, kResid><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_out, tm_r, static_cast<const uint8_t*>(pad),
       static_cast<float*>(lse), sq, sk, heads);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, const void* pad, void* out,
+                void* lse, void* resid, int batch, int sq, int sk, int heads,
+                cudaStream_t stream) {
+  // TMA boxes start on 16-byte boundaries
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  return resid != nullptr
+             ? launch<HD, true>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, stream)
+             : launch<HD, false>(q, k, v, pad, out, lse, nullptr, batch, sq, sk, heads, stream);
 }
 
 }  // namespace hopper
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  pad may be null (no padded keys); lse
-// (float32 [B, H, Sq]) may be null (not written); resid ([B, Sq, H, HD] in
-// bf16, the output's residual for the backward) may be null (not written), and
-// must be null in float32.
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128 (the wrapper pads
+// any other head_dim up to 128 with zero columns).  pad may be null (no
+// padded keys); lse (float32 [B, H, Sq]) may be null (not written); resid
+// ([B, Sq, H, HD] in bf16, the output's residual for the backward) may be
+// null (not written), and must be null in float32.
 // Returns the CUDA error code of the launch (0 on success); in bf16,
 // cudaErrorNotSupported when cuTensorMapEncodeTiled cannot be reached.
 extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
@@ -539,16 +573,22 @@ extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
   if (batch <= 0 || sq <= 0 || sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // head_dim is a template parameter; 64 is every shipped config's
-  if (dtype == 0 && head_dim == 64 && resid == nullptr)
-    return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
-  if (dtype == 1 && head_dim == 64) {
-    // TMA boxes start on 16-byte boundaries
-    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid) & 15)
-      return (int)cudaErrorMisalignedAddress;
-    return resid != nullptr
-               ? hopper::launch<true>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s)
-               : hopper::launch<false>(q, k, v, pad, out, lse, nullptr, batch, sq, sk, heads, s);
+  if (dtype == 0 && resid == nullptr) {
+    switch (head_dim) {
+      case 32: return launch<float, 32>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+      case 64: return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+      case 128: return launch<float, 128>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+    }
+  }
+  if (dtype == 1) {
+    switch (head_dim) {
+      case 32:
+        return hopper::launch_bf16<32>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
+      case 64:
+        return hopper::launch_bf16<64>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
+      case 128:
+        return hopper::launch_bf16<128>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

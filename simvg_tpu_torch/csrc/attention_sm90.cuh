@@ -1,32 +1,40 @@
 // Hopper building blocks of the bf16 attention kernels (attention_fwd.cu,
 // attention_bwd.cu): TMA tile loads and stores through tensor maps,
-// mbarriers, and the warpgroup product wgmma.mma_async m64n64k16 (bf16
-// operands, fp32 sums), its shared-memory descriptors and the register layout
-// of its fragments.
+// mbarriers, and the warpgroup product wgmma.mma_async (bf16 operands, fp32
+// sums), its shared-memory descriptors and the register layout of its
+// fragments, for head dims 32, 64 and 128 (Geom<HD>).
 //
-// Tiles.  A tile is 64 rows of one head of a [B, S, H, 64] bf16 tensor, read
-// in place by a 4-D tensor map (dims hd, H, S, B innermost first; a box of
-// 64 x 1 x 64 x 1).  Each row is 128 bytes, so a tile is 8 KB and sits in
-// shared memory in the 128-byte swizzle (16-byte chunk c of row r at chunk
-// c ^ (r % 8)), which is the layout wgmma reads.  TMA zero-fills the rows
-// past S and clips them on a store, so the ragged end needs no mask.
+// Tiles.  A tile is 64 rows of one head of a [B, S, H, HD] bf16 tensor, read
+// in place by a 4-D tensor map (dims HD, H, S, B innermost first).  It sits in
+// shared memory as one or two boxes of 64 rows, each in the swizzle that
+// wgmma reads (16-byte chunk c of row r at chunk c ^ f(r)):
+//   HD 32:  one box of 64-byte rows, the 64-byte swizzle (f(r) = (r / 2) % 4);
+//   HD 64:  one box of 128-byte rows, the 128-byte swizzle (f(r) = r % 8);
+//   HD 128: two boxes of 128-byte rows (columns 0-63, then 64-127), each
+//           8 KB and in the 128-byte swizzle: a 256-byte row is wider than
+//           any swizzle atom, so TMA brings it as two boxes.
+// TMA zero-fills the rows past S and clips them on a store, so the ragged
+// end needs no mask.
 //
 // Descriptors (PTX ISA, "Matrix Descriptor Format"): a tile read with the
 // head dim as the reduction dim (Q, K, V, dO in S = Q K^T, dP = dO V^T) is
-// K-major: 8-row groups 1024 bytes apart (SBO), the k16 slice kk starting
-// 32 kk bytes into the row.  A tile read with the rows as the reduction dim
-// (V in O = P V; K in dQ = dS K; Q and dO in dK, dV) is MN-major: its 64
-// columns are one 128-byte swizzle atom, 8-row groups 1024 bytes apart (SBO),
-// the k16 slice kk starting 2048 kk bytes in; the instruction's transpose
-// bit set.
+// K-major: 8-row groups 8 rows apart (SBO: 512 or 1024 bytes), the k16 slice
+// kk starting 32 kk bytes into its box's row (kk = 0 .. HD/16 - 1; at HD 128
+// slices 4-7 in the second box).  A tile read with the rows as the reduction
+// dim (V in O = P V; K in dQ = dS K; Q and dO in dK, dV) is MN-major: each
+// box's columns are one swizzle atom, 8-row groups SBO apart, the k16 slice
+// kk starting 16 kk rows in; the instruction's transpose bit set.  Such a
+// product has N = HD: m64n32k16 at HD 32, m64n64k16 at HD 64, and one
+// m64n64k16 a box at HD 128.
 //
 // Fragments of a warpgroup (4 warps, warp w on rows [16 w, 16 w + 16)),
-// lane = 4 g + t: the accumulator of m64n64 holds 32 floats a thread,
+// lane = 4 g + t: the accumulator of m64nN holds N/2 floats a thread,
 // d[4 n + e] at row g (e < 2) or g + 8 (e >= 2) and column 8 n + 2 t + (e & 1);
 // an A operand from registers (m64k16) holds 4 words, the same layout as an
 // mma.m16n8k16 A fragment.  So accumulator columns [16 kk, 16 kk + 16), rounded
 // to bf16, are the A operand of k16 slice kk of the next product (acc_to_a),
-// with no trip through shared memory.
+// with no trip through shared memory.  An output accumulator (O, dQ, dK,
+// dV) is Geom<HD>::Acc: one m64n32 or m64n64 accumulator a box.
 //
 // The tensor maps are built on the host by cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPointByVersion, so the library links nothing but
@@ -45,9 +53,22 @@ namespace simvg {
 namespace sm90 {
 
 constexpr int kRows = 64;                 // rows of a tile
-constexpr int kHd = 64;                   // head_dim
-constexpr int kTileBytes = kRows * kHd * 2;  // 8192
 constexpr int kWarpgroup = 128;
+
+// The shared-memory geometry of a [64, HD] bf16 tile.
+template <int HD>
+struct Geom {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64 or 128");
+  static constexpr int kBoxCols = HD < 64 ? HD : 64;   // columns of a box
+  static constexpr int kBoxes = HD / kBoxCols;          // boxes a tile
+  static constexpr int kRowBytes = 2 * kBoxCols;        // a box's row: the swizzle
+  static constexpr int kBoxBytes = kRows * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kSlices = kBoxCols / 16;         // k16 slices a box row
+  static constexpr int kAccFloats = kBoxCols / 2;       // a box's accumulator
+  // an output accumulator of 64 rows x HD columns
+  typedef float Acc[kBoxes][kAccFloats];
+};
 
 // ---- host: tensor maps ---------------------------------------------------
 
@@ -69,20 +90,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of one [batch, seq, heads, 64] bf16 tensor, boxes of 64 rows of one
-// head, 128-byte swizzle, zero fill past the ends.  Returns false on failure.
+// Makes the current device's primary context current on the calling thread
+// (cudaSetDevice does since CUDA 12).  cuTensorMapEncodeTiled is a driver
+// call and fails with CUDA_ERROR_INVALID_CONTEXT on a thread that has no
+// current context, as autograd's backward thread has none when the first
+// node it runs is K2.  Returns the runtime's error.
+inline cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
+// The map of one [batch, seq, heads, HD] bf16 tensor, boxes of 64 rows of
+// one head and Geom<HD>::kBoxCols columns in their swizzle, zero fill past
+// the ends.  Returns false on failure.
+template <int HD>
 inline bool make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
                           int heads) {
+  using G = Geom<HD>;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kHd, (cuuint64_t)heads, (cuuint64_t)seq,
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)seq,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)kHd * 2, (cuuint64_t)heads * kHd * 2,
-                                 (cuuint64_t)seq * heads * kHd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kHd, 1, (cuuint32_t)kRows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)heads * HD * 2,
+                                 (cuuint64_t)seq * heads * HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::kBoxCols, 1, (cuuint32_t)kRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -125,27 +161,43 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// One 64-row tile (head `head`, rows [row0, row0 + 64), batch `b`) into
-// shared memory, completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int head, int row0, int b) {
+// One box (columns [col, col + kBoxCols) of head `head`, rows [row0, row0 +
+// 64), batch `b`) into shared memory, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int col, int head, int row0, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(head), "r"(row0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row0),
       "r"(b)
       : "memory");
 }
 
-// A shared tile back to global memory; rows past the tensor's end are not
-// written.  The caller fences the generic-proxy writes first.
+// One 64-row tile, box by box; Geom<HD>::kTileBytes complete on `bar`.
+template <int HD>
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int head, int row0, int b) {
+  using G = Geom<HD>;
+#pragma unroll
+  for (int x = 0; x < G::kBoxes; ++x)
+    tma_load_box(static_cast<char*>(dst) + x * G::kBoxBytes, map, bar, x * G::kBoxCols, head,
+                 row0, b);
+}
+
+// A shared tile back to global memory, box by box; rows past the tensor's
+// end are not written.  The caller fences the generic-proxy writes first.
+template <int HD>
 __device__ __forceinline__ void tma_store_tile(const CUtensorMap* map, const void* src, int head,
                                                int row0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(0), "r"(head), "r"(row0), "r"(b)
-      : "memory");
+  using G = Geom<HD>;
+#pragma unroll
+  for (int x = 0; x < G::kBoxes; ++x)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+        " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(static_cast<const char*>(src) + x * G::kBoxBytes)), "r"(x * G::kBoxCols),
+        "r"(head), "r"(row0), "r"(b)
+        : "memory");
 }
 
 __device__ __forceinline__ void tma_store_commit_and_wait() {
@@ -165,7 +217,8 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 }
 
 // The dynamic shared memory rounded up to the 1024 bytes that the 128-byte
-// swizzle wants; a launch asks for 1024 more than its layout needs.
+// swizzle wants (512 would do for the 64-byte one); a launch asks for 1024
+// more than its layout needs.
 __device__ __forceinline__ char* aligned_smem(unsigned char* raw) {
   const uint32_t a = smem_u32(raw);
   return reinterpret_cast<char*>(raw) + (((a + 1023) & ~1023u) - a);
@@ -173,12 +226,16 @@ __device__ __forceinline__ char* aligned_smem(unsigned char* raw) {
 
 // ---- device: wgmma -------------------------------------------------------
 
-// A descriptor of a 128-byte-swizzled tile starting at `p` (1024-byte
-// aligned, plus the k-slice's offset): SBO 1024 bytes, LBO unused (1).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// A descriptor of a swizzled box of HD's rows starting at `p` (aligned to its
+// swizzle pattern, plus the k-slice's offset): SBO 8 rows, LBO unused (1),
+// the layout type 1 (128-byte swizzle) or 2 (64-byte).
+template <int HD>
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  using G = Geom<HD>;
   const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
+  constexpr uint64_t layout = G::kRowBytes == 128 ? 1 : 2;
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(8 * G::kRowBytes >> 4) << 32) |
+         (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -194,18 +251,25 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // The accumulator registers may be read or written only after wgmma_wait;
 // this keeps the compiler from moving their uses across it.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int F>
+__device__ __forceinline__ void fence_acc(float (&d)[F]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < F; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int X, int F>
+__device__ __forceinline__ void fence_acc(float (&d)[X][F]) {
+#pragma unroll
+  for (int x = 0; x < X; ++x) fence_acc(d[x]);
 }
 
-#define SIMVG_D32                                                                          \
+#define SIMVG_D16                                                                          \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
       "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define SIMVG_D32                                                                          \
+  SIMVG_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 #define SIMVG_D32_OUT                                                                      \
   "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),      \
       "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]),           \
@@ -213,6 +277,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
       "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),        \
       "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),        \
       "=f"(d[31])
+#define SIMVG_D16_LIST \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SIMVG_D32_LIST                                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -260,20 +326,40 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The same at N = 32 (m64n32k16): the output products at HD 32.
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SIMVG_D16_LIST
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : SIMVG_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef SIMVG_D16
 #undef SIMVG_D32
 #undef SIMVG_D32_OUT
+#undef SIMVG_D16_LIST
 #undef SIMVG_D32_LIST
 
-// C = A B^T over the 64-wide head dim: both tiles K-major in shared memory
-// (S = Q K^T, dP = dO V^T and their transposes), four k16 slices.
+// C = A B^T over the head dim: both tiles K-major in shared memory (S = Q
+// K^T, dP = dO V^T and their transposes), HD / 16 k16 slices, box by box.
+template <int HD>
 __device__ __forceinline__ void product_nt(float (&d)[32], const void* a_tile,
                                            const void* b_tile) {
+  using G = Geom<HD>;
   const char* a = static_cast<const char*>(a_tile);
   const char* b = static_cast<const char*>(b_tile);
-  wgmma_ss_first(d, desc_sw128(a), desc_sw128(b));
+  wgmma_ss_first(d, desc<HD>(a), desc<HD>(b));
 #pragma unroll
-  for (int kk = 1; kk < kHd / 16; ++kk)
-    wgmma_ss(d, desc_sw128(a + 32 * kk), desc_sw128(b + 32 * kk));
+  for (int kk = 1; kk < HD / 16; ++kk) {
+    const int off = (kk / G::kSlices) * G::kBoxBytes + 32 * (kk % G::kSlices);
+    wgmma_ss(d, desc<HD>(a + off), desc<HD>(b + off));
+  }
 }
 
 // Columns [16 kk, 16 kk + 16) of an accumulator, rounded to bf16, as the A
@@ -287,24 +373,32 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32],
 
 // acc += A B over the 64 rows of B: A the four k16 slices of a 64 x 64
 // operand in registers (acc_to_a), B a tile whose rows are the reduction dim
-// (MN-major).  The caller fences after writing A or acc (wgmma_fence).
-__device__ __forceinline__ void product_an(float (&acc)[32], const uint32_t (&a)[kRows / 16][4],
+// (MN-major), one product a box.  The caller fences after writing A or acc
+// (wgmma_fence).
+template <int HD>
+__device__ __forceinline__ void product_an(typename Geom<HD>::Acc& acc,
+                                           const uint32_t (&a)[kRows / 16][4],
                                            const void* b_tile) {
+  using G = Geom<HD>;
   const char* b = static_cast<const char*>(b_tile);
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk) wgmma_rs_t(acc, a[kk], desc_sw128(b + 2048 * kk));
+  for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < G::kBoxes; ++x)
+      wgmma_rs_t(acc[x], a[kk], desc<HD>(b + x * G::kBoxBytes + 16 * G::kRowBytes * kk));
 }
 
 // acc += round(p) B: p an accumulator (rows x 64 columns) rounded to bf16 as
 // the A operand of product_an.  The A operands are written before the fence
 // that orders them for wgmma.
-__device__ __forceinline__ void product_pn(float (&acc)[32], const float (&p)[32],
+template <int HD>
+__device__ __forceinline__ void product_pn(typename Geom<HD>::Acc& acc, const float (&p)[32],
                                            const void* b_tile) {
   uint32_t a[kRows / 16][4];
 #pragma unroll
   for (int kk = 0; kk < kRows / 16; ++kk) acc_to_a(a[kk], p, kk);
   wgmma_fence();
-  product_an(acc, a, b_tile);
+  product_an<HD>(acc, a, b_tile);
 }
 
 // Register A operands may be rewritten only after the wgmma_wait of the
@@ -317,22 +411,29 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[kRows / 16][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-// Writes an accumulator, rounded to bf16, into a 128-byte-swizzled
-// shared tile (the layout a TMA store reads); warp w writes rows
+// Writes an output accumulator, rounded to bf16, into a swizzled shared tile
+// (the layout a TMA store reads), box by box; warp w writes rows
 // [16 w, 16 w + 16).
-__device__ __forceinline__ void acc_to_tile(void* tile, const float (&d)[32], int warp,
-                                            int lane) {
-  char* base = static_cast<char*>(tile);
+template <int HD>
+__device__ __forceinline__ void acc_to_tile(void* tile, const typename Geom<HD>::Acc& d,
+                                            int warp, int lane) {
+  using G = Geom<HD>;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 16 * warp + g + 8 * h;
+  for (int x = 0; x < G::kBoxes; ++x) {
+    char* base = static_cast<char*>(tile) + x * G::kBoxBytes;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      // column 8 n + 2 t: chunk n, byte 4 t within it
-      const int off = r * 128 + ((n ^ (r & 7)) << 4) + 4 * t;
-      *reinterpret_cast<uint32_t*>(base + off) =
-          pack_bf16(d[4 * n + 2 * h], d[4 * n + 2 * h + 1]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      // the swizzle's row term: r % 8 (128-byte rows), (r / 2) % 4 (64-byte)
+      const int f = G::kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
+#pragma unroll
+      for (int n = 0; n < G::kBoxCols / 8; ++n) {
+        // column 8 n + 2 t: chunk n, byte 4 t within it
+        const int off = r * G::kRowBytes + ((n ^ f) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(base + off) =
+            pack_bf16(d[x][4 * n + 2 * h], d[x][4 * n + 2 * h + 1]);
+      }
     }
   }
 }

@@ -75,10 +75,6 @@ def build_dataset_from_cfg(split_cfg: Dict[str, Any], *,
     split_cfg.pop("word_emb_cfg", None)  # legacy GloVe path
     expr_sampling = split_cfg.pop(
         "expr_sampling", load_cfg.get("expr_sampling", "deterministic"))
-    if expr_sampling != "deterministic":
-        raise NotImplementedError(
-            f"expr_sampling={expr_sampling!r}: only the draw that is a pure "
-            "function of (seed, epoch, index) is ported")
     return build_dataset(
         ds_type,
         imgsfile=split_cfg.pop("imgsfile"),
@@ -95,6 +91,7 @@ def build_dataset_from_cfg(split_cfg: Dict[str, Any], *,
         spm_path=load_cfg.get("spm_path", "pretrain_weights/beit3.spm"),
         corpus_path=load_cfg.get("corpus_path"),
         seed=seed,
+        expr_sampling=expr_sampling,
     )
 
 

@@ -13,8 +13,12 @@ As in the JAX module:
   ``data_source`` (the COCO scheme for the coco sources);
 - Mixed's ``img_source`` filter of the train split, applied before any
   image is read;
-- the expression draw is a pure function of (seed, epoch, index), and the
-  per-sample ``aug_rng`` string seeds the augmentation;
+- the expression draw is a pure function of (seed, epoch, index)
+  (``expr_sampling="deterministic"``), or with ``"global_rng"`` the
+  reference-parity draw ``np.random.choice`` from the global numpy stream
+  (seed it first; the draw order follows the order the loader reads the
+  samples in, so one worker gives the JAX loader's draws); the per-sample
+  ``aug_rng`` string seeds the augmentation;
 - the aspect-ratio group flag for the group sampler, and the bbox clip.
 
 What differs: ``_load_image`` returns the file's bytes and the image's
@@ -81,8 +85,12 @@ class BaseDataset:
         spm_path: str = "pretrain_weights/beit3.spm",
         corpus_path: Optional[str] = None,
         seed: int = 6666,
+        expr_sampling: str = "deterministic",
     ):
         assert which_set in VALID_SETS, which_set
+        if expr_sampling not in ("deterministic", "global_rng"):
+            raise ValueError(f"unknown expr_sampling {expr_sampling!r}")
+        self.expr_sampling = expr_sampling
         if not (with_bbox or with_mask):
             raise ValueError("set with_bbox and/or with_mask on the load op")
         self.which_set = which_set
@@ -159,8 +167,12 @@ class BaseDataset:
             "with_mask": self.with_mask,
         }
         exprs = ann["expressions"]
-        expr_rng = np.random.default_rng((self.seed, self.epoch, index))
-        expr_idx = int(expr_rng.integers(0, len(exprs)))
+        if self.expr_sampling == "global_rng":
+            # the reference's draw (loading.py:108)
+            expr_idx = int(np.random.choice(len(exprs)))
+        else:
+            expr_rng = np.random.default_rng((self.seed, self.epoch, index))
+            expr_idx = int(expr_rng.integers(0, len(exprs)))
         # deterministic augmentation stream for this (epoch, sample)
         s["aug_rng"] = random.Random(
             f"{self.seed}/{self.epoch}/{index}/aug"

@@ -32,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -194,9 +195,18 @@ class MultiwayAttention(nn.Module):
             self.inner_attn_ln((out[:, :split], out[:, split:])))
         if not return_cls_attn:
             return out
-        return out, cls_attention(q, k, num_heads=cfg.num_heads,
-                                  key_padding_mask=key_padding_mask,
-                                  dtype=cfg.dtype)
+        cls = cls_attention(q, k, num_heads=heads,
+                            key_padding_mask=key_padding_mask,
+                            dtype=cfg.dtype)
+        if heads != cfg.num_heads:
+            # tensor parallelism: the mean over this rank's heads, summed
+            # over the model group into the mean over every head, so that
+            # every rank keeps the same tokens
+            cls = cls.detach() * heads
+            mesh = self.q_proj.A.weight.device_mesh
+            dist.all_reduce(cls, group=mesh.get_group("model"))
+            cls = cls / cfg.num_heads
+        return out, cls
 
 
 class DropPath(Stochastic):
@@ -490,7 +500,9 @@ class BEiT3Encoder(nn.Module):
                                   **bias)
                       if remat else layer(xs, pad, seq=seq, **bias))
                 continue
-            xs, cls_attn = layer(xs, pad, return_cls_attn=True)
+            xs, cls_attn = layer(xs, pad, return_cls_attn=True, seq=seq)
+            if seq is not None:  # the kept patches are picked whole
+                xs = seq.gather(xs)
             # rank the patch tokens (positions 1..split-1) by the CLS
             # query's attention and keep the top K in spatial order
             keep = self.cfg.token_prune_keep
@@ -502,6 +514,9 @@ class BEiT3Encoder(nn.Module):
             split = 1 + keep
             pad = torch.cat([torch.zeros(b, split, dtype=torch.bool,
                                          device=dev), pad_txt], dim=1)
+            if seq is not None:
+                seq = SeqShard(self.seq_mesh, (split, t))
+                xs = seq.shard(xs)
 
         ln = self.encoder.layer_norm
         x_vis = ln.A(xs[0])

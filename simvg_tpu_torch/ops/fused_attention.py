@@ -25,6 +25,12 @@ For CUDA tensors the operator launches the kernels or raises on anything
 the kernels do not take; only tensors on the CPU go to the plain PyTorch
 versions, ``fused_attention_reference`` and
 ``fused_attention_bwd_reference``.
+
+Head dims: both kernels are instantiated at 32, 64 and 128 (HEAD_DIMS).  Any
+other head_dim up to 128 runs on the next instantiation with q, k and v
+zero-padded along it and the results cut back (``_pad_head_dim``, a plain
+torch copy); above 128 the wrapper raises, where the TPU kernel takes any
+head_dim.
 """
 
 from __future__ import annotations
@@ -38,7 +44,11 @@ from . import _build
 
 _NEG = -1e30  # the TPU kernel's additive bias on padded keys
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64,)  # the instantiations in attention_fwd.cu / attention_bwd.cu
+# the instantiations in attention_fwd.cu / attention_bwd.cu; any other
+# head_dim up to the last runs on the next of them, zero-padded
+# (``native_head_dim``)
+HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 
 def _logits(q, k, key_padding_mask):
@@ -149,8 +159,9 @@ def _check(q, k, v, key_padding_mask):
             or k.shape[1] == 0:
         raise ValueError(f"fused_attention: shapes {q.shape} and {k.shape} "
                          "do not match")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"fused_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"fused_attention: head_dim {hd} is above the "
+                         f"kernels' limit of {MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("fused_attention: q, k, v must be contiguous")
     if key_padding_mask is not None and \
@@ -158,6 +169,23 @@ def _check(q, k, v, key_padding_mask):
         raise ValueError(f"fused_attention: key_padding_mask "
                          f"{tuple(key_padding_mask.shape)} is not "
                          f"{(b, k.shape[1])}")
+
+
+def native_head_dim(hd: int) -> int:
+    """The kernels' instantiation that runs head_dim ``hd``: the smallest of
+    HEAD_DIMS that holds it."""
+    return next(n for n in HEAD_DIMS if n >= hd)
+
+
+def _pad_head_dim(tensors, hd_n):
+    """The route of a head_dim with no instantiation: each tensor copied
+    with zero columns up to ``hd_n`` (a plain torch copy, not a kernel).
+    Exact: a zero q/k column adds 0 to every logit, a zero v column gives
+    an output column that is cut, and the gradients of the zero columns
+    are cut."""
+    return [t if t.shape[-1] == hd_n
+            else torch.nn.functional.pad(t, (0, hd_n - t.shape[-1]))
+            for t in tensors]
 
 
 def _check_aligned(tensors):
@@ -206,9 +234,11 @@ def attention_fwd(q, k, v, key_padding_mask=None, grad=False):
     ``grad``, else an empty tensor."""
     _check_device([q, k, v, key_padding_mask])
     _check(q, k, v, key_padding_mask)
+    b, sq, h, hd = q.shape
+    hd_n = native_head_dim(hd)
+    q, k, v = _pad_head_dim([q, k, v], hd_n)
     _check_aligned([q, k, v])
     fn = _library("attention_fwd", 7, 6)
-    b, sq, h, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     resid = torch.empty_like(q) if _wants_residual(q, grad) \
@@ -219,11 +249,14 @@ def attention_fwd(q, k, v, key_padding_mask=None, grad=False):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if pad is None else pad.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), resid.data_ptr() if resid.numel() else None,
-                b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
+                b, sq, k.shape[1], h, hd_n, _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: CUDA error "
                            f"{rc}")
     fused_attention.launches += 1
+    if hd_n != hd:
+        out = out[..., :hd].contiguous()
+        resid = resid[..., :hd].contiguous() if resid.numel() else resid
     return out, lse, resid
 
 
@@ -246,6 +279,11 @@ def attention_bwd(q, k, v, out, dout, lse, resid, key_padding_mask=None):
                          f"{q.dtype} {tuple(q.shape)}, contiguous (run "
                          "attention_fwd with grad=True)")
     dout = dout.contiguous()
+    hd_n = native_head_dim(hd)
+    if hd_n != hd:
+        q, k, v, out, dout = _pad_head_dim([q, k, v, out, dout], hd_n)
+        if bf16:
+            resid, = _pad_head_dim([resid], hd_n)
     _check_aligned([q, k, v, out, dout] + ([resid] if bf16 else []))
     fn = _library("attention_bwd", 12, 6)
     dq = torch.empty_like(q)
@@ -259,11 +297,13 @@ def attention_bwd(q, k, v, out, dout, lse, resid, key_padding_mask=None):
                 resid.data_ptr() if bf16 else None, dout.data_ptr(),
                 lse.data_ptr(), None if pad is None else pad.data_ptr(),
                 dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, sq, k.shape[1], h, hd, _DTYPE_CODES[q.dtype], stream)
+                b, sq, k.shape[1], h, hd_n, _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
                            f"{rc}")
     attention_bwd.launches += 1
+    if hd_n != hd:
+        dq, dk, dv = (g[..., :hd].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -22,6 +22,19 @@ Its four modes (``BEiT3Config.quant``: ``int8``, ``int8_calib``,
 - ``qat``: fake-quantized weights and activations with a straight-through
   gradient, the training mode whose checkpoints serve under ``static``.
 
+Scales are the global tensor's, as JAX takes them inside a ``jit`` over a
+mesh: on a data-parallel layout each rank holds a shard of the batch, and
+the activation max is all-reduced (MAX) over the data group; under tensor
+parallelism a row-parallel layer holds a shard of its input features, and
+its activation max and its per-output-channel weight max are all-reduced
+over the model group too (``set_groups``, called by
+``parallel/mesh.py::shard_model``).  The layer then multiplies its local
+int8 shards (``int_mm``), dequantizes the int32 sums with those common
+scales and hands the result to DTensor: a column-parallel layer's output
+features, a row-parallel layer's int32 sums all-reduced first (exactly, as
+JAX adds them; QAT's float partial sums go to DTensor as the float
+layer's do).  Without a process group no collective runs.
+
 The quant tensors (``w_q`` [out, in] int8, ``s_w`` [out] f32,
 ``act_scale`` and ``act_amax`` [] f32) are non-persistent buffers: like
 JAX's "quant" collection they stay out of ``state_dict()`` and of every
@@ -38,7 +51,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from simvg_tpu_torch.convert import quant_key_to_jax, quant_keys_from_jax
 from simvg_tpu_torch.models.layers import Linear
@@ -56,25 +71,47 @@ def _div127(t: torch.Tensor) -> torch.Tensor:
     return t / t.new_full((), 127.0)
 
 
-def quantize_symmetric(w: torch.Tensor, dim: Optional[int] = None):
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A quant buffer as a plain tensor: tensor parallelism
+    (``parallelize_module``) makes every buffer of a parallel layer a
+    replicated DTensor, whose local tensor is the whole buffer."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _group_max(amax: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``amax`` all-reduced (MAX) over each process group of ``groups``,
+    the ranks that hold the rest of the global tensor; in place, under no
+    gradient (a max of |x| feeds only rounding)."""
+    for group in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return amax
+
+
+def quantize_symmetric(w: torch.Tensor, dim: Optional[int] = None,
+                       groups: Sequence = ()):
     """Symmetric int8 quantization: (int8 values, float32 scale), the scale
     max|w| / 127 floored at 1e-8, taken over ``dim`` (None: the whole
-    tensor; the scale then has ``dim`` reduced away), values rounded half
-    to even and clipped to +-127."""
+    tensor; the scale then has ``dim`` reduced away) and over the shards of
+    ``w`` that the process groups ``groups`` hold, values rounded half to
+    even and clipped to +-127."""
     w32 = w.float()
     a = w32.abs()
     amax = a.amax() if dim is None else a.amax(dim=dim, keepdim=True)
+    if groups:
+        amax = _group_max(amax.detach().clone(), groups)
     scale = torch.clamp(_div127(amax), min=1e-8)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return q, (scale if dim is None else scale.squeeze(dim))
 
 
-def fake_quant(v: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+def fake_quant(v: torch.Tensor, dim: Optional[int] = None,
+               groups: Sequence = ()) -> torch.Tensor:
     """``v`` rounded to its int8 grid in the forward, the identity in the
-    backward (JAX's ``v + stop_gradient(deq - v)``), in float32."""
+    backward (JAX's ``v + stop_gradient(deq - v)``), in float32; the grid's
+    scale is the global tensor's (``quantize_symmetric``'s ``groups``)."""
     v32 = v.float()
     with torch.no_grad():
-        q, s = quantize_symmetric(v32, dim)
+        q, s = quantize_symmetric(v32, dim, groups)
         deq = q.float() * (s if dim is None else s.unsqueeze(dim))
         residual = deq - v32
     return v32 + residual
@@ -112,6 +149,11 @@ class Int8Linear(Linear):
         if mode not in MODES.values():
             raise ValueError(f"unknown int8 mode {mode!r}")
         self.mode = mode
+        # the process groups over which the activation max and the
+        # per-channel weight max are taken (set_groups); none: this rank's
+        # tensors are the whole ones
+        self.act_groups: tuple = ()
+        self.weight_groups: tuple = ()
         if mode == "static":
             self.register_buffer("w_q", torch.zeros(
                 out_features, in_features, dtype=torch.int8),
@@ -125,39 +167,120 @@ class Int8Linear(Linear):
             self.register_buffer("act_amax", torch.zeros(()),
                                  persistent=False)
 
-    def _float(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """x @ w^T in the compute dtype, the bias added in float32."""
+    def _float(self, x: torch.Tensor, w: torch.Tensor,
+               wrap=None) -> torch.Tensor:
+        """x @ w^T in the compute dtype, the bias added in float32 (to the
+        product that ``wrap`` returns, see ``_local``)."""
         dt = self.compute_dtype
-        return (F.linear(x.to(dt), w.to(dt)).float() + self.bias).to(dt)
+        y = F.linear(x.to(dt), w.to(dt)).float()
+        return ((wrap(y) if wrap else y) + self.bias).to(dt)
 
-    def _int8(self, x_q, s_x, w_q, s_w) -> torch.Tensor:
+    def _int8(self, x_q, s_x, w_q, s_w, group=None,
+              wrap=None) -> torch.Tensor:
+        """The int8 product dequantized with the scales ``s_x * s_w``; a
+        row-parallel layer's int32 partial sums are first added over
+        ``group``."""
         y = int_mm(x_q.reshape(-1, x_q.shape[-1]), w_q.t())
-        y = y.float() * (s_x * s_w) + self.bias
-        return y.to(self.compute_dtype).reshape(*x_q.shape[:-1], -1)
+        if group is not None:
+            # exactly, as JAX's int32 dot_general adds them: a float sum
+            # of dequantized parts lands an activation on the other side
+            # of a rounding boundary of the next layer's grid now and then
+            dist.all_reduce(y, group=group)
+        y = (y.float() * (s_x * s_w)).reshape(*x_q.shape[:-1], -1)
+        y = wrap(y, summed=True) if wrap else y
+        return (y + self.bias).to(self.compute_dtype)
+
+    def _static_x(self, x):
+        s_x = torch.clamp(_div127(_plain(self.act_scale)), min=1e-8)
+        return torch.clamp(torch.round(x.float() / s_x), -127,
+                           127).to(torch.int8), s_x
+
+    def _check_attached(self):
+        if not self.attached:
+            raise RuntimeError("an int8_static layer without its quant "
+                               "tensors: call attach_static_quant")
+
+    def _local(self, x: torch.Tensor):
+        """The operands on this rank: (x, the weight, the static ``w_q``
+        and ``s_w`` or None, the group that sums the int32 products, the
+        wrap of the float product).  A plain weight: the layer's own
+        tensors, no group, no wrap.  Under tensor parallelism
+        (``parallel/mesh.py``) the weight is a DTensor sharded on its
+        output features (column-parallel, ``x`` whole) or on its input
+        features (row-parallel, ``x`` sharded on its features): the local
+        shards and the slices of ``w_q``/``s_w`` that match them, a
+        row-parallel layer's model group, and a wrap that hands the
+        product to DTensor (output features sharded; a row-parallel
+        layer's sums reduced when ``summed``, else partial, as the float
+        layer's) so that the bias is added there."""
+        w = self.weight
+        static = self.mode == "static"
+        w_q, s_w = ((_plain(self.w_q), _plain(self.s_w)) if static
+                    else (None, None))
+        if not isinstance(w, DTensor):
+            return x, w, w_q, s_w, None, None
+        mesh, rank, n = w.device_mesh, w.device_mesh.get_local_rank(), \
+            w.device_mesh.size()
+        row = w.placements[0] == Shard(1)
+        if isinstance(x, DTensor):
+            # a whole x (column-parallel) gets from this rank the part of
+            # its gradient that this rank's output features give: a
+            # partial sum over the model group
+            x = x.to_local(grad_placements=[Partial()]
+                           if x.placements[0].is_replicate() else None)
+        if static:
+            w_q = w_q.chunk(n, 1 if row else 0)[rank].contiguous()
+            s_w = s_w if row else s_w.chunk(n)[rank]
+
+        def wrap(y, summed=False):
+            out = (Replicate() if summed else Partial()) if row \
+                else Shard(-1)
+            return DTensor.from_local(y, mesh, [out], run_check=False)
+
+        return x, w.to_local(), w_q, s_w, mesh.get_group() if row \
+            else None, wrap
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, w_q, s_w, group, wrap = self._local(x)
         if x.numel() == 0:
             # a zero-length segment: the max has no identity and the
             # output is empty anyway
-            return self._float(x, self.weight)
+            return self._float(x, w, wrap)
         if self.mode == "calib":
-            with torch.no_grad():
-                self.act_amax.copy_(torch.maximum(
-                    self.act_amax, x.float().abs().amax()))
-            return self._float(x, self.weight)
+            self._record(x)
+            return self._float(x, w, wrap)
         if self.mode == "qat":
-            return self._float(fake_quant(x), fake_quant(self.weight, 1))
+            return self._float(fake_quant(x, None, self.act_groups),
+                               fake_quant(w, 1, self.weight_groups), wrap)
         if self.mode == "static":
-            if not self.attached:
-                raise RuntimeError("an int8_static layer without its quant "
-                                   "tensors: call attach_static_quant")
-            s_x = torch.clamp(_div127(self.act_scale), min=1e-8)
-            x_q = torch.clamp(torch.round(x.float() / s_x), -127,
-                              127).to(torch.int8)
-            return self._int8(x_q, s_x, self.w_q, self.s_w)
-        w_q, s_w = quantize_symmetric(self.weight, 1)
-        x_q, s_x = quantize_symmetric(x)
-        return self._int8(x_q, s_x, w_q, s_w)
+            self._check_attached()
+            x_q, s_x = self._static_x(x)
+        else:
+            w_q, s_w = quantize_symmetric(w, 1, self.weight_groups)
+            x_q, s_x = quantize_symmetric(x, None, self.act_groups)
+        return self._int8(x_q, s_x, w_q, s_w, group, wrap)
+
+    @torch.no_grad()
+    def _record(self, x):
+        """calib: the running max |x| of the global activation."""
+        amax = _group_max(x.float().abs().amax(), self.act_groups)
+        act_amax = _plain(self.act_amax)
+        act_amax.copy_(torch.maximum(act_amax, amax))
+
+
+def set_groups(model: torch.nn.Module, data_group=None, model_group=None,
+               row_parallel=lambda name: False) -> None:
+    """Gives ``model``'s ``Int8Linear`` layers the process groups that hold
+    the rest of their global tensors: ``data_group`` shards the batch, and
+    ``model_group`` the input features of the layers that
+    ``row_parallel(name)`` names (their activations and their weights'
+    rows).  None: no such group."""
+    for name, m in quant_layers(model).items():
+        row = model_group is not None and row_parallel(name)
+        m.act_groups = tuple(g for g in (data_group,
+                                         model_group if row else None)
+                             if g is not None)
+        m.weight_groups = (model_group,) if row else ()
 
 
 def quant_layers(model: torch.nn.Module, mode: Optional[str] = None
@@ -179,7 +302,7 @@ def reset_calibration(model: torch.nn.Module) -> None:
 def calibration_amax(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The running max |x| that a calibration model's layers recorded,
     ``{"<module>.act_amax": tensor}``."""
-    return {f"{n}.act_amax": m.act_amax.detach().clone()
+    return {f"{n}.act_amax": _plain(m.act_amax).detach().clone()
             for n, m in quant_layers(model, "calib").items()}
 
 
@@ -194,8 +317,10 @@ def build_quant_collection(model: torch.nn.Module,
     act_amax = act_amax or {}
     out = {}
     for name, m in quant_layers(model).items():
-        out[f"{name}.w_q"], out[f"{name}.s_w"] = quantize_symmetric(
-            m.weight, 1)
+        # a sharded weight (tensor parallelism, FSDP) whole
+        w = m.weight.full_tensor() if isinstance(m.weight, DTensor) \
+            else m.weight
+        out[f"{name}.w_q"], out[f"{name}.s_w"] = quantize_symmetric(w, 1)
         a = act_amax.get(f"{name}.act_amax")
         out[f"{name}.act_scale"] = (
             torch.ones((), device=m.weight.device) if a is None
@@ -233,7 +358,7 @@ def set_quant_collection(model: torch.nn.Module,
     """Copies a collection into the ``int8_static`` layers' buffers."""
     for name, m in quant_layers(model, "static").items():
         for leaf in ("w_q", "s_w", "act_scale"):
-            getattr(m, leaf).copy_(qcol[f"{name}.{leaf}"])
+            _plain(getattr(m, leaf)).copy_(qcol[f"{name}.{leaf}"])
         m.attached = True
 
 

@@ -341,13 +341,20 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, *, fsdp: bool = False,
       any larger dp take FSDP2's path as one shard);
     - otherwise, with a model axis of 1: ``DistributedDataParallel``.
 
-    Every world size takes its path, 1 included.  Returns the ``Sharded``
-    the train step takes."""
+    int8 layers take their scales over the groups that shard their tensors
+    (``ops/quant.py::set_groups``).  Every world size takes its path, 1
+    included.  Returns the ``Sharded`` the train step takes."""
     from simvg_tpu_torch.models.beit3 import BEiT3Encoder, EncoderLayer
+    from simvg_tpu_torch.ops.quant import set_groups
 
     mp, dp = mesh["model"].size(), mesh["data"].size()
     encoders = [m for m in model.modules() if isinstance(m, BEiT3Encoder)]
     seq_summed: List[nn.Parameter] = []
+    # int8 scales are the global tensors': the batch is sharded over
+    # "data", a row-parallel layer's input features over "model"
+    set_groups(model, mesh["data"].get_group() if dp > 1 else None,
+               mesh["model"].get_group() if mp > 1 else None,
+               lambda name: bool(_ROW_PARALLEL.search(name + ".weight")))
     if mp > 1:
         seq = any(enc.cfg.seq_parallel for enc in encoders)
         parallelize_module(model, mesh["model"], _tp_plan(model, seq))

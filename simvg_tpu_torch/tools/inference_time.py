@@ -6,11 +6,14 @@ parameter count.
 
     python -m simvg_tpu_torch.tools.inference_time [CONFIG]
         [--batch-size 1] [--iters 100] [--warmup 10] [--profile]
-        [--device cuda|cpu]
+        [--trace-dir DIR] [--device cuda|cpu]
 
 Without a config it times the flagship (BEiT3-base/32 at 640 px, bf16).
 ``--profile`` prints a ``torch.profiler`` summary of 3 more iterations
-(device time by kernel on the card); it writes no trace files.  Weights
+(device time by kernel on the card).  ``--trace-dir DIR`` writes a
+``torch.profiler`` Chrome trace of one more step, gzipped, to
+``DIR/inference_time.pt.trace.json.gz`` and prints its path (the JAX
+tool's flag; open the file in Perfetto or chrome://tracing).  Weights
 are random (``init_random_weights``, seed 0).  It runs on the card unless
 ``--device cpu`` is given, and raises where there is no card; a time
 measured on the CPU is the CPU's, not the card's.  ``main(argv)`` returns
@@ -20,6 +23,7 @@ the numbers.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -43,7 +47,10 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--warmup", type=int, default=10)
     p.add_argument("--profile", action="store_true",
-                   help="print a torch.profiler summary (no trace files)")
+                   help="print a torch.profiler summary")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a gzipped torch.profiler Chrome trace of "
+                        "one step here")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p.parse_args(argv)
@@ -92,12 +99,12 @@ def main(argv=None):
         lat.append(time.perf_counter() - t0)
     lat = np.asarray(lat) * 1e3
 
-    profile = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile as prof
+    from torch.profiler import ProfilerActivity, profile as prof
 
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    profile = trace = None
+    if args.profile:
         with prof(activities=acts) as p:
             for _ in range(3):
                 infer()
@@ -105,6 +112,14 @@ def main(argv=None):
                else "self_cpu_time_total")
         profile = p.key_averages().table(sort_by=key, row_limit=15)
         print(profile)
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        trace = os.path.join(args.trace_dir,
+                             "inference_time.pt.trace.json.gz")
+        with prof(activities=acts) as p:
+            infer()
+        p.export_chrome_trace(trace)  # gzipped by the name's .gz
+        print(f"trace written to {trace}")
 
     out = dict(device=(torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
@@ -112,7 +127,7 @@ def main(argv=None):
                iters=args.iters, p50_ms=float(np.percentile(lat, 50)),
                p90_ms=float(np.percentile(lat, 90)),
                mean_ms=float(lat.mean()),
-               images_per_s=float(b / (lat.mean() / 1e3)))
+               images_per_s=float(b / (lat.mean() / 1e3)), trace=trace)
     print(f"device: {out['device']}")
     print(f"params: {n_params / 1e6:.2f}M")
     print(f"batch={b} iters={args.iters}")

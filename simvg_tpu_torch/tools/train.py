@@ -129,10 +129,10 @@ def disable_tf32() -> None:
 
 def check_ported(cfg, distributed: bool = False) -> None:
     """Raises NotImplementedError for a combination the port does not
-    have: int8 layers or token pruning under tensor parallelism (a
-    ``--distributed`` run with ``model_parallel`` > 1), and on the
-    OneStageModel family the options of the BEiT-3 encoder it does not
-    have (token pruning, int8, remat, tensor and sequence parallelism)."""
+    have: on the OneStageModel family the options of the BEiT-3 encoder it
+    does not have (token pruning, int8, remat, tensor and sequence
+    parallelism), as the JAX package's OneStage models have none of
+    them."""
     ve = cfg.model.get("vis_enc") or {}
     if cfg.model.get("type") == "OneStageModel":
         beit3_only = {
@@ -147,11 +147,6 @@ def check_ported(cfg, distributed: bool = False) -> None:
             raise NotImplementedError(
                 f"{', '.join(used)}: options of the BEiT-3 encoder, which "
                 "the OneStageModel family does not have")
-    if distributed and cfg.get("model_parallel", 1) > 1 and (
-            ve.get("quant", "none") != "none"
-            or ve.get("token_prune_keep") is not None):
-        raise NotImplementedError("int8 layers and token pruning under "
-                                  "tensor parallelism are not ported")
 
 
 def setup_distributed(args, cfg, device: torch.device):

@@ -1,21 +1,31 @@
 """One rank of the port's multi-process CPU tests (gloo), started by
 ``util_torch_port.run_ranks`` with torchrun's environment.
 
-    python tests/_torch_parallel_worker.py train DIR [LAYOUT ...]
+    python tests/_torch_parallel_worker.py train DIR [[SUB/]LAYOUT|sp ...]
+    python tests/_torch_parallel_worker.py eval DIR
     python tests/_torch_parallel_worker.py cli DIR train|test ARGV...
 
 reads ``DIR/inputs.npz`` (the weights under ``sd/``, the global batch under
 ``batch/``) and ``DIR/config.json`` (the tiny encoder's and head's
 arguments, the optimizer's, ``fsdp_min_size``), and runs in one process
-group, for each layout named (every 2-rank layout of ``LAYOUTS`` when
-none is), two train steps of the tiny model on this rank's shard of the
-global batch.  Rank 0 writes, per layout,
-``DIR/<layout>.npz``: the scalars of both steps and the whole parameters
-and EMA after them.  It also writes ``DIR/zero.json`` (the FSDP layout's
-local element counts of each parameter, gradient, moment and EMA) and,
-each rank, ``DIR/sp_rank<r>.json`` (the sequence-parallel forward against
-the unsharded one, and the sequence lengths the encoder layers saw), when
-it runs the 2-rank layouts.
+group, for each layout named (every 2-rank layout of ``LAYOUTS`` and
+``sp`` when none is), two train steps of the tiny model on this rank's
+shard of the global batch; ``SUB/LAYOUT`` reads its inputs from, and
+writes its outputs to, ``DIR/SUB`` instead.  Rank 0 writes, per layout,
+``<layout>.npz``: the scalars of both steps and the whole parameters and
+EMA after them, and after the FSDP layout ``zero.json`` (its local element
+counts of each parameter, gradient, moment and EMA).  ``sp`` writes, each
+rank, ``sp_rank<r>.json`` (the sequence-parallel forward against the
+unsharded one, and the sequence lengths the encoder layers saw).
+
+``eval`` reads ``DIR/eval_inputs.npz`` (the tiny encoder's weights under
+``sd/``, a global batch under ``batch/``) and ``DIR/eval.json`` (each
+case's encoder arguments, model-parallel size and quant collection), lays
+the encoder out for each case (DDP with data 2, or tensor parallelism over
+the model axis, with sequence parallelism where the case sets it), runs
+its eval forward on this rank's part of the batch and gathers the outputs
+over the data axis; rank 0 writes ``DIR/eval_<case>.npz`` (the image, text
+and CLS features, and the kept indices of a pruned encoder).
 
 ``cli`` joins the group, then runs the port's train or test CLI with
 ``ARGV`` (which holds ``--distributed``: the CLI takes the group and
@@ -35,7 +45,8 @@ import torch
 from simvg_tpu_torch.engine import (create_optimizer, create_train_state,
                                     make_train_step)
 from simvg_tpu_torch.engine.train import train_losses
-from simvg_tpu_torch.models.beit3 import BEiT3Config, EncoderLayer
+from simvg_tpu_torch.models.beit3 import (BEiT3Config, BEiT3Encoder,
+                                          EncoderLayer)
 from simvg_tpu_torch.models.heads.tgqs_head import TGQSHeadConfig
 from simvg_tpu_torch.models.model import SimVGConfig, SimVGModel
 from simvg_tpu_torch.parallel import (create_mesh, full_tensor,
@@ -130,6 +141,39 @@ def sp_forward(cfg, sd, batch, out_dir):
                    "keys": sorted(want)}, f)
 
 
+def run_eval(out_dir):
+    from simvg_tpu_torch.ops.quant import attach_static_quant
+
+    with open(osp.join(out_dir, "eval.json")) as f:
+        cases = json.load(f)
+    arrays = np.load(osp.join(out_dir, "eval_inputs.npz"))
+    sd = {k[3:]: torch.from_numpy(arrays[k]) for k in arrays.files
+          if k.startswith("sd/")}
+    batch = [torch.from_numpy(arrays[f"batch/{k}"])
+             for k in ("image", "text_ids", "text_padding_mask")]
+    for name, case in cases.items():
+        enc = BEiT3Encoder(BEiT3Config(**case["beit3"]))
+        enc.load_state_dict(sd, strict=True)
+        attach_static_quant(enc, case.get("quant_npz"))
+        mesh = create_mesh(case["mp"], "cpu")
+        sharded = shard_model(enc.eval(), mesh)
+        dp, r = sharded.dp, sharded.dp_rank
+        b = len(batch[0]) // dp
+        prune = case["beit3"].get("token_prune_keep") is not None
+        with torch.no_grad():
+            out = enc(*(t[r * b:(r + 1) * b] for t in batch),
+                      return_prune_idx=prune)
+        keys = ("img_feat", "text_feat", "cls_feat", "prune_idx")
+        got = {}
+        for k, t in zip(keys, out):
+            parts = [torch.empty_like(t) for _ in range(dp)]
+            torch.distributed.all_gather(parts, t.contiguous(),
+                                         group=mesh["data"].get_group())
+            got[k] = torch.cat(parts).numpy()
+        if torch.distributed.get_rank() == 0:
+            np.savez(osp.join(out_dir, f"eval_{name}.npz"), **got)
+
+
 def run_cli(out_dir, which, argv):
     import os
 
@@ -143,26 +187,41 @@ def run_cli(out_dir, which, argv):
         json.dump(result, f)
 
 
+def read_inputs(d):
+    """(config, state dict, global batch) of the train inputs in ``d``."""
+    with open(osp.join(d, "config.json")) as f:
+        cfg = json.load(f)
+    arrays = np.load(osp.join(d, "inputs.npz"))
+    sd = {k[3:]: torch.from_numpy(arrays[k]) for k in arrays.files
+          if k.startswith("sd/")}
+    batch = {k[6:]: torch.from_numpy(arrays[k]) for k in arrays.files
+             if k.startswith("batch/")}
+    return cfg, sd, batch
+
+
 def main():
     scenario, out_dir = sys.argv[1], sys.argv[2]
     init_distributed("cpu", timeout=datetime.timedelta(seconds=120))
     if scenario == "cli":
         run_cli(out_dir, sys.argv[3], sys.argv[4:])
         return
+    if scenario == "eval":
+        try:
+            run_eval(out_dir)
+        finally:
+            torch.distributed.destroy_process_group()
+        return
     try:
-        with open(osp.join(out_dir, "config.json")) as f:
-            cfg = json.load(f)
-        arrays = np.load(osp.join(out_dir, "inputs.npz"))
-        sd = {k[3:]: torch.from_numpy(arrays[k]) for k in arrays.files
-              if k.startswith("sd/")}
-        batch = {k[6:]: torch.from_numpy(arrays[k]) for k in arrays.files
-                 if k.startswith("batch/")}
         if scenario != "train":
             raise ValueError(f"unknown scenario {scenario!r}")
-        for name in sys.argv[3:] or TWO_RANKS:
-            run_layout(name, cfg, sd, batch, out_dir)
-        if not sys.argv[3:]:
-            sp_forward(cfg, sd, batch, out_dir)
+        for arg in sys.argv[3:] or TWO_RANKS + ("sp",):
+            sub, _, name = arg.rpartition("/")
+            d = osp.join(out_dir, sub)
+            cfg, sd, batch = read_inputs(d)
+            if name == "sp":
+                sp_forward(cfg, sd, batch, d)
+            else:
+                run_layout(name, cfg, sd, batch, d)
     finally:
         torch.distributed.destroy_process_group()
 

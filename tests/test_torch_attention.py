@@ -126,8 +126,8 @@ def test_fused_attention_checks_reject_what_the_kernel_does_not_take(case):
     mask = None
     if case == "dtype":
         q = k = v = mk(dtype=torch.float16)
-    elif case == "head_dim":
-        q = k = v = mk(hd=48)
+    elif case == "head_dim":  # above the last instantiation, 128
+        q = k = v = mk(hd=160)
     elif case == "shape":
         k = v = mk(s=8, hd=64)[:1]
     elif case == "mask":
@@ -144,6 +144,41 @@ def test_fused_attention_checks_reject_what_the_kernel_does_not_take(case):
         return
     with pytest.raises((TypeError, ValueError)):
         _check(q, k, v, mask)
+
+
+@pytest.mark.parametrize("hd", [16, 48, 80, 100])
+def test_padded_head_dims_are_exact(hd):
+    """A head_dim with no instantiation runs on the next one (16 -> 32,
+    48 -> 64, 80 and 100 -> 128) with q, k, v zero-padded and the results
+    cut back: the plain versions on the padded tensors, cut, give the
+    unpadded ones (forward, the residual, the gradients) within float32
+    rounding."""
+    from simvg_tpu_torch.ops.fused_attention import (
+        _pad_head_dim, attention_residual_reference, native_head_dim)
+
+    n = native_head_dim(hd)
+    assert n == {16: 32, 48: 64, 80: 128, 100: 128}[hd]
+    b, s, h = 2, 37, 3
+    r = np.random.default_rng(hd)
+    q, k, v, dout = (torch.from_numpy(r.normal(size=(b, s, h, hd))
+                                      .astype(np.float32)) for _ in range(4))
+    q = q * hd ** -0.5
+    pad = torch.from_numpy(_pad(b, s, [s, 20]))
+    qp, kp, vp, dp = _pad_head_dim([q, k, v, dout], n)
+    assert qp.shape[-1] == n and not qp[..., hd:].any()
+    cut = lambda t: t[..., :hd]  # noqa: E731
+    torch.testing.assert_close(cut(fused_attention_reference(qp, kp, vp, pad)),
+                               fused_attention_reference(q, k, v, pad),
+                               atol=1e-6, rtol=0)
+    for got, want in zip(attention_residual_reference(
+            qp.bfloat16(), kp.bfloat16(), vp.bfloat16(), pad),
+            attention_residual_reference(q.bfloat16(), k.bfloat16(),
+                                         v.bfloat16(), pad)):
+        torch.testing.assert_close(cut(got).float(), want.float(),
+                                   atol=1e-6, rtol=0)
+    for got, want in zip(fused_attention_bwd_reference(qp, kp, vp, dp, pad),
+                         fused_attention_bwd_reference(q, k, v, dout, pad)):
+        torch.testing.assert_close(cut(got), want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("case", ["bool", "bool_strided", "int64"])

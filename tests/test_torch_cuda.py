@@ -93,9 +93,75 @@ def test_attention_fwd_matches_plain_version(gen, dtype, atol, b, sq, sk, h,
 
 
 def test_attention_fwd_raises_on_unsupported_head_dim(gen):
-    q = torch.randn(1, 8, 2, 32, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head_dim"):
+    """Above 128, the last instantiation, the wrapper raises, naming the
+    limit."""
+    q = torch.randn(1, 8, 2, 160, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="head_dim 160 is above"):
         fused_attention(q, q, q)
+
+
+# K1 and K2 at the other head dims: the native 32 (64-byte swizzle, N = 32
+# products) and 128 (two boxes a tile, two N = 64 products a slice), and
+# head dims with no instantiation, zero-padded to the next (48 -> 64,
+# 16 -> 32, 80 -> 128)
+HD_CASES = [
+    (2, 421, 421, 24, 32, [421, 404]),  # the flagship at 24 heads
+    (2, 421, 421, 6, 128, [421, 404]),  # the flagship at 6 heads
+    (3, 13, 70, 3, 32, [70, 1, 33]),
+    (3, 13, 70, 3, 128, [70, 1, 33]),
+    (2, 100, 65, 4, 128, [65, 61]),  # ragged ends, one partial tile each
+    (2, 100, 100, 4, 48, [100, 61]),
+    (1, 65, 63, 2, 16, None),
+    (1, 64, 64, 2, 80, [40]),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,lengths", HD_CASES)
+def test_attention_at_other_head_dims(gen, b, sq, sk, h, hd, lengths):
+    """float32 and bf16 K1 (with and without the residual) and K2 at
+    head_dim 32, 128 and padded ones, each held to its plain version at the
+    bounds above; in bf16 out is the same bits with the residual and
+    without, and out + r is at least 8x closer to float32 than out."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout, pad = _inputs(gen, dtype, b, sq, sk, h, hd, lengths)
+        before = (fused_attention.launches, attention_bwd.launches)
+        out, lse, resid = attention_fwd(q, k, v, pad, grad=True)
+        serve, _, _ = attention_fwd(q, k, v, pad)
+        grads = attention_bwd(q, k, v, out, dout, lse, resid, pad)
+        torch.cuda.synchronize()
+        assert (fused_attention.launches, attention_bwd.launches) == (
+            before[0] + 2, before[1] + 1)
+        assert out.shape == q.shape and torch.equal(out, serve)
+        ref = fused_attention_reference(q, k, v, pad)
+        atol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=0)
+        _assert_grads_close(grads, fused_attention_bwd_reference(
+            q, k, v, dout, pad), dtype, pad)
+        if dtype == torch.bfloat16:
+            assert resid.shape == q.shape
+            o32 = fused_attention_reference(q.float(), k.float(), v.float(),
+                                            pad)
+            e_out = (out.float() - o32).abs().max().item()
+            e_sum = (out.float() + resid.float() - o32).abs().max().item()
+            assert 8 * e_sum <= e_out, (e_sum, e_out)
+
+
+@pytest.mark.parametrize("hd", [32, 48, 128])
+def test_autograd_at_other_head_dims(gen, hd):
+    """bf16 through fused_attention with a graph at head_dim 32, 48 (padded)
+    and 128: one K1 and one K2 launch, the gradients within their bounds."""
+    q, k, v, dout, pad = _inputs(gen, torch.bfloat16, 2, 77, 77, 3, hd,
+                                 [77, 50])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fused_attention.launches, attention_bwd.launches)
+    fused_attention(*leaves, pad).backward(dout)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_grads_close([t.grad for t in leaves],
+                        fused_attention_bwd_reference(q, k, v, dout, pad),
+                        torch.bfloat16, pad)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -87,6 +87,42 @@ def test_loader_batches_match_jax(synth, split, train, levels):
         assert n == len(jl)
 
 
+def test_global_rng_expression_draws_match_jax(synth):
+    """``expr_sampling="global_rng"``: each sample's expression is
+    ``np.random.choice`` from the global numpy stream, as JAX's
+    (``simvg_tpu/data/datasets.py:184-186``); with the stream seeded alike
+    and one worker, the train loaders of both packages give the same
+    expressions over an epoch, and they differ from the deterministic
+    draw's."""
+    opts = dict(_opts(synth), **{"data.train.expr_sampling": "global_rng",
+                                 "data.workers_per_gpu": 1})
+    jcfg = JaxConfig.fromfile(TINY)
+    jcfg.merge_from_dict(opts)
+    cfg = Config.fromfile(TINY)
+    cfg.merge_from_dict(opts)
+    jl = jax_loader(jax_dataset(jcfg.data.train, dataset_type=jcfg.dataset,
+                                seed=6666),
+                    jcfg, train=True, canvas=64, seed=6666)
+    tl = build_loader_from_cfg(
+        build_dataset_from_cfg(cfg.data.train, dataset_type=cfg.dataset,
+                               seed=6666),
+        cfg, train=True, canvas=64, seed=6666, device="cpu")
+    assert tl.ds.expr_sampling == "global_rng"
+
+    def exprs(loader):
+        np.random.seed(3)
+        return [m["expression"] for b in loader for m in b["meta"]]
+
+    want, got = exprs(jl), exprs(tl)
+    assert got == want and len(got) >= 12
+    cfg.merge_from_dict({"data.train.expr_sampling": "deterministic"})
+    det = build_loader_from_cfg(
+        build_dataset_from_cfg(cfg.data.train, dataset_type=cfg.dataset,
+                               seed=6666),
+        cfg, train=True, canvas=64, seed=6666, device="cpu")
+    assert exprs(det) != got
+
+
 @pytest.mark.parametrize("seed,crop_iou_thr", [
     (s, (0.5, 0.6, 0.7, 0.8, 0.9)) for s in range(12)] + [
     # no crop can reach an iou of 1.01: every upscale takes the give-up

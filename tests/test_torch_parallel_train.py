@@ -19,6 +19,23 @@ tests/test_torch_train.py, the elements whose JAX gradient is below 1e-6:
 Adam moves those by up to +-lr from summation-order noise in either
 package (the port's single-process gradient picks them: it is JAX's to
 1e-5 of each tensor's max, tests/test_torch_train.py).
+
+int8: the same two steps with ``quant="int8_qat"`` under DDP (dp=2) and
+under FSDP2 with tensor and sequence parallelism (data 2 x model 2), on a
+batch whose second half (the second data shard) is scaled x4, so that the
+two shards' activation maxima differ:
+JAX takes each fake-quant scale over the global batch inside its ``jit``,
+which is what the one-device ``make_train_step(dp_size=dp)`` computes, and
+the port's ranks all-reduce their maxima (``ops/quant.py``).  The bounds
+are the ones above.  And eval forwards of the tiny encoder of
+``util_torch_port`` (64 px: 17 vision tokens) on 2 ranks, held against
+JAX's encoder on the global batch: dynamic int8 under DDP on the scaled
+batch; dynamic int8 and int8_static (one calibration's collection, read by
+both packages) under tensor parallelism; token pruning after layer 0
+(keep 5 of 16 patches) under tensor parallelism, without and with sequence
+parallelism.  int8 features at ``util_torch_port.assert_int8_close``'s
+bounds (tests/test_torch_quant.py's), pruned ones at atol 1e-5
+(tests/test_torch_prune.py's), the kept indices equal.
 """
 
 import json
@@ -38,13 +55,19 @@ from simvg_tpu_torch.engine.train import train_losses
 from simvg_tpu_torch.models import init_random_weights
 from simvg_tpu_torch.parallel import param_partition_spec
 from test_torch_train import BLW, TINY_BEIT3, TINY_HEAD, _batch, _models
-from util_torch_port import cheap_jit, jax_params_from_port, run_ranks
+from util_torch_port import (TINY_BEIT3 as ENC_BEIT3, assert_int8_close,
+                             cheap_jit, jax_params_from_port, np_batch,
+                             run_ranks)
 from util_torch_port import one_torch_thread  # noqa: F401
 
 OPT = dict(lr=1e-3, steps_per_epoch=1000)
 MIN_SIZE = 2048
-# layout -> the data-parallel size of its mesh
-DP = {"ddp": 2, "fsdp": 2, "tp": 1, "tp_sp": 1, "fsdp_tp_sp": 2}
+# layout -> the data-parallel size of its mesh; an "_int8_qat" layout runs
+# the worker's layout of that name with quant="int8_qat" on the scaled batch
+DP = {"ddp": 2, "fsdp": 2, "tp": 1, "tp_sp": 1, "fsdp_tp_sp": 2,
+      "ddp_int8_qat": 2, "fsdp_tp_sp_int8_qat": 2}
+QAT = "int8_qat"
+SCALE = 4.0  # the second half of the batch, x4: its own activation max
 
 
 def _live(tm, batch, dp):
@@ -78,6 +101,35 @@ def _jax_run(jm, params, batch, dp):
                                                    state.ema_params)))
 
 
+def _write_inputs(d, sd, batch, beit3):
+    np.savez(d / "inputs.npz", **{f"sd/{k}": v for k, v in sd.items()},
+             **{f"batch/{k}": v for k, v in batch.items()})
+    with open(d / "config.json", "w") as f:
+        json.dump({"beit3": beit3, "head": dict(TINY_HEAD,
+                                                num_queries=1),
+                   "optimizer": OPT, "blw": BLW,
+                   "fsdp_min_size": MIN_SIZE}, f)
+
+
+def _qat_models():
+    """The tiny models of _models("refcoco") with quant="int8_qat"."""
+    from simvg_tpu.models import SimVGConfig, SimVGModel
+    from simvg_tpu.models.beit3 import BEiT3Config
+    from simvg_tpu.models.heads.tgqs_head import TGQSHeadConfig
+    from simvg_tpu_torch.models.beit3 import BEiT3Config as TBEiT3Config
+    from simvg_tpu_torch.models.heads.tgqs_head import (
+        TGQSHeadConfig as THeadConfig)
+    from simvg_tpu_torch.models.model import (SimVGConfig as TConfig,
+                                              SimVGModel as TModel)
+
+    head = dict(TINY_HEAD, num_queries=1)
+    return (SimVGModel(SimVGConfig(beit3=BEiT3Config(**TINY_BEIT3,
+                                                     quant=QAT),
+                                   head=TGQSHeadConfig(**head))),
+            TModel(TConfig(beit3=TBEiT3Config(**TINY_BEIT3, quant=QAT),
+                           head=THeadConfig(**head))))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("parallel_train")
@@ -89,26 +141,34 @@ def runs(tmp_path_factory):
         "image", "text_ids", "text_padding_mask", "img_shape")},
         tm.state_dict())
     sd = export_simvg_full(params)
-    np.savez(d / "inputs.npz", **{f"sd/{k}": v for k, v in sd.items()},
-             **{f"batch/{k}": v for k, v in batch.items()})
-    with open(d / "config.json", "w") as f:
-        json.dump({"beit3": TINY_BEIT3, "head": dict(TINY_HEAD,
-                                                     num_queries=1),
-                   "optimizer": OPT, "blw": BLW,
-                   "fsdp_min_size": MIN_SIZE}, f)
-    run_ranks(2, ["tests/_torch_parallel_worker.py", "train", str(d)])
-    run_ranks(4, ["tests/_torch_parallel_worker.py", "train", str(d),
-                  "fsdp_tp_sp"])
-    ref = {dp: dict(_jax_run(jm, params, jb, dp), live=_live(tm, batch, dp))
-           for dp in (1, 2)}
+    _write_inputs(d, sd, batch, TINY_BEIT3)
+    # int8_qat on a batch whose shards have different activation maxima
+    dq = d / QAT
+    dq.mkdir()
+    qbatch = dict(batch, image=batch["image"].copy())
+    qbatch["image"][2:] *= SCALE
+    _write_inputs(dq, sd, qbatch, dict(TINY_BEIT3, quant=QAT))
+    worker = ["tests/_torch_parallel_worker.py", "train", str(d)]
+    run_ranks(2, worker + ["ddp", "fsdp", "tp", "tp_sp", "sp",
+                           f"{QAT}/ddp"])
+    run_ranks(4, worker + ["fsdp_tp_sp", f"{QAT}/fsdp_tp_sp"])
+    ref = {(None, dp): dict(_jax_run(jm, params, jb, dp),
+                            live=_live(tm, batch, dp)) for dp in (1, 2)}
+    jq, tq = _qat_models()
+    tq.load_state_dict(tm.state_dict(), strict=True)
+    qjb = {k: jnp.asarray(v) for k, v in qbatch.items()}
+    ref[(QAT, 2)] = dict(_jax_run(jq, params, qjb, 2),
+                         live=_live(tq, qbatch, 2))
     return d, ref
 
 
 @pytest.mark.parametrize("layout", list(DP))
 def test_parallel_train_steps_match_jax_global_batch(runs, layout):
     d, ref = runs
-    want = ref[DP[layout]]
-    got = np.load(d / f"{layout}.npz")
+    quant = QAT if layout.endswith(QAT) else None
+    want = ref[(quant, DP[layout])]
+    got = np.load(d / quant / f"{layout[:-len(QAT) - 1]}.npz" if quant
+                  else d / f"{layout}.npz")
     scalars = json.loads(str(got["scalars"]))
     for step, (st, sj) in enumerate(zip(scalars, want["scalars"])):
         for k, v in sj.items():
@@ -156,3 +216,96 @@ def test_sequence_parallel_shards_an_odd_segment(runs):
             sp = json.load(f)
         assert sp["layer_input_lengths"] == [[vision, 3]] * 2, sp
         assert sp["max_abs_err"] <= 1e-5, sp
+
+
+# the eval cases: (encoder arguments beyond ENC_BEIT3, model_parallel)
+PRUNE = dict(token_prune_keep=5, token_prune_layer=0, token_prune_force=True)
+EVAL_CASES = {
+    "ddp_int8": (dict(quant="int8"), 1),
+    "tp_int8": (dict(quant="int8"), 2),
+    "tp_int8_static": (dict(quant="int8_static"), 2),
+    "tp_prune": (PRUNE, 2),
+    "tp_sp_prune": (dict(PRUNE, seq_parallel=True), 2),
+}
+
+
+@pytest.fixture(scope="module")
+def evals(tmp_path_factory):
+    """The port's 2-rank eval forwards of every case (one process group),
+    and JAX's encoder on the global batch."""
+    from simvg_tpu.models.beit3 import BEiT3Config as JaxBEiT3Config
+    from simvg_tpu.models.beit3 import BEiT3Encoder as JaxEncoder
+    from simvg_tpu.ops.quant import load_quant_collection
+    from simvg_tpu_torch.models.beit3 import BEiT3Config, BEiT3Encoder
+    from simvg_tpu_torch.ops import quant as q
+
+    d = tmp_path_factory.mktemp("parallel_eval")
+    batch = np_batch(b=4, seed=6)
+    batch["image"][2:] *= SCALE
+    args = [batch[k] for k in ("image", "text_ids", "text_padding_mask")]
+    params = {"params": _jax_encoder_params(JaxEncoder(JaxBEiT3Config(
+        **ENC_BEIT3)), args)}
+    sd = {k[len("vis_enc.beit3."):]: v for k, v in export_simvg_full(
+        {"params": {"beit3": params["params"]}}).items()}
+    enc = BEiT3Encoder(BEiT3Config(**ENC_BEIT3))
+    enc.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                        strict=True)
+    # int8_static's collection: a calibration of the same weights
+    calib = BEiT3Encoder(BEiT3Config(**ENC_BEIT3, quant="int8_calib"))
+    calib.load_state_dict(enc.state_dict(), strict=True)
+    with torch.no_grad():
+        calib.eval()(*map(torch.from_numpy, args))
+    npz = str(d / "q.npz")
+    q.save_quant_collection(npz, q.build_quant_collection(
+        calib, q.calibration_amax(calib)))
+    cases = {name: dict(beit3=dict(ENC_BEIT3, **kw), mp=mp,
+                        quant_npz=npz if kw.get("quant") == "int8_static"
+                        else None)
+             for name, (kw, mp) in EVAL_CASES.items()}
+    np.savez(d / "eval_inputs.npz", **{f"sd/{k}": v for k, v in sd.items()},
+             **{f"batch/{k}": v for k, v in batch.items()})
+    with open(d / "eval.json", "w") as f:
+        json.dump(cases, f)
+    run_ranks(2, ["tests/_torch_parallel_worker.py", "eval", str(d)])
+    ref, by_kw = {}, {}
+    for name, (kw, _) in EVAL_CASES.items():
+        kw = {k: v for k, v in kw.items() if k != "seq_parallel"}
+        key = json.dumps(kw, sort_keys=True)  # one JAX run a config
+        if key not in by_kw:
+            variables = dict(params)
+            if kw.get("quant") == "int8_static":
+                variables["quant"] = load_quant_collection(npz)
+            by_kw[key] = JaxEncoder(JaxBEiT3Config(**ENC_BEIT3, **kw)).apply(
+                variables, *map(jnp.asarray, args),
+                return_prune_idx="token_prune_keep" in kw)
+        ref[name] = by_kw[key]
+    return d, ref
+
+
+def _jax_encoder_params(jax_enc, args, seed=2):
+    """Random weights in the JAX encoder's tree, drawn with numpy on its
+    shapes (``jax.eval_shape``: no JAX init runs): LayerNorm scales near
+    1, every other leaf of std 0.05."""
+    shapes = jax.eval_shape(jax_enc.init, jax.random.PRNGKey(0),
+                            *map(jnp.asarray, args))["params"]
+    r = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, s: ((1.0 if path[-1].key == "scale" else 0.0)
+                         + 0.05 * r.normal(size=s.shape)).astype(s.dtype),
+        shapes)
+
+
+@pytest.mark.parametrize("case", list(EVAL_CASES))
+def test_parallel_eval_matches_jax_global_batch(evals, case):
+    d, ref = evals
+    got = np.load(d / f"eval_{case}.npz")
+    want = ref[case]
+    keys = ("img_feat", "text_feat", "cls_feat", "prune_idx")
+    if "prune" in case:
+        np.testing.assert_array_equal(got["prune_idx"], np.asarray(want[3]))
+    for k, w in zip(keys[:3], want[:3]):
+        if "int8" in case:
+            assert_int8_close(got[k], w, err_msg=f"{case} {k}")
+        else:
+            np.testing.assert_allclose(got[k], np.asarray(w), atol=1e-5,
+                                       rtol=0, err_msg=f"{case} {k}")

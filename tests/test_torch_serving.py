@@ -308,3 +308,23 @@ def test_serving_clis_default_to_the_card(cli, argv):
     entry = mod.build_server if cli == "serve" else mod.main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry(argv)
+
+
+def test_inference_time_writes_a_gzipped_trace(tmp_path):
+    """``inference_time --trace-dir DIR`` writes a torch.profiler Chrome
+    trace of one step, gzipped, into DIR and returns its path, as the JAX
+    tool's flag writes its trace; the file opens as JSON with the step's
+    events."""
+    import gzip
+    import json
+
+    from simvg_tpu_torch.tools import inference_time
+
+    out = inference_time.main([TINY, "--device", "cpu", "--iters", "1",
+                               "--warmup", "0", "--trace-dir",
+                               str(tmp_path / "trace")])
+    assert out["trace"] == str(tmp_path / "trace"
+                               / "inference_time.pt.trace.json.gz")
+    with gzip.open(out["trace"], "rt") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("linear" in str(e.get("name", "")) for e in events)
