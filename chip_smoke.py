@@ -8,7 +8,8 @@ the CUDA toolkit:
 
 It builds every kernel of the port from ``simvg_tpu_torch/csrc/`` (one
 nvcc each, in parallel) and holds each against its plain PyTorch version at
-the main paths' shapes: K1, the attention forward, and K2, its backward.
+the main paths' shapes: K1, the attention forward, K2, its backward, and
+the PNG kernel (unfiltering and colour conversion).
 bf16 takes each kernel's tensor-core route, float32 its CUDA-core route.
 Each K1/K2 row gives the kernel's time beside its plain version's, the
 bound, the achieved TFLOP/s and share of the bound, and PyTorch's SDPA as
@@ -37,15 +38,20 @@ weights from a seed:
   gradients held against plain attention with dropout off; the step timed
   with each.
 
-Then "headdim": the flagship's encoder as 24 heads of 32 and as 6 heads
-of 128 (K1/K2's other instantiations; the K1/K2 rows hold both and a
-padded head_dim of 48): per head_dim an eval batch of 8 (12 K1 launches)
+Then "headdim": the flagship's encoder as 24 heads of 32, 6 heads of
+128, 3 heads of 256 and 2 heads of 384 (K1/K2's other instantiations and
+the column-split route above 256; the K1/K2 rows hold them and the padded
+head dims 48 and 160, in bf16 and float32): per head_dim an eval batch of
+8 (12 K1 launches)
 and a train step at batch 32 (12 K1, 12 K2), both held by the bf16 rules
 below and timed beside plain attention.
 
 A bf16 model with the kernels is held to the float32 model with plain
 attention on the same weights and inputs, no further from it than
-BF16_REF_FACTOR times the bf16 model with plain attention, and every
+BF16_REF_FACTOR times the bf16 model with plain attention (a train step's
+loss terms and gradients on the mean over TRAIN_DRAWS draws of the weights
+times (1 + 1e-7 N(0, 1)), since one draw of the plain model can land on
+float32 by chance), and every
 attention call of those runs to float32 attention on the call's own inputs,
 no further from it than CALL_FACTOR times the kernels' plain versions.
 Then "options": the flagship with only_decoder=False (a 6-layer DetrEncoder
@@ -73,7 +79,13 @@ and unpruned at batch 8 and 32), its serving forward through torch.export
 against eager), the HTTP server on the CLI phase's det_best (a burst of
 24 JPEG requests from 8 clients, each held to a direct eval step, then 23 s
 of load from 8 closed-loop clients for latency and images/s), and the demo
-and inference CLIs.  Then "int8" (ops/quant.py, w8a8 through
+and inference CLIs.  Then "png": the PNG kernel against the plain decoder
+on streams of every colour type and bit depth, every filter, Adam7, bit
+for bit; its time on a 480 x 640 RGB image beside the host's inflate; the
+flagship's val loader over the synthetic JPEGs rewritten as PNG (each
+batch bit for bit the plain decoder's) and the server on det_best
+answering PNG requests (each held to a direct eval step on the plain
+decoder's pixels), the kernel's launches counted from 0 around both.  Then "int8" (ops/quant.py, w8a8 through
 torch._int_mm): the flagship calibrated with tools/quantize_serving.py,
 every _int_mm of a forward held to the float64 product of its operands,
 the int8_static and dynamic int8 models held to the float32 model beside
@@ -154,7 +166,7 @@ TRAIN_TIMING_STEPS = 5  # train steps per turn when timing
 # the schedule's epoch length only sets where the LR ramps; a run of a few
 # steps stays in warm-up epoch 0 for any value this large
 STEPS_PER_EPOCH = 1000
-KERNELS = ("attention_fwd", "attention_bwd")
+KERNELS = ("attention_fwd", "attention_bwd", "png")
 # the card's peaks (H100 SXM data sheet):
 # dense bf16 on the tensor cores, fp32 outside them, and HBM bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
@@ -181,8 +193,9 @@ K1_CHECKS = [  # (batch, seq, heads, head_dim, dtype name, bound)
     (8, 933, 12, 64, "bfloat16", 2e-2),
     (8, 32, 12, 64, "bfloat16", 2e-2),
     # the other instantiations ("headdim"): the flagship's D = 768 as 24
-    # heads of 32 and as 6 heads of 128, and a head_dim with none (48,
-    # zero-padded to 64 by the wrapper)
+    # heads of 32, 6 heads of 128, 3 heads of 256 and 2 heads of 384 (the
+    # split route), and head dims with none (48, zero-padded to 64 by the
+    # wrapper; 160, to 256)
     (TRAIN_BATCH, 421, 24, 32, "bfloat16", 2e-2),
     (8, 421, 24, 32, "bfloat16", 2e-2),
     (8, 421, 24, 32, "float32", 2e-5),
@@ -190,11 +203,20 @@ K1_CHECKS = [  # (batch, seq, heads, head_dim, dtype name, bound)
     (8, 421, 6, 128, "bfloat16", 2e-2),
     (8, 421, 6, 128, "float32", 2e-5),
     (8, 421, 16, 48, "bfloat16", 2e-2),
+    (TRAIN_BATCH, 421, 3, 256, "bfloat16", 2e-2),
+    (8, 421, 3, 256, "bfloat16", 2e-2),
+    (2, 421, 3, 256, "float32", 2e-5),
+    (TRAIN_BATCH, 421, 2, 384, "bfloat16", 2e-2),
+    (8, 421, 2, 384, "bfloat16", 2e-2),
+    (2, 421, 2, 384, "float32", 2e-5),
+    (8, 421, 4, 160, "bfloat16", 2e-2),
 ]
 # K1 as the train step calls it (with the residual r), at each instantiation
-# and the padded head_dim
+# and the padded head dims
 K1_TRAIN_CHECKS = [(TRAIN_BATCH, 421, 12, 64), (TRAIN_BATCH, 421, 24, 32),
-                   (TRAIN_BATCH, 421, 6, 128), (8, 421, 16, 48)]
+                   (TRAIN_BATCH, 421, 6, 128), (8, 421, 16, 48),
+                   (TRAIN_BATCH, 421, 3, 256), (TRAIN_BATCH, 421, 2, 384),
+                   (8, 421, 4, 160)]
 # K2 vs its plain version.  float32: the gradient bounds of
 # tests/test_pallas_attention.py.  bf16: 2e-2 of each gradient's max |value|,
 # five bf16 steps: K2 sums its P and dP in another order, so a rounding of P
@@ -212,6 +234,11 @@ K2_CHECKS = [  # (batch, seq, heads, head_dim, dtype name)
     (TRAIN_BATCH, 421, 6, 128, "bfloat16"),
     (8, 421, 6, 128, "float32"),
     (8, 421, 16, 48, "bfloat16"),
+    (TRAIN_BATCH, 421, 3, 256, "bfloat16"),
+    (2, 421, 3, 256, "float32"),
+    (TRAIN_BATCH, 421, 2, 384, "bfloat16"),
+    (2, 421, 2, 384, "float32"),
+    (8, 421, 4, 160, "bfloat16"),
 ]
 K2_FP32_ATOL, K2_FP32_RTOL = 3e-4, 1e-3
 K2_BF16_REL = 2e-2
@@ -229,6 +256,16 @@ BF16_REF_FACTOR = 2.0
 OUT_FLOOR = 1e-3  # absolute, on logits and boxes
 LOSS_FLOOR = 1e-3  # relative to the float32 loss term
 GRAD_FLOOR = 1e-3  # relative to the float32 max|g| (max) or |g| (L2)
+# The train step's loss terms and gradients: each distance from float32 is
+# one draw of bf16 rounding, and one draw of the plain model can land on
+# float32 by chance (the hd-384 flagship's loss_kd: plain 1.9e-4 on the
+# weights as given, 1.9e-3 to 2.6e-3 on the same weights times (1 + 1e-7
+# N(0, 1)), which float32 does not see, against the kernels' 1.3e-3 to
+# 1.8e-3; PERF.md §6).  So the bound above is held on each
+# distance's mean over TRAIN_DRAWS draws: the weights as given and
+# TRAIN_DRAWS - 1 copies times (1 + WEIGHT_NOISE N(0, 1)), seeds 1, 2, ...
+TRAIN_DRAWS = 3
+WEIGHT_NOISE = 1e-7
 # Every attention call of those bf16 runs, on its own inputs: the kernels'
 # output, and the dq, dk, dv that the backward took from them, held to
 # plain attention in float32 on the same bf16 inputs, in relative L2: at
@@ -336,6 +373,17 @@ def sdpa_args(q, k, v, pad):
     return [t.transpose(1, 2) for t in (q, k, v)], keep
 
 
+def sdpa_backend(q, k, v, mask):
+    """The route PyTorch's SDPA dispatcher takes for these arguments (the
+    yardstick's: at a head dim above what flash and memory-efficient
+    attention take it falls back to the math route), by name."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0, False,
+                                              scale=1.0)).name
+
+
 def text_padded_qkv(b, s, h, hd, dtype, gen):
     """q (pre-scaled), k, v [b, s, h, hd] and a key mask that pads the last
     20 (text) positions to lengths 3..20, as the encoder sees them."""
@@ -407,6 +455,7 @@ def check_k1(gen, card):
         row = rates(dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=err,
                          bound=bound, ms=(k1 + k2) / 2,
                          plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                         sdpa_route=sdpa_backend(qt, kt, vt, keep),
                          bound_ms=bms, bound_by=by, **times), flops)
         log(f"K1 {row} (library_ms: SDPA forward; device_ms: the kernel's "
             f"device time a call) [{card}]")
@@ -473,7 +522,8 @@ def check_k1_train(gen, card, b, s, h, hd):
     row = rates(dict(shape=[b, s, h, hd], dtype="bfloat16", route_use="train",
                      max_abs_err=err, bound=2e-2, out_err_fp32=e_out,
                      out_plus_r_err_fp32=e_sum, ms=(k1 + k2) / 2,
-                     plain_ms=(p1 + p2) / 2, library_ms=lib_ms, bound_ms=bms,
+                     plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                     sdpa_route=sdpa_backend(*leaves, keep), bound_ms=bms,
                      bound_by=by, **times), flops)
     log(f"K1 train {row} (with the residual r; plain: "
         f"attention_residual_reference; library_ms: SDPA forward with a "
@@ -560,6 +610,7 @@ def check_k2(gen, card):
         row = rates(dict(shape=[b, s, h, hd], dtype=dname, max_abs_err=errs,
                          err_over_max_grad=rels, ms=(k1 + k2) / 2,
                          plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                         sdpa_route=sdpa_backend(*leaves, keep),
                          bound_ms=bms, bound_by=by,
                          library_fwd_bwd_ms=lib_fb_ms,
                          k1_plus_k2_ms=fwd_ms + (k1 + k2) / 2,
@@ -968,10 +1019,11 @@ def train_flagship(card, cfg=None, steps=TRAIN_STEPS, name="flagship"):
 
 
 # "headdim": the flagship's encoder at D = 768, FFN 3072, 12 layers, as 24
-# heads of 32 and 6 heads of 128 (BEiT3Config's width override, which both
-# builders take), so that K1 and K2 run their other instantiations on a
-# main path: head_dim -> heads
-HEADDIM_HEADS = {32: 24, 128: 6}
+# heads of 32, 6 heads of 128, 3 heads of 256 and 2 heads of 384
+# (BEiT3Config's width override, which both builders take), so that K1 and
+# K2 run their other instantiations and the split route on a main path:
+# head_dim -> heads
+HEADDIM_HEADS = {32: 24, 128: 6, 256: 3, 384: 2}
 
 
 def headdim_config(hd, heads):
@@ -1010,17 +1062,12 @@ def headdim_phase(card):
     return out
 
 
-def hold_train_against_plain(name, cfg, state, batch, loss_cfg, norm):
-    """Loss terms and gradients of one batch on the weights ``state``,
-    dropout off, with K1/K2 in bf16 and with plain attention in bf16, each
-    held to plain attention in float32: the kernels' distance from it at
-    most BF16_REF_FACTOR x plain's, plus LOSS_FLOOR or GRAD_FLOOR, for each
-    loss term, the gradients' max |difference| and their relative L2
-    distance.  Every model takes the float32 model's Hungarian matching, so
-    that a near-tie that flips under bf16 rounding does not move a target
-    to another query; how many each bf16 model's own matching moves is
-    printed.  Then every attention call of the K1/K2 run, on its own
-    inputs (``hold_calls_against_fp32``)."""
+def train_distances(cfg, state, batch, loss_cfg, norm):
+    """One draw of ``hold_train_against_plain``: the K1/K2 and plain bf16
+    models' distances from the float32 plain model on the weights
+    ``state``; returns ({label: {metric: distance}}, the K1/K2 vs plain
+    max|dg| / max|g32|, the targets each bf16 model's own matching moves,
+    the K1/K2 run's attention calls)."""
     import torch
 
     runs, flips, matching, calls = {}, {}, [], []
@@ -1052,12 +1099,52 @@ def hold_train_against_plain(name, cfg, state, batch, loss_cfg, norm):
     (_, grads_k), (_, grads_p) = runs.values()
     direct = max((grads_k[n] - g).abs().max().item()
                  for n, g in grads_p.items()) / gmax
-    log(f"bf16 train[{name}] on the served weights, one batch, dropout off, "
-        f"the float32 model's matching (targets each bf16 model's own "
-        f"matching moves: {flips}): distance from the float32 plain model, "
-        f"relative, with K1/K2 {dist['K1/K2']}, with plain attention "
-        f"{dist['plain']} (bound {BF16_REF_FACTOR} x plain + {LOSS_FLOOR} "
-        f"or {GRAD_FLOOR}); K1/K2 vs plain max|dg| / max|g32| {direct}")
+    return dist, direct, flips, calls
+
+
+def perturbed(state, seed):
+    """``state``'s floating tensors times (1 + WEIGHT_NOISE N(0, 1)), the
+    noise drawn on the CPU from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return {k: v * (1 + WEIGHT_NOISE * torch.randn(
+                v.shape, generator=gen).to(v.device))
+            if v.is_floating_point() else v for k, v in state.items()}
+
+
+def hold_train_against_plain(name, cfg, state, batch, loss_cfg, norm):
+    """Loss terms and gradients of one batch on the weights ``state``,
+    dropout off, with K1/K2 in bf16 and with plain attention in bf16, each
+    held to plain attention in float32 (``train_distances``) over
+    TRAIN_DRAWS draws of the weights: the kernels' mean distance from it
+    at most BF16_REF_FACTOR x plain's mean, plus LOSS_FLOOR or GRAD_FLOOR,
+    for each loss term, the gradients' max |difference| and their relative
+    L2 distance.  Every model takes the float32 model's Hungarian
+    matching, so that a near-tie that flips under bf16 rounding does not
+    move a target to another query; how many each bf16 model's own
+    matching moves is printed.  Then every attention call of the K1/K2 run
+    on the weights as given, on its own inputs
+    (``hold_calls_against_fp32``)."""
+    draws = [train_distances(cfg, state if seed == 0
+                             else perturbed(state, seed), batch, loss_cfg,
+                             norm) for seed in range(TRAIN_DRAWS)]
+    dist = {label: {k: sum(d[0][label][k] for d in draws) / len(draws)
+                    for k in draws[0][0][label]}
+            for label in draws[0][0]}
+    for seed, (d, direct, flips, _) in enumerate(draws):
+        log(f"bf16 train[{name}] draw {seed} (weights x (1 + "
+            f"{WEIGHT_NOISE if seed else 0} N(0, 1))), one batch, dropout "
+            f"off, the float32 model's matching (targets each bf16 model's "
+            f"own matching moves: {flips}): distance from the float32 plain "
+            f"model, relative, with K1/K2 {d['K1/K2']}, with plain "
+            f"attention {d['plain']}; K1/K2 vs plain max|dg| / max|g32| "
+            f"{direct}")
+    log(f"bf16 train[{name}] on the served weights, mean over "
+        f"{len(draws)} draws: with K1/K2 {dist['K1/K2']}, with plain "
+        f"attention {dist['plain']} (bound {BF16_REF_FACTOR} x plain + "
+        f"{LOSS_FLOOR} or {GRAD_FLOOR})")
+    calls = draws[0][3]
     bad = [k for k, v in dist["K1/K2"].items()
            if not v <= BF16_REF_FACTOR * dist["plain"][k]
            + (GRAD_FLOOR if k.startswith("grad") else LOSS_FLOOR)]
@@ -2102,12 +2189,13 @@ def serve_burst(port, reqs):
     return results
 
 
-def held_to_direct(results, reqs, model, cfg):
+def held_to_direct(results, reqs, model, cfg, decode=None):
     """Each response's boxes (back at the canvas scale) and scores, every
     query of both branches, against a direct batch-1 eval step of its
-    request on ``model``: returns (max box |diff| / canvas, max score
-    |diff|, and the boxes' min distance from the NEXT request's direct
-    step, which a slot mix-up in the batcher would show)."""
+    request on ``model`` (its image decoded by ``decode``, bytes -> the
+    image on the card, when given): returns (max box |diff| / canvas, max
+    score |diff|, and the boxes' min distance from the NEXT request's
+    direct step, which a slot mix-up in the batcher would show)."""
     import base64
 
     import numpy as np
@@ -2118,8 +2206,9 @@ def held_to_direct(results, reqs, model, cfg):
     step = make_eval_step(model, device_norm=pre.device_norm)
     direct, sfs = [], []  # each request's boxes (canvas scale) and scores
     for req in reqs:
-        batch = pre.collate([pre(base64.b64decode(req["image_b64"]),
-                                 req["expression"])])
+        data = base64.b64decode(req["image_b64"])
+        batch = pre.collate([pre(data, req["expression"])],
+                            [decode(data)] if decode else ())
         preds = step(to_device(batch))
         direct.append({br: (preds[br]["boxes"][0].float().cpu().numpy(),
                             preds[br]["scores"][0].float().cpu().numpy())
@@ -2191,9 +2280,11 @@ def serve_phase(card, root, imgdir, launches):
         errors = [_http(port, "/predict", {"expression": "no image"})[0],
                   _http(port, "/predict", {"image_b64": base64.b64encode(
                       b"\x89PNG\r\n\x1a\n0000").decode(),
-                      "expression": "png"})[0],
+                      "expression": "a truncated png"})[0],
+                  _http(port, "/predict", {"image_b64": base64.b64encode(
+                      b"BM" + bytes(60)).decode(), "expression": "bmp"})[0],
                   _http(port, "/nothing")[0]]
-        if errors != [400, 400, 404]:
+        if errors != [400, 400, 400, 404]:
             raise AssertionError(f"serve: error paths gave {errors}")
 
         proc = subprocess.run(
@@ -2238,7 +2329,7 @@ def serve_phase(card, root, imgdir, launches):
         f"|diff| / canvas {box_err:.2e} (bound {SERVE_BOX_TOL}), scores "
         f"{score_err:.2e} (bound {SERVE_SCORE_TOL}); each response against "
         f"the next request's direct step: boxes min {swapped:.2e}; 400, "
-        f"400, 404 on the error paths")
+        f"400, 400, 404 on the error paths")
     log(f"serve: load of {SERVE_CLIENTS} closed-loop clients in a process of"
         f" their own, {len(load)} requests in {w1:.0f} s; over the "
         f"{SERVE_WINDOW_S:.0f} s after a {SERVE_WARM_S:.0f} s warm-up: "
@@ -2250,6 +2341,193 @@ def serve_phase(card, root, imgdir, launches):
     if not (box_err <= SERVE_BOX_TOL and score_err <= SERVE_SCORE_TOL):
         raise AssertionError("served predictions differ from the direct eval "
                              "step beyond the bound")
+
+
+# "png": the PNG kernel (csrc/png.cu) against the plain decoder on streams
+# of every colour type and bit depth, every filter type row by row, plain
+# and Adam7, at a size with an empty Adam7 pass, one taller than a block of
+# the wavefront (600 rows) and 480 x 640
+PNG_CASES = ((0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16),
+             (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16))
+PNG_FILTERS = (0, 1, 2, 3, 4)
+PNG_REQUESTS = 16
+
+
+def png_streams(rng):
+    """PNG streams written here with zlib (``tests/util_torch_port.py``'s
+    ``write_png``) over PNG_CASES, and the timed one: 480 x 640 RGB, every
+    filter type."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from util_torch_port import png_chunk, write_png
+
+    streams = []
+    for ct, bd in PNG_CASES:
+        ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ct]
+        for h, w in ((3, 5), (37, 29), (600, 9)):
+            samples = rng.integers(0, 1 << bd, (h, w, ch))
+            before = b""
+            if ct == 3:
+                n = (1 << bd) - 1 if bd < 8 else 200
+                before = png_chunk(b"PLTE", rng.integers(0, 256, 3 * n)
+                                   .astype("uint8").tobytes())
+            for interlace in (False, True):
+                streams.append(write_png(samples, bd, ct, PNG_FILTERS,
+                                         interlace, before))
+    big = write_png(rng.integers(0, 256, JPEG_HW + (3,)), 8, 2, PNG_FILTERS)
+    return streams, big
+
+
+def png_dataset(root, opts):
+    """The synthetic JPEGs (the data phase's) rewritten by this phase as
+    PNG files of their decoded pixels, every filter type, every fourth
+    Adam7, under ``root``/png_synth with the same names and annotations;
+    returns the --cfg-options of that copy."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from util_torch_port import write_png
+    from simvg_tpu_torch.data.jpeg import decode
+
+    imgdir = dict(o.split("=", 1) for o in opts)["data.train.imgsfile"]
+    ann = dict(o.split("=", 1) for o in opts)["data.train.annsfile"]
+    pngdir = os.path.join(root, "png_synth", "images")
+    os.makedirs(pngdir)
+    for i, name in enumerate(sorted(os.listdir(imgdir))):
+        with open(os.path.join(imgdir, name), "rb") as f:
+            pixels = decode(f.read(), "cuda").cpu().numpy()
+        with open(os.path.join(pngdir, name), "wb") as f:
+            f.write(write_png(pixels[..., ::-1], 8, 2, PNG_FILTERS,
+                              interlace=i % 4 == 0))
+    return synth_options(pngdir, ann)
+
+
+def png_phase(card, root, opts, launches):
+    """The PNG kernel against its plain version on the same streams, bit
+    for bit; its device time on 480 x 640 RGB beside the host's inflate
+    and the plain decoder.  Then the main paths that take PNG input, each
+    with the kernel's launches counted from 0: the flagship's val loader
+    over the synthetic images rewritten as PNG (every batch equal, bit
+    for bit, to the batch of the same samples from the plain decoder's
+    pixels), and the server on det_best answering PNG requests (200, the
+    boxes of a direct eval step on the plain-decoded pixels).  Returns
+    the kernel's row for the {"kernels": ...} line."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data import png
+    from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                              build_loader_from_cfg)
+    from simvg_tpu_torch.data.image_ops import collate_images
+    from simvg_tpu_torch.tools import serve as serve_cli
+    from simvg_tpu_torch.tools.test import serving_model
+
+    def plain(data):  # the plain decoder's pixels, on the card
+        return png.decode(data, "cpu").cuda()
+
+    streams, big = png_streams(np.random.default_rng(SEED))
+    for data in streams + [big]:
+        got = png.decode(data, "cuda")
+        if not torch.equal(got.cpu(), png.decode(data, "cpu")):
+            st = png.parse(data)
+            raise AssertionError(
+                f"png: the kernel differs from its plain version at "
+                f"{st.height}x{st.width}, colour type {st.color_type}, bit "
+                f"depth {st.bit_depth}, interlace {st.interlace}")
+    st = png.parse(big)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        png.parse(big)
+    inflate_ms = (time.perf_counter() - t0) * 1e2
+    t0 = time.perf_counter()
+    png.decode_reference(st)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kern = lambda: png.decode_cuda(st, "cuda")  # noqa: E731
+    kern()
+    ms = cuda_ms(kern, 20)
+    split = kernel_split_ms(kern, 20, {"unfilter_ms": "unfilter_kernel",
+                                       "convert_ms": "convert_kernel"})
+    device_ms = sum(split.values()) if None not in split.values() else None
+    # the inflated bytes read once, the BGR image written once
+    nbytes = len(st.data) + st.height * st.width * 3
+    bms, by = bound_ms(nbytes, 0, "bfloat16")
+    row = dict(shape=[st.height, st.width, 3], streams=len(streams) + 1,
+               max_abs_err=0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bms, bound_by=by, device_ms=device_ms,
+               inflate_ms=inflate_ms, **split)
+    log(f"png: the kernel equals its plain version on {len(streams) + 1} "
+        f"streams (every colour type and bit depth, filters 0-4, Adam7); "
+        f"480x640 RGB: {row} (ms: copy to the card and both kernels, CUDA "
+        f"events; device_ms: the kernels' device time, torch.profiler; "
+        f"plain_ms: the numpy decoder; inflate_ms: zlib and the chunks on "
+        f"the host) [{card}]")
+
+    # the flagship's val loader over the PNG copy of the synthetic images
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict(parse_cfg_options(png_dataset(root, opts)))
+    ds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset,
+                                seed=cfg.seed)
+    loader = build_loader_from_cfg(ds, cfg, train=False, canvas=cfg.img_size,
+                                   seed=cfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    png.decode.launches = 0
+    batches = list(loader)
+    torch.cuda.synchronize()
+    loader_launches = png.decode.launches
+    for (idx, _), batch in zip(loader._index_batches(), batches):
+        idx = (idx * loader.bs)[:loader.bs]  # the loader's wrap-padding
+        samples = [ds[i] for i in idx]
+        want = collate_images(samples, cfg.img_size, "cuda",
+                              [plain(s["img_bytes"]) for s in samples])
+        if not torch.equal(batch["image"], want):
+            raise AssertionError("png: a loader batch differs from the "
+                                 "plain decoder's")
+    if loader_launches != len(batches) * loader.bs:  # wrap-padding too
+        raise AssertionError(f"png: {loader_launches} kernel launches for "
+                             f"{len(batches)} batches of {loader.bs}")
+
+    # the server on det_best, PNG requests
+    pngdir = cfg.data.val.imgsfile
+    reqs = []
+    for i, name in enumerate(sorted(os.listdir(pngdir))[:PNG_REQUESTS]):
+        with open(os.path.join(pngdir, name), "rb") as f:
+            reqs.append({"image_b64": base64.b64encode(f.read()).decode(),
+                         "expression": f"the green box number {i}",
+                         "all": True})
+    det_best = os.path.join(root, "work", "det_best")
+    server = serve_cli.build_server([FLAGSHIP, "--checkpoint", det_best,
+                                     "--port", "0", "--max-batch",
+                                     str(BATCH), "--batch-timeout-ms", "20"])
+    thread = threading.Thread(target=server.serve_forever)
+    thread.start()
+    try:
+        torch.cuda.synchronize()
+        png.decode.launches = 0
+        results = serve_burst(server.server_port, reqs)
+        torch.cuda.synchronize()
+        serve_launches = png.decode.launches
+    finally:
+        server.close()
+        thread.join(timeout=60)
+    if serve_launches != len(reqs):
+        raise AssertionError(f"png: {serve_launches} kernel launches for "
+                             f"{len(reqs)} requests")
+    model = serving_model(cfg, det_best, torch.device("cuda"))
+    box_err, score_err, swapped = held_to_direct(results, reqs, model, cfg,
+                                                 decode=plain)
+    log(f"png: val loader over {len(ds)} PNG files in {len(batches)} "
+        f"batches, each equal to the plain decoder's batch; the server "
+        f"answered {len(reqs)} PNG requests with 200, against a direct eval "
+        f"step on the plain decoder's pixels: boxes max |diff| / canvas "
+        f"{box_err:.2e} (bound {SERVE_BOX_TOL}), scores {score_err:.2e} "
+        f"(bound {SERVE_SCORE_TOL}), the next request's min {swapped:.2e}; "
+        f"kernel launches: loader {loader_launches}, server {serve_launches}"
+        f" [{card}]")
+    if not (box_err <= SERVE_BOX_TOL and score_err <= SERVE_SCORE_TOL):
+        raise AssertionError("png: served predictions differ from the "
+                             "direct eval step beyond the bound")
+    launches.append(loader_launches + serve_launches)
+    return row
 
 
 def demo_inference_phase(card, root, imgdir, opts, launches):
@@ -4691,6 +4969,11 @@ def main() -> int:
         serving = serving_phases(card, root, synth)
         t0 = time.perf_counter()
         counts = []
+        png_row = png_phase(card, root, synth, counts)
+        png_launches = sum(counts)
+        log(f"png phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        counts = []
         int8_phase(card, root, synth, counts)
         int8_k1, int8_k2 = (sum(c[i] for c in counts) for i in (0, 1))
         log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
@@ -4736,22 +5019,26 @@ def main() -> int:
         f"{remat_k2}, dist {dist_k2}, onestage {new['onestage'][1]}, tools "
         f"{new['tools'][1]}, zoo {new['zoo'][1]}, legacy "
         f"{new['legacy'][1]}, headdim "
-        f"{ {hd: c[1] for hd, c in headdim.items()} }")
+        f"{ {hd: c[1] for hd, c in headdim.items()} }; PNG kernel "
+        f"{png_launches} (loader and server)")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
     # step's shape (batch 32, S=421, bf16; the first row of each
     # instantiation's check); the other shapes are on the "K1" / "K2" lines
     # above.  One entry an instantiation: head_dim 64 (every shipped
-    # config's), 32 and 128 ("headdim").  device_ms: the kernels' own
-    # device time a call (torch.profiler), beside ms.  launches: the main
-    # paths' counts, each taken from 0 just before its path
+    # config's), 32, 128 and 256, and 384 for the split route above 256
+    # ("headdim"); the PNG kernel's at 480 x 640 RGB ("png").  device_ms:
+    # the kernels' own device time a call (torch.profiler), beside ms.
+    # launches: the main paths' counts, each taken from 0 just before its
+    # path
     def entry(name, replaces, rows, launches, hd=64):
         rows = [r for r in rows if r["shape"][3] == hd]
         main_row = rows[0]
         errs = [r["max_abs_err"] for r in rows]
         errs = [max(e.values()) if isinstance(e, dict) else e for e in errs]
-        return {"name": name if hd == 64 else f"{name}[head_dim={hd}]",
+        label = f"head_dim={hd}" + (", split route" if hd > 256 else "")
+        return {"name": name if hd == 64 else f"{name}[{label}]",
                 "route": "cuda",
                 "source": f"simvg_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
@@ -4774,7 +5061,15 @@ def main() -> int:
     ] + [entry("attention_fwd", "simvg_tpu/ops/pallas_attention.py:55",
                k1_rows, headdim[hd][0], hd) for hd in HEADDIM_HEADS]
         + [entry("attention_bwd", "simvg_tpu/ops/pallas_attention.py:66",
-                 k2_rows, headdim[hd][1], hd) for hd in HEADDIM_HEADS]}),
+                 k2_rows, headdim[hd][1], hd) for hd in HEADDIM_HEADS]
+        + [{"name": "png", "route": "cuda",
+            "source": "simvg_tpu_torch/csrc/png.cu",
+            "replaces": "none (cv2.imdecode in simvg_tpu/data/datasets.py:158"
+                        " and tools/serve.py:265, on the host)",
+            "launches": png_launches,
+            **{k: png_row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms")}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

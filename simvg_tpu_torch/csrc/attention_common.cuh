@@ -77,16 +77,14 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// logit[i][j] = q_s[row ty + 16 i] . k_s[key tx + 16 j] over HD, summed in
+// logit[i][j] += q_s[row ty + 16 i] . k_s[key tx + 16 j] over HD, summed in
 // order d = 0 .. HD-1 with fmaf; both tiles in shared memory with stride ld.
+// The split route sums a wide head dim chunk by chunk through it, in the same
+// order as one call over the whole: the same bits.
 template <int HD>
-__device__ __forceinline__ void tile_logits(const float* q_s, const float* k_s, int ld,
-                                            int tx, int ty,
-                                            float (&logit)[kRowsPerThread][kKeysPerThread]) {
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) logit[i][j] = 0.f;
+__device__ __forceinline__ void tile_logits_acc(const float* q_s, const float* k_s, int ld,
+                                                int tx, int ty,
+                                                float (&logit)[kRowsPerThread][kKeysPerThread]) {
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
     float qv[kRowsPerThread], kv[kKeysPerThread];
@@ -99,6 +97,31 @@ __device__ __forceinline__ void tile_logits(const float* q_s, const float* k_s, 
 #pragma unroll
       for (int j = 0; j < kKeysPerThread; ++j)
         logit[i][j] = fmaf(qv[i], kv[j], logit[i][j]);
+  }
+}
+
+// logit[i][j] = q_s[row ty + 16 i] . k_s[key tx + 16 j] over HD.
+template <int HD>
+__device__ __forceinline__ void tile_logits(const float* q_s, const float* k_s, int ld,
+                                            int tx, int ty,
+                                            float (&logit)[kRowsPerThread][kKeysPerThread]) {
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) logit[i][j] = 0.f;
+  tile_logits_acc<HD>(q_s, k_s, ld, tx, ty, logit);
+}
+
+// Rows [r0, r0 + 64) of columns [c0, c0 + 64) of one head of a [B, S, H, hd]
+// tensor (`src` at the head's first element of batch b, `row` elements from
+// one token to the next) into a [64][ld] fp32 tile; rows past s are zero.
+// The fp32 split route's loads.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, int ld, const T* src, long long row,
+                                           int r0, int c0, int s, int tid) {
+  for (int i = tid; i < 64 * 64; i += kThreads) {
+    const int r = i / 64, d = i % 64, t = r0 + r;
+    dst[r * ld + d] = t < s ? to_float(src[t * row + c0 + d]) : 0.f;
   }
 }
 

@@ -40,7 +40,10 @@
 //         or a store.  One consumer warpgroup runs S = Q K^T and O +=
 //         round(P) V as wgmma (m64n64k16; O += P V at N = HD, per
 //         attention_sm90.cuh's Geom<HD>), P going from the S accumulator to
-//         the A operand in registers (instantiated at HD 32, 64 and 128).
+//         the A operand in registers (instantiated at HD 32, 64, 128 and
+//         256; at 256 the residual variant's blocks each produce a 128-column
+//         chunk of O, kOC).  Above 256, attention_fwd_split_kernel: the
+//         column-split route (its section below).
 //         Serving issues S_j with the product of tile j - 1, so that the
 //         softmax of S_j overlaps O += P_{j-1} V_{j-1} on the tensor cores.
 //         The residual variant (a third product O_lo += round(P - round(P))
@@ -49,7 +52,8 @@
 //         leave through the freed Q tile and a TMA store.
 //   fp32  attention_fwd_kernel: the CUDA cores in fp32 FMAs (16x16 threads, a
 //         4x4 register tile each), the parity route: tensor cores would take
-//         fp32 operands only as TF32, which keeps ~3 decimal digits.
+//         fp32 operands only as TF32, which keeps ~3 decimal digits.  HD 32 to
+//         256; above 256 attention_fwd_split_kernel<float>, 64-column chunks.
 //
 // What bounds it.  At the flagship's S = 421, HD = 64 one layer's attention
 // is 4*B*H*S^2*HD = 17.4 GFLOP at B = 32 over ~83 MB of q/k/v/out in bf16:
@@ -229,6 +233,154 @@ int launch(const void* q, const void* k, const void* v, const void* pad, void* o
   return (int)cudaGetLastError();
 }
 
+// The fp32 route above head dim 256 (and the backward's at 256, whose whole
+// tiles exceed 227 KB): one block per (64-query tile, head and 64-column chunk
+// of out, batch).  For each key tile the logits are summed over the head dim
+// 64 columns at a time (Q's and K's chunks through two 64 x 65 tiles, in the
+// order of tile_logits over the whole: the same bits as the backward's),
+// then P V_c for the block's chunk c.  Shared memory: 66 KB at any head dim.
+constexpr int kSplitCols = 64;
+
+constexpr size_t split_smem_bytes() {
+  return sizeof(float) * (2 * kBlockQ * (kSplitCols + 1) + kBlockK * kSplitCols +
+                          kBlockQ * kLdP);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const uint8_t* __restrict__ pad,
+                           T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+                           int heads, int hd) {
+  constexpr int kLd = kSplitCols + 1;
+  constexpr int kCols = kSplitCols / kThreadsX;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // [kBlockQ][kLd], a chunk of Q
+  float* k_s = q_s + kBlockQ * kLd;   // [kBlockK][kLd], a chunk of K
+  float* v_s = k_s + kBlockK * kLd;   // [kBlockK][kSplitCols], V's chunk c
+  float* p_s = v_s + kBlockK * kSplitCols;  // [kBlockQ][kLdP]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kThreadsX;
+  const int ty = tid / kThreadsX;
+  const int n_chunks = hd / kSplitCols;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int head = blockIdx.y / n_chunks, col0 = (blockIdx.y % n_chunks) * kSplitCols;
+  const int b = blockIdx.z;
+
+  const long long row = (long long)heads * hd;
+  const T* q_b = q + (long long)b * sq * row + (long long)head * hd;
+  const T* k_b = k + (long long)b * sk * row + (long long)head * hd;
+  const T* v_b = v + (long long)b * sk * row + (long long)head * hd;
+  T* o_b = out + (long long)b * sq * row + (long long)head * hd;
+  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
+
+  float m[kRowsPerThread], l[kRowsPerThread];
+  float acc[kRowsPerThread][kCols];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < sk; k0 += kBlockK) {
+    float logit[kRowsPerThread][kKeysPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeysPerThread; ++j) logit[i][j] = 0.f;
+    for (int x0 = 0; x0 < hd; x0 += kSplitCols) {
+      __syncthreads();  // the last chunk's (and tile's) reads are done
+      load_chunk(q_s, kLd, q_b, row, q0, x0, sq, tid);
+      load_chunk(k_s, kLd, k_b, row, k0, x0, sk, tid);
+      if (x0 == 0) load_chunk(v_s, kSplitCols, v_b, row, k0, col0, sk, tid);
+      __syncthreads();
+      tile_logits_acc<kSplitCols>(q_s, k_s, kLd, tx, ty, logit);
+    }
+
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      const int key = k0 + tx + kThreadsX * j;
+      const bool outside = key >= sk;
+      const bool padded = !outside && pad_b != nullptr && pad_b[key] != 0;
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        if (outside) logit[i][j] = -INFINITY;
+        else if (padded) logit[i][j] = kPadLogit;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      float tile_max = logit[i][0];
+#pragma unroll
+      for (int j = 1; j < kKeysPerThread; ++j) tile_max = fmaxf(tile_max, logit[i][j]);
+      const float m_new = fmaxf(m[i], row_max16(tile_max));
+      const float alpha = expf(m[i] - m_new);
+      float tile_sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeysPerThread; ++j) {
+        const float p = expf(logit[i][j] - m_new);
+        tile_sum += p;
+        p_s[(ty + kThreadsY * i) * kLdP + tx + kThreadsX * j] = to_float(from_float<T>(p));
+      }
+      l[i] = l[i] * alpha + row_sum16(tile_sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int key = 0; key < kBlockK; ++key) {
+      float pv[kRowsPerThread], vv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) pv[i] = p_s[(ty + kThreadsY * i) * kLdP + key];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) vv[c] = v_s[key * kSplitCols + tx + kThreadsX * c];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int s = q0 + ty + kThreadsY * i;
+    if (s >= sq) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      o_b[s * row + col0 + tx + kThreadsX * c] = from_float<T>(acc[i][c] * inv);
+    if (lse != nullptr && tx == 0 && col0 == 0)
+      lse[((long long)b * heads + head) * sq + s] = m[i] + logf(l[i]);
+  }
+}
+
+template <typename T>
+int launch_split(const void* q, const void* k, const void* v, const void* pad, void* out,
+                 void* lse, int batch, int sq, int sk, int heads, int hd,
+                 cudaStream_t stream) {
+  constexpr size_t smem = split_smem_bytes();
+  const int n_chunks = hd / kSplitCols;
+  if (hd % kSplitCols != 0 || (long long)heads * n_chunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_split_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads * n_chunks, batch);
+  attention_fwd_split_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<T*>(out), static_cast<float*>(lse),
+      sq, sk, heads, hd);
+  return (int)cudaGetLastError();
+}
+
 // ---- bf16 on Hopper: TMA and wgmma ----------------------------------------
 
 namespace hopper {
@@ -243,19 +395,31 @@ constexpr int kThreads = kWarpgroup + 32;  // one consumer warpgroup + the produ
 // HD 128: the O accumulator doubles to 64 registers and a tile to 16 KB;
 // serving keeps two blocks (80 KB of shared memory each, so a ring of 2), and
 // the residual variant, whose O and O_lo alone take 128 registers, one block
-// with a ring of 4.
+// with a ring of 4.  HD 256: serving holds O's 256 columns, 128 registers, in
+// one block an SM (Q 32 KB + 2 stages of K and V, 64 KB each: 161 KB); the
+// residual variant would hold 256 (O and O_lo), so its blocks split O's
+// columns in two chunks of kOC = 128 (every block computes the whole S_j over
+// the four boxes; a stage holds K's whole tile and V's chunk, 48 KB: Q + 3
+// stages = 177 KB) and hold 128 registers of O and O_lo, as at HD 128.
 template <int HD, bool kResid>
-constexpr int kMinBlocks = HD < 128 ? 3 : kResid ? 1 : 2;
+constexpr int kMinBlocks = HD < 128 ? 3 : HD == 128 && !kResid ? 2 : 1;
 template <int HD, bool kResid>
-constexpr int kRing = HD < 128 ? (kResid ? 3 : 4) : (kResid ? 4 : 2);
+constexpr int kRing = HD < 128 ? (kResid ? 3 : 4) : HD == 128 ? (kResid ? 4 : 2)
+                                                              : (kResid ? 3 : 2);
+// the output columns a block produces
+template <int HD, bool kResid>
+constexpr int kOC = HD == 256 && kResid ? 128 : HD;
 
-// Shared memory: the Q tile, the K and V stages, their key caps, the barriers.
-template <int HD, int kStages>
+// Shared memory: the Q tile, the K and V (chunk) stages, their key caps, the
+// barriers.
+template <int HD, int OC, int kStages>
 struct Layout {
   static constexpr int kTile = Geom<HD>::kTileBytes;
-  static constexpr int kTiles = (1 + 2 * kStages) * kTile;
+  static constexpr int kVTile = Geom<OC>::kTileBytes;
+  static constexpr int kTiles = (1 + kStages) * kTile + kStages * kVTile;
   static constexpr int kBytes = kTiles + kStages * kRows * 4;
   static constexpr size_t kSmem = kBytes + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmem <= 232448, "above the 227 KB of shared memory a block may use");
 };
 
 // The online softmax of one 64 x 64 score tile, in place: caps the scores
@@ -324,8 +488,8 @@ __device__ __forceinline__ void rescale(float (&d)[X][F], const float (&alpha)[2
     for (int i = 0; i < F; ++i) d[x][i] *= alpha[(i >> 1) & 1];
 }
 
-// One block per (64-query tile, head, batch): warps 0-3 are the consumer
-// warpgroup, warp 4 the producer.
+// One block per (64-query tile, head and chunk of O's columns, batch): warps
+// 0-3 are the consumer warpgroup, warp 4 the producer.
 template <int HD, bool kResid>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<HD, kResid>))
 attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -335,15 +499,17 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_r,
                            const uint8_t* __restrict__ pad, float* __restrict__ lse, int sq,
                            int sk, int heads) {
-  using G = Geom<HD>;
+  constexpr int OC = kOC<HD, kResid>;
+  using G = Geom<OC>;  // the output's chunk
   constexpr int kStages = kRing<HD, kResid>;
-  constexpr int kTileBytes = G::kTileBytes;
-  using L = Layout<HD, kStages>;
+  constexpr int kTileBytes = Geom<HD>::kTileBytes;
+  constexpr int kVBytes = G::kTileBytes;
+  using L = Layout<HD, OC, kStages>;
   extern __shared__ unsigned char smem_raw[];
   char* smem = aligned_smem(smem_raw);
   char* q_s = smem;
   char* k_s = q_s + kTileBytes;            // [kStages][kTileBytes]
-  char* v_s = k_s + kStages * kTileBytes;  // [kStages][kTileBytes]
+  char* v_s = k_s + kStages * kTileBytes;  // [kStages][kVBytes]
   float* cap_s = reinterpret_cast<float*>(smem + L::kTiles);  // [kStages][kRows]
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBytes);
   uint64_t* q_bar = bars;                  // the Q tile has landed
@@ -351,7 +517,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = bars + 1 + kStages;    // stage s is free
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
+  constexpr int kChunks = HD / OC;
+  const int q0 = blockIdx.x * kRows, b = blockIdx.z;
+  const int head = blockIdx.y / kChunks, col0 = (blockIdx.y % kChunks) * OC;
   const int n_tiles = (sk + kRows - 1) / kRows;
 
   if (tid == 0) {
@@ -381,9 +549,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                                                  : INFINITY;
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        mbar_arrive_expect_tx(&full[st], kTileBytes + kVBytes);
         tma_load_tile<HD>(k_s + st * kTileBytes, &tm_k, &full[st], head, j * kRows, b);
-        tma_load_tile<HD>(v_s + st * kTileBytes, &tm_v, &full[st], head, j * kRows, b);
+        tma_load_tile<OC>(v_s + st * kVBytes, &tm_v, &full[st], head, j * kRows, b, col0);
       } else {
         mbar_arrive(&full[st]);
       }
@@ -421,7 +589,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
       product_nt<HD>(s, q_s, k_s + st * kTileBytes);    // S_j = Q K_j^T
       wgmma_commit();
-      product_an<HD>(o, a_hi, v_s + prev * kTileBytes);  // O += round(P_{j-1}) V_{j-1}
+      product_an<OC>(o, a_hi, v_s + prev * kVBytes);  // O += round(P_{j-1}) V_{j-1}
       wgmma_commit();
       wgmma_wait<1>();
       fence_acc(s);
@@ -434,7 +602,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       probs_hi(a_hi, s);
     }
     wgmma_fence();
-    product_an<HD>(o, a_hi, v_s + ((n_tiles - 1) % kStages) * kTileBytes);
+    product_an<OC>(o, a_hi, v_s + ((n_tiles - 1) % kStages) * kVBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(o);
@@ -446,7 +614,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // whose A operand is formed while the first product runs
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % kStages;
-      const char* v_t = v_s + st * kTileBytes;
+      const char* v_t = v_s + st * kVBytes;
       mbar_wait(&full[st], (j / kStages) & 1);
       wgmma_fence();
       product_nt<HD>(s, q_s, k_s + st * kTileBytes);
@@ -457,11 +625,11 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       rescale(o, alpha);
       probs_hi(a_hi, s);
       wgmma_fence();
-      product_an<HD>(o, a_hi, v_t);
+      product_an<OC>(o, a_hi, v_t);
       rescale(o_lo, alpha);
       probs_lo(a_lo, s);
       wgmma_fence();
-      product_an<HD>(o_lo, a_lo, v_t);
+      product_an<OC>(o_lo, a_lo, v_t);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(o);
@@ -493,24 +661,24 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // The Q tile is free once every consumer is past its last product; out
   // (then r) goes through it to a TMA store, which drops rows past Sq.
   named_barrier(1, kWarpgroup);
-  acc_to_tile<HD>(q_s, o, warp, lane);
+  acc_to_tile<OC>(q_s, o, warp, lane);
   fence_proxy_async();
   named_barrier(1, kWarpgroup);
   if (tid == 0) {
-    tma_store_tile<HD>(&tm_out, q_s, head, q0, b);
+    tma_store_tile<OC>(&tm_out, q_s, head, q0, b, col0);
     tma_store_commit_and_wait();
   }
   if (kResid) {
     named_barrier(1, kWarpgroup);  // the store has read the tile
-    acc_to_tile<HD>(q_s, o_lo, warp, lane);
+    acc_to_tile<OC>(q_s, o_lo, warp, lane);
     fence_proxy_async();
     named_barrier(1, kWarpgroup);
     if (tid == 0) {
-      tma_store_tile<HD>(&tm_r, q_s, head, q0, b);
+      tma_store_tile<OC>(&tm_r, q_s, head, q0, b, col0);
       tma_store_commit_and_wait();
     }
   }
-  if (lse != nullptr && t == 0) {
+  if (lse != nullptr && t == 0 && col0 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + 16 * warp + g + 8 * h;
@@ -522,7 +690,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int HD, bool kResid>
 int launch(const void* q, const void* k, const void* v, const void* pad, void* out, void* lse,
            void* resid, int batch, int sq, int sk, int heads, cudaStream_t stream) {
-  constexpr size_t smem = Layout<HD, kRing<HD, kResid>>::kSmem;
+  constexpr size_t smem = Layout<HD, kOC<HD, kResid>, kRing<HD, kResid>>::kSmem;
   CUtensorMap tm_q, tm_k, tm_v, tm_out, tm_r;
   if (const cudaError_t err = bind_context(); err != cudaSuccess) return (int)err;
   if (!(make_tile_map<HD>(&tm_q, q, batch, sq, heads) &&
@@ -536,34 +704,216 @@ int launch(const void* q, const void* k, const void* v, const void* pad, void* o
       cudaFuncSetAttribute(attention_fwd_wgmma_kernel<HD, kResid>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
+  if ((long long)heads * (HD / kOC<HD, kResid>) > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((sq + kRows - 1) / kRows, heads * (HD / kOC<HD, kResid>), batch);
   attention_fwd_wgmma_kernel<HD, kResid><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_out, tm_r, static_cast<const uint8_t*>(pad),
       static_cast<float*>(lse), sq, sk, heads);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+// ---- head dims above 256: the streamed, column-split route ----------------
+//
+// One block per (64-query tile, head and 128-column chunk of O, batch), for
+// any head dim hd that is a multiple of 128 (the wrapper zero-pads to one).
+// Nothing is held whole: for each key tile the producer streams Q's and K_j's
+// box x (64 columns) into one 16 KB slot of a ring (attention_sm90.cuh's
+// SlotRing), x = 0 .. hd/64 - 1, and then V_j's chunk; the consumers
+// accumulate S_j = sum_x Q_x K_jx^T box by box, take the online softmax and
+// run O_c += round(P) V_jc (and O_lo with the residual), so shared memory is
+// the same 4 slots (64 KB) at any hd.  Each of the hd/128 blocks of a query
+// tile recomputes S: hd/128 times the Q K^T work and Q read once a key tile
+// (from L2), the price of holding only a 128-column O (64 registers, 128 with
+// O_lo, as at HD 128).  The key caps come from the mask in the consumers,
+// double-buffered by key tile.
+constexpr int kSplitSlots = 4;
+constexpr int kSplitChunk = 128;
+
+template <bool kResid>
+__global__ void __launch_bounds__(kThreads, kResid ? 1 : 2)
+attention_fwd_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_out,
+                           const __grid_constant__ CUtensorMap tm_r,
+                           const uint8_t* __restrict__ pad, float* __restrict__ lse, int sq,
+                           int sk, int heads, int hd) {
+  using G = Geom<kSplitChunk>;
+  using Ring = SlotRing<kSplitSlots>;
+  extern __shared__ unsigned char smem_raw[];
+  char* smem = aligned_smem(smem_raw);
+  Ring ring(smem);
+  float* cap_s = reinterpret_cast<float*>(ring.empty + kSplitSlots);  // [2][kRows]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_chunks = hd / kSplitChunk, n_box = hd / 64;
+  const int q0 = blockIdx.x * kRows, b = blockIdx.z;
+  const int head = blockIdx.y / n_chunks, col0 = (blockIdx.y % n_chunks) * kSplitChunk;
+  const int n_tiles = (sk + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    ring.init();
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer: per key tile, the box pairs (Q_x, K_jx), then V_j's chunk
+    if (lane == 0) {
+      int u = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        stream_box_pairs(ring, u, n_box, &tm_q, q0, &tm_k, j * kRows, head, b);
+        stream_chunk(ring, u, &tm_v, j * kRows, col0, head, b);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const uint8_t* pad_b = pad ? pad + (long long)b * sk : nullptr;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  float s[32];
+  typename G::Acc o, o_lo;
+  uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+  for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < G::kAccFloats; ++i) o[x][i] = o_lo[x][i] = 0.f;
+
+  int u = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    // this tile's key caps; the buffer was last read two tiles ago, before
+    // the barrier of the tile between
+    float* cap = cap_s + (j & 1) * kRows;
+    if (tid < kRows) {
+      const int key = j * kRows + tid;
+      cap[tid] = key >= sk ? -INFINITY : pad_b != nullptr && pad_b[key] ? kPadLogit : INFINITY;
+    }
+    named_barrier(1, kWarpgroup);
+    stream_box_product(s, ring, u, n_box);  // S_j = Q K_j^T over the head dim
+    online_softmax(s, cap, t, m, l, alpha);
+    rescale(o, alpha);
+    probs_hi(a_hi, s);
+    const char* v_t = ring.consume(u);
+    wgmma_fence();
+    product_an<kSplitChunk>(o, a_hi, v_t);  // O_c += round(P_j) V_jc
+    if (kResid) {
+      rescale(o_lo, alpha);
+      probs_lo(a_lo, s);
+      wgmma_fence();
+      product_an<kSplitChunk>(o_lo, a_lo, v_t);  // O_lo,c += P_lo V_jc
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_acc(o_lo);
+    fence_a(a_hi);
+    fence_a(a_lo);
+    ring.release(u++);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+    for (int i = 0; i < G::kAccFloats; ++i) {
+      const float y = o[x][i] * inv[(i >> 1) & 1];
+      if (kResid)
+        o_lo[x][i] = (o[x][i] + o_lo[x][i]) * inv[(i >> 1) & 1] -
+                     __bfloat162float(__float2bfloat16_rn(y));
+      o[x][i] = y;
+    }
+
+  // every slot is free once every consumer is past its last product (the
+  // producer issued exactly the loads they consumed): out, then r, leave
+  // through slots 0 and 1
+  named_barrier(1, kWarpgroup);
+  acc_to_tile<kSplitChunk>(ring.slots, o, warp, lane);
+  if (kResid) acc_to_tile<kSplitChunk>(ring.slots + kSlotBytes, o_lo, warp, lane);
+  fence_proxy_async();
+  named_barrier(1, kWarpgroup);
+  if (tid == 0) {
+    tma_store_tile<kSplitChunk>(&tm_out, ring.slots, head, q0, b, col0);
+    if (kResid) tma_store_tile<kSplitChunk>(&tm_r, ring.slots + kSlotBytes, head, q0, b, col0);
+    tma_store_commit_and_wait();
+  }
+  if (lse != nullptr && t == 0 && col0 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * warp + g + 8 * h;
+      if (row < sq) lse[((long long)b * heads + head) * sq + row] = m[h] + logf(l[h]);
+    }
+  }
+}
+
+template <bool kResid>
+int launch_split(const void* q, const void* k, const void* v, const void* pad, void* out,
+                 void* lse, void* resid, int batch, int sq, int sk, int heads, int hd,
+                 cudaStream_t stream) {
+  constexpr size_t smem = SlotRing<kSplitSlots>::kSmem + 2 * kRows * sizeof(float);
+  const int n_chunks = hd / kSplitChunk;
+  if (hd % kSplitChunk != 0 || (long long)heads * n_chunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v, tm_out, tm_r;
+  if (const cudaError_t err = bind_context(); err != cudaSuccess) return (int)err;
+  if (!(make_box_map(&tm_q, q, batch, sq, heads, hd, 64) &&
+        make_box_map(&tm_k, k, batch, sk, heads, hd, 64) &&
+        make_box_map(&tm_v, v, batch, sk, heads, hd, 64) &&
+        make_box_map(&tm_out, out, batch, sq, heads, hd, 64) &&
+        (!kResid || make_box_map(&tm_r, resid, batch, sq, heads, hd, 64))))
+    return (int)cudaErrorNotSupported;
+  if (!kResid) tm_r = tm_out;  // not read
+  const cudaError_t err =
+      cudaFuncSetAttribute(attention_fwd_split_kernel<kResid>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + kRows - 1) / kRows, heads * n_chunks, batch);
+  attention_fwd_split_kernel<kResid><<<grid, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_out, tm_r, static_cast<const uint8_t*>(pad),
+      static_cast<float*>(lse), sq, sk, heads, hd);
+  return (int)cudaGetLastError();
+}
+
 int launch_bf16(const void* q, const void* k, const void* v, const void* pad, void* out,
-                void* lse, void* resid, int batch, int sq, int sk, int heads,
+                void* lse, void* resid, int batch, int sq, int sk, int heads, int hd,
                 cudaStream_t stream) {
   // TMA boxes start on 16-byte boundaries
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)resid) & 15)
     return (int)cudaErrorMisalignedAddress;
-  return resid != nullptr
-             ? launch<HD, true>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, stream)
-             : launch<HD, false>(q, k, v, pad, out, lse, nullptr, batch, sq, sk, heads, stream);
+  const bool r = resid != nullptr;
+#define SIMVG_FWD_ARGS q, k, v, pad, out, lse, resid, batch, sq, sk, heads
+  switch (hd) {
+    case 32: return r ? launch<32, true>(SIMVG_FWD_ARGS, stream)
+                      : launch<32, false>(SIMVG_FWD_ARGS, stream);
+    case 64: return r ? launch<64, true>(SIMVG_FWD_ARGS, stream)
+                      : launch<64, false>(SIMVG_FWD_ARGS, stream);
+    case 128: return r ? launch<128, true>(SIMVG_FWD_ARGS, stream)
+                       : launch<128, false>(SIMVG_FWD_ARGS, stream);
+    case 256: return r ? launch<256, true>(SIMVG_FWD_ARGS, stream)
+                       : launch<256, false>(SIMVG_FWD_ARGS, stream);
+  }
+  if (hd > 256)
+    return r ? launch_split<true>(SIMVG_FWD_ARGS, hd, stream)
+             : launch_split<false>(SIMVG_FWD_ARGS, hd, stream);
+#undef SIMVG_FWD_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128 (the wrapper pads
-// any other head_dim up to 128 with zero columns).  pad may be null (no
-// padded keys); lse (float32 [B, H, Sq]) may be null (not written); resid
-// ([B, Sq, H, HD] in bf16, the output's residual for the backward) may be
-// null (not written), and must be null in float32.
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 128, 256 (the kernels'
+// instantiations), or above 256 a multiple of 128 (the split route; the
+// wrapper pads any other head_dim with zero columns to the next of these).
+// pad may be null (no padded keys); lse (float32 [B, H, Sq]) may be null (not
+// written); resid ([B, Sq, H, HD] in bf16, the output's residual for the
+// backward) may be null (not written), and must be null in float32.
 // Returns the CUDA error code of the launch (0 on success); in bf16,
 // cudaErrorNotSupported when cuTensorMapEncodeTiled cannot be reached.
 extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
@@ -578,17 +928,12 @@ extern "C" int simvg_attention_fwd(const void* q, const void* k, const void* v,
       case 32: return launch<float, 32>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
       case 64: return launch<float, 64>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
       case 128: return launch<float, 128>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
+      case 256: return launch<float, 256>(q, k, v, pad, out, lse, batch, sq, sk, heads, s);
     }
+    if (head_dim > 256 && head_dim % 128 == 0)
+      return launch_split<float>(q, k, v, pad, out, lse, batch, sq, sk, heads, head_dim, s);
   }
-  if (dtype == 1) {
-    switch (head_dim) {
-      case 32:
-        return hopper::launch_bf16<32>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
-      case 64:
-        return hopper::launch_bf16<64>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
-      case 128:
-        return hopper::launch_bf16<128>(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, s);
-    }
-  }
+  if (dtype == 1 && (head_dim <= 256 || head_dim % 128 == 0))
+    return hopper::launch_bf16(q, k, v, pad, out, lse, resid, batch, sq, sk, heads, head_dim, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 // attention_bwd.cu): TMA tile loads and stores through tensor maps,
 // mbarriers, and the warpgroup product wgmma.mma_async (bf16 operands, fp32
 // sums), its shared-memory descriptors and the register layout of its
-// fragments, for head dims 32, 64 and 128 (Geom<HD>).
+// fragments, for head dims 32, 64, 128 and 256 (Geom<HD>), and the 16 KB
+// slots of the streamed route above 256.
 //
 // Tiles.  A tile is 64 rows of one head of a [B, S, H, HD] bf16 tensor, read
 // in place by a 4-D tensor map (dims HD, H, S, B innermost first).  It sits in
@@ -12,7 +13,16 @@
 //   HD 64:  one box of 128-byte rows, the 128-byte swizzle (f(r) = r % 8);
 //   HD 128: two boxes of 128-byte rows (columns 0-63, then 64-127), each
 //           8 KB and in the 128-byte swizzle: a 256-byte row is wider than
-//           any swizzle atom, so TMA brings it as two boxes.
+//           any swizzle atom, so TMA brings it as two boxes;
+//   HD 256: four such boxes (columns 0-63, ..., 192-255), 32 KB a tile.
+// A block that produces only a chunk of an output's columns (OC of them, a
+// multiple of 64) reads the chunk's boxes of a tile as a Geom<OC> tile: box x
+// of chunk c is box c OC / 64 + x of the whole.
+//
+// The streamed route (head dims above 256, any multiple of 128) holds no
+// whole tile: a ring of 16 KB slots, each two 8 KB boxes of 64 rows x 64
+// columns (two operands' box x of the head dim, or one Geom<128> chunk), so
+// shared memory does not grow with the head dim (stream_box_product).
 // TMA zero-fills the rows past S and clips them on a store, so the ragged
 // end needs no mask.
 //
@@ -20,12 +30,12 @@
 // head dim as the reduction dim (Q, K, V, dO in S = Q K^T, dP = dO V^T) is
 // K-major: 8-row groups 8 rows apart (SBO: 512 or 1024 bytes), the k16 slice
 // kk starting 32 kk bytes into its box's row (kk = 0 .. HD/16 - 1; at HD 128
-// slices 4-7 in the second box).  A tile read with the rows as the reduction
+// slices 4-7 in the second box, and so on).  A tile read with the rows as the reduction
 // dim (V in O = P V; K in dQ = dS K; Q and dO in dK, dV) is MN-major: each
 // box's columns are one swizzle atom, 8-row groups SBO apart, the k16 slice
 // kk starting 16 kk rows in; the instruction's transpose bit set.  Such a
-// product has N = HD: m64n32k16 at HD 32, m64n64k16 at HD 64, and one
-// m64n64k16 a box at HD 128.
+// product has N = HD (or OC): m64n32k16 at HD 32, m64n64k16 at HD 64, and
+// one m64n64k16 a box above.
 //
 // Fragments of a warpgroup (4 warps, warp w on rows [16 w, 16 w + 16)),
 // lane = 4 g + t: the accumulator of m64nN holds N/2 floats a thread,
@@ -58,7 +68,8 @@ constexpr int kWarpgroup = 128;
 // The shared-memory geometry of a [64, HD] bf16 tile.
 template <int HD>
 struct Geom {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64 or 128");
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256,
+                "head_dim 32, 64, 128 or 256");
   static constexpr int kBoxCols = HD < 64 ? HD : 64;   // columns of a box
   static constexpr int kBoxes = HD / kBoxCols;          // boxes a tile
   static constexpr int kRowBytes = 2 * kBoxCols;        // a box's row: the swizzle
@@ -101,26 +112,31 @@ inline cudaError_t bind_context() {
   return err != cudaSuccess ? err : cudaSetDevice(dev);
 }
 
-// The map of one [batch, seq, heads, HD] bf16 tensor, boxes of 64 rows of
-// one head and Geom<HD>::kBoxCols columns in their swizzle, zero fill past
-// the ends.  Returns false on failure.
-template <int HD>
-inline bool make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
-                          int heads) {
-  using G = Geom<HD>;
+// The map of one [batch, seq, heads, hd] bf16 tensor, boxes of 64 rows of
+// one head and `box_cols` (32 or 64) columns in their swizzle, zero fill
+// past the ends.  Returns false on failure.
+inline bool make_box_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
+                         int hd, int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)seq,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)seq * heads * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)G::kBoxCols, 1, (cuuint32_t)kRows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)seq * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)kRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a [batch, seq, heads, HD] tensor in Geom<HD>'s boxes.
+template <int HD>
+inline bool make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
+                          int heads) {
+  return make_box_map(map, base, batch, seq, heads, HD, Geom<HD>::kBoxCols);
 }
 
 // ---- device: barriers and TMA ------------------------------------------
@@ -173,30 +189,32 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, 
       : "memory");
 }
 
-// One 64-row tile, box by box; Geom<HD>::kTileBytes complete on `bar`.
+// One 64-row tile, box by box, of HD columns from column `col0`
+// (a chunk of a wider tensor, or 0); Geom<HD>::kTileBytes complete on `bar`.
 template <int HD>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int head, int row0, int b) {
+                                              int head, int row0, int b, int col0 = 0) {
   using G = Geom<HD>;
 #pragma unroll
   for (int x = 0; x < G::kBoxes; ++x)
-    tma_load_box(static_cast<char*>(dst) + x * G::kBoxBytes, map, bar, x * G::kBoxCols, head,
-                 row0, b);
+    tma_load_box(static_cast<char*>(dst) + x * G::kBoxBytes, map, bar, col0 + x * G::kBoxCols,
+                 head, row0, b);
 }
 
-// A shared tile back to global memory, box by box; rows past the tensor's
-// end are not written.  The caller fences the generic-proxy writes first.
+// A shared tile back to global memory, box by box, to columns [col0, col0 +
+// HD); rows past the tensor's end are not written.  The caller fences the
+// generic-proxy writes first.
 template <int HD>
 __device__ __forceinline__ void tma_store_tile(const CUtensorMap* map, const void* src, int head,
-                                               int row0, int b) {
+                                               int row0, int b, int col0 = 0) {
   using G = Geom<HD>;
 #pragma unroll
   for (int x = 0; x < G::kBoxes; ++x)
     asm volatile(
         "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
         " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-        "r"(smem_u32(static_cast<const char*>(src) + x * G::kBoxBytes)), "r"(x * G::kBoxCols),
-        "r"(head), "r"(row0), "r"(b)
+        "r"(smem_u32(static_cast<const char*>(src) + x * G::kBoxBytes)),
+        "r"(col0 + x * G::kBoxCols), "r"(head), "r"(row0), "r"(b)
         : "memory");
 }
 
@@ -362,6 +380,21 @@ __device__ __forceinline__ void product_nt(float (&d)[32], const void* a_tile,
   }
 }
 
+// The same over one 64-column box pair of the streamed route: C += A B^T
+// (C = A B^T when `first`), four k16 slices of two boxes in the 128-byte
+// swizzle.
+__device__ __forceinline__ void product_nt_box(float (&d)[32], const void* a_box,
+                                               const void* b_box, bool first) {
+  const char* a = static_cast<const char*>(a_box);
+  const char* b = static_cast<const char*>(b_box);
+  if (first)
+    wgmma_ss_first(d, desc<64>(a), desc<64>(b));
+  else
+    wgmma_ss(d, desc<64>(a), desc<64>(b));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) wgmma_ss(d, desc<64>(a + 32 * kk), desc<64>(b + 32 * kk));
+}
+
 // Columns [16 kk, 16 kk + 16) of an accumulator, rounded to bf16, as the A
 // operand of k16 slice kk.
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32], int kk) {
@@ -409,6 +442,89 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[kRows / 16][4]) {
   for (int kk = 0; kk < kRows / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
+}
+
+// ---- the streamed route: a ring of 16 KB slots --------------------------
+
+constexpr int kSlotBytes = 16384;  // two 8 KB boxes of 64 rows x 64 columns
+constexpr int kBoxBytes64 = 8192;
+
+// A ring of kSlots slots with a full and an empty barrier each.  Producer and
+// consumers walk the same sequence of slot uses u = 0, 1, ...; use u takes
+// slot u % kSlots in phase u / kSlots.
+template <int kSlots>
+struct SlotRing {
+  char* slots;
+  uint64_t* full;   // [kSlots], one arrival (the producer's lane 0) + the bytes
+  uint64_t* empty;  // [kSlots], the consumer warpgroup's 128 arrivals
+  static constexpr size_t kSmem = (size_t)kSlots * kSlotBytes + 16 * kSlots + 1024;
+
+  __device__ __forceinline__ SlotRing(char* smem)
+      : slots(smem),
+        full(reinterpret_cast<uint64_t*>(smem + kSlots * kSlotBytes)),
+        empty(full + kSlots) {}
+  __device__ __forceinline__ void init() {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarpgroup);
+    }
+  }
+  __device__ __forceinline__ char* slot(int u) const { return slots + (u % kSlots) * kSlotBytes; }
+  // producer: waits until use u's slot is free and announces its 16 KB
+  __device__ __forceinline__ char* produce(int u) {
+    uint64_t* e = &empty[u % kSlots];
+    mbar_wait(e, ((u / kSlots) & 1) ^ 1);
+    mbar_arrive_expect_tx(&full[u % kSlots], kSlotBytes);
+    return slot(u);
+  }
+  __device__ __forceinline__ uint64_t* bar(int u) { return &full[u % kSlots]; }
+  // consumers: wait until use u's boxes have landed
+  __device__ __forceinline__ const char* consume(int u) {
+    mbar_wait(&full[u % kSlots], (u / kSlots) & 1);
+    return slot(u);
+  }
+  __device__ __forceinline__ void release(int u) { mbar_arrive(&empty[u % kSlots]); }
+};
+
+// The producer's part of a product over the whole head dim: box x of A
+// (rows a_row0) and of B (rows b_row0) into one slot each, x = 0 .. n_box - 1.
+template <int kSlots>
+__device__ __forceinline__ void stream_box_pairs(SlotRing<kSlots>& ring, int& u, int n_box,
+                                                 const CUtensorMap* tm_a, int a_row0,
+                                                 const CUtensorMap* tm_b, int b_row0, int head,
+                                                 int b) {
+  for (int x = 0; x < n_box; ++x, ++u) {
+    char* dst = ring.produce(u);
+    tma_load_box(dst, tm_a, ring.bar(u), 64 * x, head, a_row0, b);
+    tma_load_box(dst + kBoxBytes64, tm_b, ring.bar(u), 64 * x, head, b_row0, b);
+  }
+}
+
+// The producer's part of an output product: one 128-column chunk (from
+// column col0) of a tile into one slot, as a Geom<128> tile.
+template <int kSlots>
+__device__ __forceinline__ void stream_chunk(SlotRing<kSlots>& ring, int& u,
+                                             const CUtensorMap* tm, int row0, int col0,
+                                             int head, int b) {
+  char* dst = ring.produce(u);
+  tma_load_tile<128>(dst, tm, ring.bar(u), head, row0, b, col0);
+  ++u;
+}
+
+// The consumers' part: d = A B^T over the head dim, one box pair a slot,
+// each slot released once its product has run.
+template <int kSlots>
+__device__ __forceinline__ void stream_box_product(float (&d)[32], SlotRing<kSlots>& ring,
+                                                   int& u, int n_box) {
+  for (int x = 0; x < n_box; ++x, ++u) {
+    const char* p = ring.consume(u);
+    wgmma_fence();
+    product_nt_box(d, p, p + kBoxBytes64, x == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(d);
+    ring.release(u);
+  }
 }
 
 // Writes an output accumulator, rounded to bf16, into a swizzled shared tile

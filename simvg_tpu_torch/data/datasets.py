@@ -22,8 +22,9 @@ As in the JAX module:
 - the aspect-ratio group flag for the group sampler, and the bbox clip.
 
 What differs: ``_load_image`` returns the file's bytes and the image's
-(h, w) from the JPEG header (EXIF orientation applied), not decoded pixels;
-the loader decodes on its device (``data/jpeg.py``, ``data/image_ops.py``).
+(h, w) from the JPEG or PNG header (EXIF orientation applied), not decoded
+pixels; the loader decodes on its device (``data/image_file.py``,
+``data/image_ops.py``).
 With ``with_mask`` the annotation's ``mask`` (polygons, or an RLE dict)
 becomes ``gt_mask`` (a uint8 host bitmap), ``gt_mask_rle`` and ``is_crowd``
 (1 for a polygon of several parts), through the port's ``ops/rle.py``.
@@ -41,7 +42,7 @@ import numpy as np
 
 from simvg_tpu_torch.ops import rle as rle_ops
 
-from .jpeg import jpeg_geometry
+from .image_file import image_geometry
 from .tokenization import build_tokenizer, build_word_vocab
 from .transforms import Compose
 
@@ -142,11 +143,12 @@ class BaseDataset:
         )
 
     def _load_image(self, ann: dict) -> Tuple[bytes, Tuple[int, int]]:
-        """The JPEG file's bytes and the decoded image's (h, w)."""
+        """The image file's bytes (JPEG or PNG) and the decoded image's
+        (h, w)."""
         path = _filename_for(self.dataset_name, ann, self.imgsfile)
         with open(path, "rb") as f:
             data = f.read()
-        geo = jpeg_geometry(data)
+        geo = image_geometry(data)
         return data, (geo.height, geo.width)
 
     def __getitem__(self, index: int) -> dict:

@@ -1,9 +1,9 @@
 """The pixel half of the data pipeline, on the loader's device.
 
 ``transforms`` decides on the host what happens to each image and records
-it in ``s["pixel_ops"]``; here the decoded image (``jpeg.decode``: nvJPEG
-on the card, EXIF-oriented) goes through those operations where it lies,
-on the card (or on the CPU for the tests):
+it in ``s["pixel_ops"]``; here the decoded image (``image_file.decode_image``:
+nvJPEG or the PNG kernel on the card, oriented) goes through those operations
+where it lies, on the card (or on the CPU for the tests):
 
 1. each recorded op in turn: a bilinear resize, rounded back to uint8, or
    a crop (a slice); VGTRAugment's ops (``data/vgtr_aug.py``) below;

@@ -12,7 +12,8 @@ three channels, the EXIF orientation applied.  Here:
 - ``decode(data, device)`` gives the BGR uint8 [h, w, 3] tensor, oriented
   as ``cv2.imread`` orients it.  On a CUDA device it runs nvJPEG on the
   current stream; with ``device="cpu"`` it takes ``cv2.imdecode`` (imported
-  there, and only there);
+  there, and only there: without cv2 it raises an ImportError that says
+  so; ``data/png.py`` needs no cv2 on the CPU);
 - ``encode(image, quality)`` gives the bytes of a JPEG file (4:2:0 chroma
   for colour, as ``cv2.imwrite`` writes them): nvJPEG for a CUDA tensor,
   ``cv2.imencode`` for a CPU one.
@@ -207,6 +208,17 @@ _lock = threading.Lock()
 _nvjpeg = None
 
 
+def _cv2(route: str):
+    """cv2, which the CPU routes take; an ImportError that names the route
+    where it is missing (the port itself needs only torch and numpy)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"cv2 (opencv-python) is needed for {route} on "
+                          "the CPU; on a CUDA device nvJPEG does it") from e
+    return cv2
+
+
 def _library() -> _NvJpeg:
     global _nvjpeg
     with _lock:
@@ -224,9 +236,9 @@ def decode(data: bytes, device="cuda") -> torch.Tensor:
     if device.type == "cuda":
         image = _library().decode(data, device)
     elif device.type == "cpu":
-        import cv2
         import numpy as np
 
+        cv2 = _cv2("JPEG decoding")
         arr = cv2.imdecode(np.frombuffer(data, np.uint8),
                            cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
         if arr is None:
@@ -250,7 +262,7 @@ def encode(image: torch.Tensor, quality: int = 95) -> bytes:
     image = image.contiguous()
     if image.is_cuda:
         return _library().encode(image, quality)
-    import cv2
+    cv2 = _cv2("JPEG encoding")
 
     ok, buf = cv2.imencode(".jpg", image.numpy(),
                            [cv2.IMWRITE_JPEG_QUALITY, quality])

@@ -9,13 +9,13 @@ As in the JAX loader:
 - aspect-ratio group batching with an epoch-seeded shuffle, wrap-padding
   with ``batch_valid``, and ``shard_id``/``num_shards`` slicing, with the
   same numpy RNG calls in the same order, so the sample order is the same;
-- a thread pool runs the dataset (file read, JPEG header, tokenizer and
+- a thread pool runs the dataset (file read, image header, tokenizer and
   the transforms' geometry) for the samples of a batch, and a prefetch
   thread builds batch k+1 while batch k is consumed.
 
 What differs: the image goes to the loader's ``device``.  The pool's
-threads also decode each JPEG there (nvJPEG on a card), and the prefetch
-thread applies the pixel ops and fills the canvas
+threads also decode each image there (nvJPEG, or zlib and the PNG kernel,
+on a card), and the prefetch thread applies the pixel ops and fills the canvas
 (``image_ops.collate_images``), all on a side stream of the loader's own
 on a card; the consumer's stream waits on an event recorded after the
 batch, so the step orders after its batch's decode and resize.  Every
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .image_ops import collate_images
-from .jpeg import decode
+from .image_file import decode_image
 
 
 def collate(samples: List[dict], canvas: int, max_gt: int = 1,
@@ -208,13 +208,14 @@ class DataLoader:
 
     def _load(self, index: int, stream) -> Tuple[dict, torch.Tensor]:
         """One sample's geometry and its decoded image, on a pool thread:
-        nvJPEG's host stage (the Huffman decode) runs outside the
-        interpreter lock, so the pool's threads decode side by side."""
+        nvJPEG's host stage (the Huffman decode) and a PNG's inflate run
+        outside the interpreter lock, so the pool's threads decode side by
+        side."""
         s = self.ds[index]
         if stream is None:
-            return s, decode(s["img_bytes"], self.device)
+            return s, decode_image(s["img_bytes"], self.device)
         with torch.cuda.stream(stream):
-            return s, decode(s["img_bytes"], self.device)
+            return s, decode_image(s["img_bytes"], self.device)
 
     def _make(self, item, ex, stream):
         idx_list, is_pad = item

@@ -1,11 +1,11 @@
 """Raw-source preprocessing shared by the demo and the server (port of
 ``simvg_tpu/data/raw.py``).
 
-(JPEG bytes, expression) -> the sample that the config's val pipeline
-gives, by the dataset loader's own route: the geometry from the JPEG
-header on the host (``data/jpeg.py``), the transforms' sizes and scale
-factors on the host (``data/transforms.py``), the pixels decoded and
-resized on the device when the batch is made (``data/image_ops.py``).  So
+(JPEG or PNG bytes, expression) -> the sample that the config's val
+pipeline gives, by the dataset loader's own route: the geometry from the
+file's header on the host (``data/image_file.py``), the transforms' sizes
+and scale factors on the host (``data/transforms.py``), the pixels decoded
+and resized on the device when the batch is made (``data/image_ops.py``).  So
 the demo, the server and the loader cannot drift from each other.
 
 ``normalize_on_device`` configs are honoured: the Normalize op is skipped
@@ -20,14 +20,14 @@ from typing import List, Sequence
 import numpy as np
 
 from .builder import build_pipeline
-from .jpeg import decode, jpeg_geometry
+from .image_file import decode_image, image_geometry
 from .loader import collate
 from .tokenization import build_tokenizer
 
 
 class RawPreprocessor:
-    """(JPEG bytes, expression) -> pipeline sample dict; ``collate`` makes
-    the batch of such samples on ``device``.
+    """(JPEG or PNG bytes, expression) -> pipeline sample dict;
+    ``collate`` makes the batch of such samples on ``device``.
 
     Built from a full config (the keys the test CLI reads):
     ``val_pipeline``, ``max_token``, ``tokenizer_spm``,
@@ -53,9 +53,9 @@ class RawPreprocessor:
 
     def __call__(self, data: bytes, expression: str,
                  filename: str = "<raw>") -> dict:
-        """The sample of one JPEG stream; raises ValueError on a stream that
-        is not a JPEG."""
-        geo = jpeg_geometry(data)
+        """The sample of one JPEG or PNG stream; raises ValueError on any
+        other stream."""
+        geo = image_geometry(data)
         shape = (geo.height, geo.width, 3)
         ids, mask = self.tokenizer.encode(expression, self.max_token)
         s = {
@@ -77,8 +77,9 @@ class RawPreprocessor:
         return s
 
     def decode(self, sample: dict):
-        """The sample's decoded image on the device (nvJPEG on a card)."""
-        return decode(sample["img_bytes"], self.device)
+        """The sample's decoded image on the device (nvJPEG or the PNG
+        kernel on a card)."""
+        return decode_image(sample["img_bytes"], self.device)
 
     def collate(self, samples: List[dict], decoded: Sequence = ()) -> dict:
         """The batch of ``samples`` (``max_gt`` 1), their images decoded here

@@ -26,11 +26,14 @@ the kernels do not take; only tensors on the CPU go to the plain PyTorch
 versions, ``fused_attention_reference`` and
 ``fused_attention_bwd_reference``.
 
-Head dims: both kernels are instantiated at 32, 64 and 128 (HEAD_DIMS).  Any
-other head_dim up to 128 runs on the next instantiation with q, k and v
-zero-padded along it and the results cut back (``_pad_head_dim``, a plain
-torch copy); above 128 the wrapper raises, where the TPU kernel takes any
-head_dim.
+Head dims: any, as the TPU kernel takes any.  Both kernels are
+instantiated at 32, 64, 128 and 256 (HEAD_DIMS; at 256 K1 with the residual
+and K2 split their outputs' columns over two blocks, and the fp32 K2 takes
+the split route).  Above 256 both take the column-split route, whose blocks
+each produce a SPLIT_CHUNK-column chunk of the outputs and stream the head
+dim box by box, for any multiple of SPLIT_CHUNK.  Any other head_dim runs on
+the next of these with q, k and v zero-padded along it and the results cut
+back (``native_head_dim``, ``_pad_head_dim``, a plain torch copy).
 """
 
 from __future__ import annotations
@@ -44,11 +47,11 @@ from . import _build
 
 _NEG = -1e30  # the TPU kernel's additive bias on padded keys
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the instantiations in attention_fwd.cu / attention_bwd.cu; any other
-# head_dim up to the last runs on the next of them, zero-padded
-# (``native_head_dim``)
-HEAD_DIMS = (32, 64, 128)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+# the instantiations in attention_fwd.cu / attention_bwd.cu; above the last,
+# the split route takes multiples of SPLIT_CHUNK; any other head_dim runs on
+# the next of these, zero-padded (``native_head_dim``)
+HEAD_DIMS = (32, 64, 128, 256)
+SPLIT_CHUNK = 128
 
 
 def _logits(q, k, key_padding_mask):
@@ -159,9 +162,6 @@ def _check(q, k, v, key_padding_mask):
             or k.shape[1] == 0:
         raise ValueError(f"fused_attention: shapes {q.shape} and {k.shape} "
                          "do not match")
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"fused_attention: head_dim {hd} is above the "
-                         f"kernels' limit of {MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("fused_attention: q, k, v must be contiguous")
     if key_padding_mask is not None and \
@@ -172,9 +172,11 @@ def _check(q, k, v, key_padding_mask):
 
 
 def native_head_dim(hd: int) -> int:
-    """The kernels' instantiation that runs head_dim ``hd``: the smallest of
-    HEAD_DIMS that holds it."""
-    return next(n for n in HEAD_DIMS if n >= hd)
+    """The head_dim the kernels run ``hd`` at: the smallest of HEAD_DIMS
+    that holds it, and above them the next multiple of SPLIT_CHUNK (the
+    split route)."""
+    return next((n for n in HEAD_DIMS if n >= hd),
+                -(-hd // SPLIT_CHUNK) * SPLIT_CHUNK)
 
 
 def _pad_head_dim(tensors, hd_n):

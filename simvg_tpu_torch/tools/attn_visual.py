@@ -27,7 +27,7 @@ from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
                                           build_loader_from_cfg)
 from simvg_tpu_torch.data.image_ops import resize_u8
-from simvg_tpu_torch.data.jpeg import decode
+from simvg_tpu_torch.data.image_file import decode_image
 from simvg_tpu_torch.engine.eval import eval_forward
 from simvg_tpu_torch.engine.evaluate import DEVICE_KEYS
 from simvg_tpu_torch.models.heads.detr_transformer import (
@@ -88,7 +88,7 @@ def main(argv=None):
     for lname, attn in sorted(maps.items()):
         for i in range(min(args.num, attn.shape[0])):
             with open(batch["meta"][i]["filename"], "rb") as f:
-                img = resize_u8(decode(f.read(), device),
+                img = resize_u8(decode_image(f.read(), device),
                                 (img_size, img_size))
             write_jpeg(attention_overlay(img, attn[i, 0].reshape(g, g)),
                        osp.join(args.output_dir, f"{lname}_{i:03d}.jpg"))

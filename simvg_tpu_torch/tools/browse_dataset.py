@@ -7,10 +7,10 @@ config's pipeline, un-normalised for display, with its GT boxes in blue.
         [--device cuda|cpu] [--cfg-options key=value ...]
 
 Images are decoded and rendered as the loader renders them
-(``data/image_ops.py``; nvJPEG on the card), unpadded; the expression goes
-to ``<file>.json`` beside each image, as no text is drawn.  It runs on the
-card unless ``--device cpu`` is given; ``main(argv)`` returns the files
-written.
+(``data/image_ops.py``; nvJPEG or the PNG kernel on the card), unpadded; the
+expression goes to ``<file>.json`` beside each image, as no text is drawn.
+It runs on the card unless ``--device cpu`` is given; ``main(argv)`` returns
+the files written.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.data.builder import build_dataset_from_cfg
 from simvg_tpu_torch.data.image_ops import render
-from simvg_tpu_torch.data.jpeg import decode
+from simvg_tpu_torch.data.image_file import decode_image
 from simvg_tpu_torch.utils.visualize import imshow_expr_bbox
 
 from .train import resolve_device
@@ -62,7 +62,7 @@ def main(argv=None) -> List[str]:
     written = []
     for i in range(min(args.num, len(ds))):
         s = ds[i]
-        img = render(s, decode(s["img_bytes"], device))
+        img = render(s, decode_image(s["img_bytes"], device))
         if img.dtype != torch.uint8:  # un-normalise, RGB -> BGR
             img = (img * std + mean).flip(-1).clamp(0, 255).to(torch.uint8)
         gb = s.get("gt_bbox")

@@ -31,7 +31,7 @@ import os.path as osp
 from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
                                           build_loader_from_cfg)
-from simvg_tpu_torch.data.jpeg import decode
+from simvg_tpu_torch.data.image_file import decode_image
 from simvg_tpu_torch.engine import make_eval_step
 from simvg_tpu_torch.engine.evaluate import DEVICE_KEYS
 from simvg_tpu_torch.models.heads.detr_transformer import (
@@ -104,7 +104,7 @@ def main(argv=None):
             if not batch["batch_valid"][i] or len(records) >= args.max_images:
                 continue
             with open(meta["filename"], "rb") as f:
-                img = decode(f.read(), device)
+                img = decode_image(f.read(), device)
             sf = batch["scale_factor"][i]
             if is_grec:
                 keep = p_b["scores"][i] >= args.score_threshold

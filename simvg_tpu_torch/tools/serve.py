@@ -17,7 +17,7 @@ API (JSON over HTTP, standard library only):
 
   GET  /healthz   -> {"status": "ok", "backend": ..., "max_batch": N,
                       "img_size": S}
-  POST /predict   <- {"image_b64": <b64 JPEG>, "expression": str}
+  POST /predict   <- {"image_b64": <b64 JPEG or PNG>, "expression": str}
                      (or {"image_path": str} under --image-root; refused
                       unless the server was started with it)
                   -> {"token":   {"box": [x0, y0, x1, y1], "score": f},
@@ -27,10 +27,11 @@ API (JSON over HTTP, standard library only):
 
 Boxes are in the original image's coordinates (the prediction divided by
 the pipeline's scale_factor, as the demo does).  The server takes JPEG
-only: images are decoded with nvJPEG on the card, which has no PNG
-decoder, and a PNG or any other stream is answered with 400.  Requests
-are parsed, read and decoded in the HTTP handler threads, so the
-Huffman decode of concurrent requests runs side by side; the batcher
+(nvJPEG on the card) and PNG (inflated on the host, unfiltered by the
+port's kernel on the card); any other stream is answered with 400, naming
+its format where its first bytes tell it.  Requests are parsed, read and
+decoded in the HTTP handler threads, so the Huffman decode and the
+inflate of concurrent requests run side by side; the batcher
 thread builds the batch and runs the forward.  A warm-up batch runs before
 the server listens.
 
@@ -66,6 +67,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from simvg_tpu_torch.config import Config, parse_cfg_options
+from simvg_tpu_torch.data.image_file import image_format
 from simvg_tpu_torch.data.jpeg import encode
 from simvg_tpu_torch.data.raw import RawPreprocessor
 from simvg_tpu_torch.engine import make_eval_step
@@ -74,8 +76,6 @@ from simvg_tpu_torch.export import (SERVING_INPUTS, load_exported,
 
 from .test import serving_model
 from .train import check_ported, resolve_device, to_device
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 class Batcher:
@@ -227,9 +227,9 @@ def build_backend(args, cfg, device, device_norm=None,
 
 
 def read_image(req: dict, image_root: str | None = None) -> bytes:
-    """The request's JPEG stream; raises ValueError on a request without an
-    image, an ``image_path`` outside ``image_root`` (or any, without one),
-    and a stream that is not a JPEG."""
+    """The request's JPEG or PNG stream; raises ValueError on a request
+    without an image, an ``image_path`` outside ``image_root`` (or any,
+    without one), and a stream of any other format."""
     if "image_b64" in req:
         try:
             data = base64.b64decode(req["image_b64"], validate=True)
@@ -251,10 +251,7 @@ def read_image(req: dict, image_root: str | None = None) -> bytes:
             data = f.read()
     else:
         raise ValueError("request needs image_b64 or image_path")
-    if not data.startswith(b"\xff\xd8"):
-        kind = "PNG" if data.startswith(_PNG_SIGNATURE) else "this stream"
-        raise ValueError(f"the server takes JPEG only ({kind} cannot be "
-                         "decoded: images are decoded with nvJPEG)")
+    image_format(data)  # raises on any other format
     return data
 
 

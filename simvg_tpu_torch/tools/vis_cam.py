@@ -38,7 +38,7 @@ from simvg_tpu_torch.config import Config, parse_cfg_options
 from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
                                           build_loader_from_cfg)
 from simvg_tpu_torch.data.image_ops import resize_u8
-from simvg_tpu_torch.data.jpeg import decode
+from simvg_tpu_torch.data.image_file import decode_image
 from simvg_tpu_torch.engine.eval import normalize_images_on_device
 from simvg_tpu_torch.engine.evaluate import DEVICE_KEYS
 from simvg_tpu_torch.utils.visualize import attention_overlay, write_jpeg
@@ -142,7 +142,8 @@ def main(argv=None):
     written = 0
     for i in range(min(args.num, cam.shape[0])):
         with open(batch["meta"][i]["filename"], "rb") as f:
-            img = resize_u8(decode(f.read(), device), (img_size, img_size))
+            img = resize_u8(decode_image(f.read(), device),
+                            (img_size, img_size))
         write_jpeg(attention_overlay(img, cam[i]),
                    osp.join(args.output_dir, f"cam_{i:03d}.jpg"))
         written += 1

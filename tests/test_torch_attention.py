@@ -86,6 +86,11 @@ def test_multihead_attention_pallas_impl_on_cpu_takes_plain_path():
     (2, 37, 37, 4, 64, [30, 10]),
     (1, 421, 421, 2, 64, None),  # the flagship's sequence length
     (2, 13, 70, 3, 64, [70, 1]),  # odd lengths, Sq != Sk, one live key
+    # head dims above 128: padded to 256 (160), native 256, the split
+    # route (384)
+    (1, 48, 48, 2, 160, [40]),
+    (1, 48, 48, 2, 256, [40]),
+    (1, 40, 33, 2, 384, [20]),
 ])
 def test_fused_attention_cpu_matches_pallas_interpret(b, sq, sk, h, hd,
                                                       lengths):
@@ -126,8 +131,10 @@ def test_fused_attention_checks_reject_what_the_kernel_does_not_take(case):
     mask = None
     if case == "dtype":
         q = k = v = mk(dtype=torch.float16)
-    elif case == "head_dim":  # above the last instantiation, 128
-        q = k = v = mk(hd=160)
+    elif case == "head_dim":  # every head_dim is taken, as the TPU kernel's
+        for hd in (160, 256, 384):
+            _check(mk(hd=hd), mk(hd=hd), mk(hd=hd), None)
+        return
     elif case == "shape":
         k = v = mk(s=8, hd=64)[:1]
     elif case == "mask":
@@ -146,18 +153,19 @@ def test_fused_attention_checks_reject_what_the_kernel_does_not_take(case):
         _check(q, k, v, mask)
 
 
-@pytest.mark.parametrize("hd", [16, 48, 80, 100])
+@pytest.mark.parametrize("hd", [16, 48, 80, 100, 160, 320])
 def test_padded_head_dims_are_exact(hd):
     """A head_dim with no instantiation runs on the next one (16 -> 32,
-    48 -> 64, 80 and 100 -> 128) with q, k, v zero-padded and the results
-    cut back: the plain versions on the padded tensors, cut, give the
-    unpadded ones (forward, the residual, the gradients) within float32
-    rounding."""
+    48 -> 64, 80 and 100 -> 128, 160 -> 256), and above 256 on the split
+    route's next multiple of 128 (320 -> 384), with q, k, v zero-padded and
+    the results cut back: the plain versions on the padded tensors, cut,
+    give the unpadded ones (forward, the residual, the gradients) within
+    float32 rounding."""
     from simvg_tpu_torch.ops.fused_attention import (
         _pad_head_dim, attention_residual_reference, native_head_dim)
 
     n = native_head_dim(hd)
-    assert n == {16: 32, 48: 64, 80: 128, 100: 128}[hd]
+    assert n == {16: 32, 48: 64, 80: 128, 100: 128, 160: 256, 320: 384}[hd]
     b, s, h = 2, 37, 3
     r = np.random.default_rng(hd)
     q, k, v, dout = (torch.from_numpy(r.normal(size=(b, s, h, hd))
@@ -219,6 +227,9 @@ GRAD_CASES = [  # (b, sq, sk, h, hd, key lengths)
     (2, 37, 37, 4, 64, [30, 10]),  # padded keys
     (2, 13, 70, 3, 64, [70, 1]),  # Sq != Sk, one live key
     (1, 150, 20, 2, 64, None),  # several query blocks, fewer keys
+    (1, 48, 48, 2, 160, [40]),  # padded to 256
+    (1, 48, 48, 2, 256, [40]),  # native 256
+    (1, 40, 33, 2, 384, [20]),  # the split route
 ]
 
 

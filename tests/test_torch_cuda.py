@@ -6,9 +6,9 @@ port does not need, so it is left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The data pipeline's card route is held here too: nvJPEG's encode -> decode
-round trip (shape exact, mean |difference| <= 2 levels at quality 95, on
-smooth images), grayscale and EXIF-oriented files, and the pixel ops on the
+The data pipeline's card route is held here too: the PNG kernel against the
+plain decoder (bit for bit), nvJPEG's encode -> decode round trip (shape
+exact, mean |difference| <= 2 levels at quality 95, on smooth images), grayscale and EXIF-oriented files, and the pixel ops on the
 card against the same ops on the CPU, on the same decoded pixels (1 level
 per resampling; the geometry exact; VGTRAugment's ops a level an op).
 
@@ -93,18 +93,31 @@ def test_attention_fwd_matches_plain_version(gen, dtype, atol, b, sq, sk, h,
 
 
 def test_attention_fwd_raises_on_unsupported_head_dim(gen):
-    """Above 128, the last instantiation, the wrapper raises, naming the
-    limit."""
-    q = torch.randn(1, 8, 2, 160, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head_dim 160 is above"):
-        fused_attention(q, q, q)
+    """No head_dim is unsupported, as none is for the TPU kernel: 160
+    (padded to 256), 256 and 384 (the split route) each launch K1."""
+    for hd in (160, 256, 384):
+        q = torch.randn(1, 8, 2, hd, device="cuda", generator=gen)
+        before = fused_attention.launches
+        out = fused_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert fused_attention.launches == before + 1
+        assert out.shape == q.shape and torch.isfinite(out).all()
 
 
 # K1 and K2 at the other head dims: the native 32 (64-byte swizzle, N = 32
-# products) and 128 (two boxes a tile, two N = 64 products a slice), and
-# head dims with no instantiation, zero-padded to the next (48 -> 64,
-# 16 -> 32, 80 -> 128)
+# products), 128 (two boxes a tile, two N = 64 products a slice) and 256
+# (four boxes; K1 with the residual and K2 in two column chunks), the split
+# route above 256 (384, 512), and head dims with no instantiation,
+# zero-padded to the next (48 -> 64, 16 -> 32, 80 -> 128, 160 -> 256,
+# 320 -> 384)
 HD_CASES = [
+    (2, 421, 421, 3, 256, [421, 404]),  # the flagship at 3 heads
+    (2, 421, 421, 2, 384, [421, 404]),  # the flagship at 2 heads
+    (3, 13, 70, 3, 256, [70, 1, 33]),
+    (3, 13, 70, 2, 512, [70, 1, 33]),
+    (2, 100, 65, 2, 384, [65, 61]),
+    (2, 100, 100, 2, 160, [100, 61]),
+    (1, 64, 64, 2, 320, [40]),
     (2, 421, 421, 24, 32, [421, 404]),  # the flagship at 24 heads
     (2, 421, 421, 6, 128, [421, 404]),  # the flagship at 6 heads
     (3, 13, 70, 3, 32, [70, 1, 33]),
@@ -147,10 +160,11 @@ def test_attention_at_other_head_dims(gen, b, sq, sk, h, hd, lengths):
             assert 8 * e_sum <= e_out, (e_sum, e_out)
 
 
-@pytest.mark.parametrize("hd", [32, 48, 128])
+@pytest.mark.parametrize("hd", [32, 48, 128, 160, 256, 384])
 def test_autograd_at_other_head_dims(gen, hd):
-    """bf16 through fused_attention with a graph at head_dim 32, 48 (padded)
-    and 128: one K1 and one K2 launch, the gradients within their bounds."""
+    """bf16 through fused_attention with a graph at head_dim 32, 48 and 160
+    (padded), 128, 256 and 384 (split): one K1 and one K2 launch, the
+    gradients within their bounds."""
     q, k, v, dout, pad = _inputs(gen, torch.bfloat16, 2, 77, 77, 3, hd,
                                  [77, 50])
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -410,6 +424,38 @@ def test_nvjpeg_applies_exif_orientation(gen, orientation):
     want = (80, 48, 3) if orientation >= 5 else (48, 80, 3)
     assert got.shape == want
     assert torch.equal(got, orient(plain, orientation))
+
+
+@pytest.mark.parametrize("color_type,bit_depth", [
+    (0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
+    (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)])
+def test_png_kernel_matches_plain_version(gen, color_type, bit_depth):
+    """The PNG kernel (unfilter and convert on the card) against the plain
+    numpy decoder, bit for bit: every filter type row by row, plain and
+    Adam7, at a size with an empty Adam7 pass and at one taller than a
+    block of the wavefront (600 rows, two groups of rows)."""
+    from simvg_tpu_torch.data import png
+    from util_torch_port import png_chunk, write_png
+
+    r = np.random.default_rng(color_type * 100 + bit_depth)
+    ch = png._CHANNELS[color_type]
+    for h, w in ((3, 5), (37, 29), (600, 9)):
+        samples = r.integers(0, 1 << bit_depth, (h, w, ch))
+        before = b""
+        if color_type == 3:
+            n = (1 << bit_depth) - 1 if bit_depth < 8 else 200
+            before = png_chunk(b"PLTE", r.integers(0, 256, 3 * n)
+                               .astype(np.uint8).tobytes())
+        for interlace in (False, True):
+            data = write_png(samples, bit_depth, color_type, (0, 1, 2, 3, 4),
+                             interlace, before)
+            before_launches = png.decode.launches
+            got = png.decode(data, "cuda")
+            torch.cuda.synchronize()
+            assert png.decode.launches == before_launches + 1
+            want = png.decode(data, "cpu")
+            assert got.is_cuda and torch.equal(got.cpu(), want), (h, w,
+                                                                  interlace)
 
 
 def test_pixel_ops_on_the_card_match_the_cpu(gen):

@@ -329,7 +329,8 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.tools.encoder_ablation, simvg_tpu_torch.ops._build, "
         "simvg_tpu_torch.models.beit3_heads, "
         "simvg_tpu_torch.models.legacy_layers, "
-        "simvg_tpu_torch.losses.legacy, simvg_tpu_torch.data.vgtr_aug\n"
+        "simvg_tpu_torch.losses.legacy, simvg_tpu_torch.data.vgtr_aug, "
+        "simvg_tpu_torch.data.png, simvg_tpu_torch.data.image_file\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")

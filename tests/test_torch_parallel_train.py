@@ -56,8 +56,8 @@ from simvg_tpu_torch.models import init_random_weights
 from simvg_tpu_torch.parallel import param_partition_spec
 from test_torch_train import BLW, TINY_BEIT3, TINY_HEAD, _batch, _models
 from util_torch_port import (TINY_BEIT3 as ENC_BEIT3, assert_int8_close,
-                             cheap_jit, jax_params_from_port, np_batch,
-                             run_ranks)
+                             cheap_jit, in_background, jax_params_from_port,
+                             np_batch, run_ranks)
 from util_torch_port import one_torch_thread  # noqa: F401
 
 OPT = dict(lr=1e-3, steps_per_epoch=1000)
@@ -149,16 +149,22 @@ def runs(tmp_path_factory):
     qbatch["image"][2:] *= SCALE
     _write_inputs(dq, sd, qbatch, dict(TINY_BEIT3, quant=QAT))
     worker = ["tests/_torch_parallel_worker.py", "train", str(d)]
-    run_ranks(2, worker + ["ddp", "fsdp", "tp", "tp_sp", "sp",
-                           f"{QAT}/ddp"])
-    run_ranks(4, worker + ["fsdp_tp_sp", f"{QAT}/fsdp_tp_sp"])
-    ref = {(None, dp): dict(_jax_run(jm, params, jb, dp),
-                            live=_live(tm, batch, dp)) for dp in (1, 2)}
+    # the gloo ranks run while the JAX references are computed here
+    ranks = in_background(lambda: (
+        run_ranks(2, worker + ["ddp", "fsdp", "tp", "tp_sp", "sp",
+                               f"{QAT}/ddp"]),
+        run_ranks(4, worker + ["fsdp_tp_sp", f"{QAT}/fsdp_tp_sp"])))
     jq, tq = _qat_models()
     tq.load_state_dict(tm.state_dict(), strict=True)
     qjb = {k: jnp.asarray(v) for k, v in qbatch.items()}
-    ref[(QAT, 2)] = dict(_jax_run(jq, params, qjb, 2),
-                         live=_live(tq, qbatch, 2))
+    # the three JAX programs compile side by side (XLA leaves the GIL)
+    runs = {(None, 1): in_background(_jax_run, jm, params, jb, 1),
+            (None, 2): in_background(_jax_run, jm, params, jb, 2),
+            (QAT, 2): in_background(_jax_run, jq, params, qjb, 2)}
+    ref = {key: dict(run(), live=_live(tq if key[0] else tm,
+                                       qbatch if key[0] else batch, key[1]))
+           for key, run in runs.items()}
+    ranks()
     return d, ref
 
 
@@ -266,7 +272,8 @@ def evals(tmp_path_factory):
              **{f"batch/{k}": v for k, v in batch.items()})
     with open(d / "eval.json", "w") as f:
         json.dump(cases, f)
-    run_ranks(2, ["tests/_torch_parallel_worker.py", "eval", str(d)])
+    ranks = in_background(run_ranks, 2, ["tests/_torch_parallel_worker.py",
+                                         "eval", str(d)])
     ref, by_kw = {}, {}
     for name, (kw, _) in EVAL_CASES.items():
         kw = {k: v for k, v in kw.items() if k != "seq_parallel"}
@@ -279,6 +286,7 @@ def evals(tmp_path_factory):
                 variables, *map(jnp.asarray, args),
                 return_prune_idx="token_prune_keep" in kw)
         ref[name] = by_kw[key]
+    ranks()
     return d, ref
 
 

@@ -3,8 +3,9 @@ in-process on the CPU: the counterparts of tests/test_serve.py.
 
 - predict and errors: 200 with boxes in the original image's coordinates,
   ``"all"``'s per-query lists; 400 for a request without an image, bad
-  base64, an ``image_path`` without ``--image-root`` and a PNG (the server
-  takes JPEG only: the card decodes with nvJPEG); 404 off the two routes;
+  base64, an ``image_path`` without ``--image-root`` and a format other
+  than JPEG and PNG (a BMP, named in the error); 404 off the two routes; a
+  PNG of a JPEG's decoded pixels answered as that JPEG is;
 - dynamic batching: concurrent requests share a device batch;
 - a response equals JAX ``make_eval_step`` on the same request's batch,
   divided by scale_factor, within 1e-4 (the eval-step bound of
@@ -41,7 +42,7 @@ from simvg_tpu_torch.tools import export_serving as export_cli
 from simvg_tpu_torch.tools import serve
 from simvg_tpu_torch.tools.test import serving_model
 from simvg_tpu_torch.utils.checkpoint import save_checkpoint
-from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
+from util_torch_port import cheap_jit, one_torch_thread, write_png  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY = osp.join(REPO, "configs", "smoke", "tiny_synth.py")
@@ -147,14 +148,14 @@ def test_serve_predict_and_errors(live):
     nq = Config.fromfile(TINY).model.head.num_queries
     assert len(out["token"]["boxes"]) == len(out["token"]["scores"]) == nq
 
-    ok, png = cv2.imencode(".png", np.zeros((8, 8, 3), np.uint8))
+    ok, bmp = cv2.imencode(".bmp", np.zeros((8, 8, 3), np.uint8))
     for bad, why in (({"expression": "no image"}, "image_b64 or image_path"),
                      ({"image_b64": "!!notbase64", "expression": "x"},
                       "base64"),
                      ({"image_path": "/etc/passwd", "expression": "x"},
                       "disabled"),
-                     ({"image_b64": _b64(png.tobytes()), "expression": "x"},
-                      "JPEG only"),
+                     ({"image_b64": _b64(bmp.tobytes()), "expression": "x"},
+                      "BMP is not an image format"),
                      ({"image_b64": _b64(b"\xff\xd8junk"),
                        "expression": "x"}, "")):
         status, out = _request(live.port, "/predict", bad)
@@ -163,6 +164,14 @@ def test_serve_predict_and_errors(live):
     assert _request(live.port, "/nothing", {"x": 1})[0] == 404
     status, out = _predict(live.port, _jpg(2), "still up")
     assert status == 200
+    pixels = cv2.imdecode(np.frombuffer(_jpg(3), np.uint8), cv2.IMREAD_COLOR)
+    png = write_png(pixels[..., ::-1], filters=(0, 1, 2, 3, 4))
+    (s1, from_jpg), (s2, from_png) = (_predict(live.port, d, "the red box")
+                                      for d in (_jpg(3), png))
+    assert s1 == s2 == 200
+    for br in ("token", "decoder"):
+        np.testing.assert_allclose(from_png[br]["box"], from_jpg[br]["box"],
+                                   atol=1e-4, rtol=0)
 
 
 def test_serve_dynamic_batching(live):
@@ -267,7 +276,7 @@ def test_serve_weights_as_argument_program(jax_weights, tmp_path):
 
 def test_read_image_path_gate(tmp_path):
     """--image-root: refused by default, resolved under the root, no
-    traversal out of it; a JPEG only."""
+    traversal out of it; a JPEG or a PNG, not a BMP."""
     sub = tmp_path / "imgs"
     sub.mkdir()
     (sub / "a.jpg").write_bytes(_jpg(0, 8, 8))
@@ -281,5 +290,9 @@ def test_read_image_path_gate(tmp_path):
             serve.read_image({"image_path": path}, image_root=str(sub))
     ok, png = cv2.imencode(".png", np.zeros((8, 8, 3), np.uint8))
     (sub / "b.png").write_bytes(png.tobytes())
-    with pytest.raises(ValueError, match="JPEG only"):
-        serve.read_image({"image_path": "b.png"}, image_root=str(sub))
+    assert serve.read_image({"image_path": "b.png"},
+                            image_root=str(sub)) == png.tobytes()
+    ok, bmp = cv2.imencode(".bmp", np.zeros((8, 8, 3), np.uint8))
+    (sub / "c.bmp").write_bytes(bmp.tobytes())
+    with pytest.raises(ValueError, match="BMP is not"):
+        serve.read_image({"image_path": "c.bmp"}, image_root=str(sub))

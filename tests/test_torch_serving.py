@@ -68,19 +68,35 @@ def _cfgs(path, opts=()):
     return cfg, jcfg
 
 
+# one JAX model, its jitted init and its jitted eval step for each model
+# config, shared by the tests: each program compiles once per shape
+_JAX = {}
+
+
+def _jax_model(jcfg):
+    """(model, jitted init, jitted eval step) of the config's model."""
+    from simvg_tpu.engine.train import make_eval_step
+    from simvg_tpu.models.builder import build_model
+
+    key = json.dumps(jcfg.model, sort_keys=True, default=str)
+    if key not in _JAX:
+        model, _ = build_model(jcfg.model, img_size=64, dtype=jnp.float32)
+        _JAX[key] = (model, cheap_jit(model.init),
+                     cheap_jit(make_eval_step(model)))
+    return _JAX[key]
+
+
 def _jax_model_and_checkpoint(jcfg, work, seed):
     """JAX ``model.init`` params of the config's model and a port
     checkpoint of them under ``work``."""
-    from simvg_tpu.models.builder import build_model
-
-    model, _ = build_model(jcfg.model, img_size=64, dtype=jnp.float32)
+    model, init, _ = _jax_model(jcfg)
     t = jcfg.get("max_token", 20)
     dummy = dict(image=jnp.zeros((1, 64, 64, 3), jnp.float32),
                  text_ids=jnp.zeros((1, t), jnp.int32),
                  text_padding_mask=jnp.zeros((1, t), jnp.int32),
                  img_shape=jnp.full((1, 2), 64, jnp.int32))
-    params = jax.tree.map(np.asarray, cheap_jit(model.init)(
-        jax.random.PRNGKey(seed), **dummy))
+    params = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed),
+                                           **dummy))
     sd = {k: torch.from_numpy(v.copy())
           for k, v in export_simvg_full(params).items()}
     return model, params, save_checkpoint(str(work), "from_jax", params=sd,
@@ -88,10 +104,9 @@ def _jax_model_and_checkpoint(jcfg, work, seed):
 
 
 def _jax_preds(model, params, batch):
-    from simvg_tpu.engine.train import make_eval_step
-
-    preds = cheap_jit(make_eval_step(model))(
-        params, {k: jnp.asarray(np.asarray(batch[k])) for k in KEYS})
+    step = next(step for m, _, step in _JAX.values() if m is model)
+    preds = step(params, {k: jnp.asarray(np.asarray(batch[k]))
+                          for k in KEYS})
     return jax.tree.map(np.asarray, preds)
 
 
@@ -200,9 +215,9 @@ def test_inference_cli_matches_jax_with_attention(tmp_path):
     batch = batches[0]
     with recorded_cross_attention(port.head.transformer.decoder) as w:
         make_eval_step(port)({k: torch.as_tensor(batch[k]) for k in KEYS})
-    _, inter = model.apply(params, **{k: jnp.asarray(np.asarray(batch[k]))
-                                      for k in KEYS},
-                           deterministic=True, mutable=["intermediates"])
+    _, inter = cheap_jit(lambda p, b: model.apply(
+        p, **b, deterministic=True, mutable=["intermediates"]))(
+        params, {k: jnp.asarray(np.asarray(batch[k])) for k in KEYS})
     dec = inter["intermediates"]["head"]["decoder"]
     last = sorted((k for k in dec if "cross_attn" in dec[k]),
                   key=lambda k: int(k.rsplit("_", 1)[-1]))[-1]

@@ -38,7 +38,8 @@ from simvg_tpu.engine.train_state import ema_update as jax_ema_update
 from simvg_tpu.engine.train_state import make_lr_schedule as jax_schedule
 from simvg_tpu.losses.criterion import normalize_targets as jax_targets
 from simvg_tpu.losses.criterion import simvg_branch_losses as jax_losses
-from util_torch_port import cheap_jit, one_torch_thread  # noqa: F401
+from util_torch_port import (cheap_jit, in_background,  # noqa: F401
+                             one_torch_thread)
 from simvg_tpu_torch.engine import train_state as ts
 
 BLW = {"decoder": 1.0, "balanced_distill": {"token": 2.0, "distill": 1.0}}
@@ -268,23 +269,32 @@ def _batch(variant, b=4, img=32, t=6, seed=0):
     return batch
 
 
-def _models(variant):
+def _head(variant):
+    head = dict(TINY_HEAD, num_queries=1 if variant != "grec" else 10)
+    if variant == "options":  # the DETR encoder over the image memory
+        head.update(only_decoder=False, num_encoder_layers=2)
+    return head
+
+
+def _jax_model(variant):
     from simvg_tpu.models import SimVGConfig, SimVGModel
     from simvg_tpu.models.beit3 import BEiT3Config
     from simvg_tpu.models.heads.tgqs_head import TGQSHeadConfig
+
+    return SimVGModel(SimVGConfig(beit3=BEiT3Config(**TINY_BEIT3),
+                                  head=TGQSHeadConfig(**_head(variant))))
+
+
+def _models(variant):
     from simvg_tpu_torch.models.beit3 import BEiT3Config as TBEiT3Config
     from simvg_tpu_torch.models.heads.tgqs_head import (
         TGQSHeadConfig as THeadConfig)
     from simvg_tpu_torch.models.model import (SimVGConfig as TConfig,
                                               SimVGModel as TModel)
 
-    head = dict(TINY_HEAD, num_queries=1 if variant != "grec" else 10)
-    if variant == "options":  # the DETR encoder over the image memory
-        head.update(only_decoder=False, num_encoder_layers=2)
-    return (SimVGModel(SimVGConfig(beit3=BEiT3Config(**TINY_BEIT3),
-                                   head=TGQSHeadConfig(**head))),
+    return (_jax_model(variant),
             TModel(TConfig(beit3=TBEiT3Config(**TINY_BEIT3),
-                           head=THeadConfig(**head))))
+                           head=THeadConfig(**_head(variant)))))
 
 
 def _loss_kw(variant):
@@ -319,50 +329,79 @@ def _jax_grads(model, params, batch, variant):
     return jax.jit(jax.grad(loss_fn))(params)
 
 
-@pytest.fixture(scope="module", params=["refcoco", "grec", "options"])
-def three_steps(request):
+VARIANTS = ("refcoco", "grec", "options")
+
+
+def _optimizer_kw(variant):
+    kw = dict(lr=1e-3, steps_per_epoch=1000)
+    if variant == "options":
+        kw["optimizer_type"] = "SGD"
+    return kw
+
+
+def _jax_three_steps(variant):
+    """JAX's side of ``three_steps``: the init params, the first step's
+    gradients, and the scalars, params and EMA of 3 steps."""
+    from simvg_tpu_torch.convert import export_simvg_full
+
+    jm = _jax_model(variant)
+    jb = {k: jnp.asarray(v) for k, v in _batch(variant).items()}
+    params = jax.tree.map(np.asarray, cheap_jit(jm.init)(
+        jax.random.PRNGKey(0), **{k: jb[k] for k in (
+            "image", "text_ids", "text_padding_mask", "img_shape")}))
+    grads_j = export_simvg_full(jax.tree.map(
+        np.asarray, _jax_grads(jm, params, jb, variant)))
+    tx = jax_create_optimizer(**_optimizer_kw(variant))
+    state_j = jax_create_train_state(params, tx, ema=True)
+    step_j = jax.jit(jax_make_train_step(jm, tx, ema_alpha=0.99,
+                                         **_loss_kw(variant)))
+    scalars = []
+    for _ in range(3):
+        state_j, sj = step_j(state_j, jb, jax.random.PRNGKey(1))
+        scalars.append({k: float(v) for k, v in sj.items()})
+    return dict(
+        params=params, grads_j=grads_j, scalars=scalars,
+        params_j=export_simvg_full(jax.tree.map(np.asarray, state_j.params)),
+        ema_j=export_simvg_full(jax.tree.map(np.asarray,
+                                             state_j.ema_params)))
+
+
+@pytest.fixture(scope="module")
+def jax_three_steps():
+    """Every variant's JAX side, compiled side by side on threads of
+    their own (XLA leaves the GIL); variant -> a function that waits for
+    it."""
+    return {v: in_background(_jax_three_steps, v) for v in VARIANTS}
+
+
+@pytest.fixture(scope="module", params=VARIANTS)
+def three_steps(request, jax_three_steps):
     """Both packages from the same weights through 3 steps on one batch;
     "options" takes the DETR encoder, soft distillation and SGD."""
-    from simvg_tpu_torch.convert import export_simvg_full, load_jax_params
+    from simvg_tpu_torch.convert import load_jax_params
     from simvg_tpu_torch.engine import (create_optimizer, create_train_state,
                                         make_train_step)
 
     variant = request.param
-    jm, tm = _models(variant)
-    batch = _batch(variant)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    params = jax.tree.map(np.asarray, cheap_jit(jm.init)(
-        jax.random.PRNGKey(0), **{k: jb[k] for k in (
-            "image", "text_ids", "text_padding_mask", "img_shape")}))
-    load_jax_params(tm, params)
-    grads_j = export_simvg_full(jax.tree.map(
-        np.asarray, _jax_grads(jm, params, jb, variant)))
+    tm = _models(variant)[1]
+    tb = {k: torch.from_numpy(v) for k, v in _batch(variant).items()}
+    ref = jax_three_steps[variant]()
+    load_jax_params(tm, ref["params"])
     grads_t = _torch_grads(tm, tb, variant)
 
-    kw = dict(lr=1e-3, steps_per_epoch=1000)
-    if variant == "options":
-        kw["optimizer_type"] = "SGD"
-    tx = jax_create_optimizer(**kw)
-    state_j = jax_create_train_state(params, tx, ema=True)
-    step_j = jax.jit(jax_make_train_step(jm, tx, ema_alpha=0.99,
-                                         **_loss_kw(variant)))
-    opt = create_optimizer(**kw)
+    opt = create_optimizer(**_optimizer_kw(variant))
     state_t = create_train_state(tm, opt, ema=True)
     step_t = make_train_step(tm, opt, ema_alpha=0.99, **_loss_kw(variant))
     scalars = []
-    for _ in range(3):
-        state_j, sj = step_j(state_j, jb, jax.random.PRNGKey(1))
+    for sj in ref["scalars"]:
         state_t, st = step_t(state_t, tb, 1)
-        scalars.append(({k: float(v) for k, v in sj.items()},
-                        {k: float(v) for k, v in st.items()}))
+        scalars.append((sj, {k: float(v) for k, v in st.items()}))
     names = [n for n, _ in tm.named_parameters()]
     return dict(
-        scalars=scalars, grads_j=grads_j, grads_t=grads_t,
-        params_j=export_simvg_full(jax.tree.map(np.asarray, state_j.params)),
+        scalars=scalars, grads_j=ref["grads_j"], grads_t=grads_t,
+        params_j=ref["params_j"],
         params_t={n: p.detach().numpy() for n, p in tm.named_parameters()},
-        ema_j=export_simvg_full(jax.tree.map(np.asarray,
-                                             state_j.ema_params)),
+        ema_j=ref["ema_j"],
         ema_t=dict(zip(names, (e.numpy() for e in state_t.ema_params))),
         state_t=state_t)
 

@@ -136,6 +136,33 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def in_background(fn, *args, **kw):
+    """Runs ``fn(*args, **kw)`` on a thread of its own; returns a function
+    that waits for it and gives its result, or raises its exception.  A
+    test's gloo spawns (``run_ranks``) wait on their subprocesses there
+    while the test computes its JAX reference."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:  # noqa: BLE001 -- handed to the waiter
+            box["err"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return wait
+
+
 def run_ranks(n, argv, timeout=240, env=None):
     """Runs ``argv`` (after the interpreter) as ``n`` ranks of one gloo
     group, with torchrun's environment, from the repo root; kills them all
@@ -166,3 +193,72 @@ def run_ranks(n, argv, timeout=240, env=None):
     for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank}:\n{err[-4000:]}"
     return outs
+
+
+def _png_filter(kinds, lines, bpp):
+    """The PNG filters ``kinds`` (0-4, one a row) of unfiltered scanlines
+    ``lines`` (uint8 [n, rowbytes]), all at once: each byte's predictor
+    comes from the unfiltered bytes left of it and above it."""
+    x = lines.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    chosen = pred[np.asarray(kinds), np.arange(len(x))]
+    return ((x - chosen) & 0xFF).astype(np.uint8)
+
+
+def png_chunk(kind: bytes, payload: bytes, crc=None) -> bytes:
+    import struct
+    import zlib
+
+    crc = zlib.crc32(kind + payload) if crc is None else crc
+    return struct.pack(">I", len(payload)) + kind + payload \
+        + struct.pack(">I", crc & 0xFFFFFFFF)
+
+
+def write_png(samples, bit_depth=8, color_type=2, filters=(0,),
+              interlace=False, chunks_before=b"", chunks_after=b""):
+    """A PNG stream of ``samples`` (uint [h, w, channels] in the colour
+    type's channel order, values below 2**bit_depth), written with zlib and
+    struct: row i of each pass takes filter ``filters[i % len(filters)]``;
+    ``chunks_before`` (PLTE, tRNS, eXIf, ...) go before IDAT."""
+    import struct
+    import zlib
+
+    samples = np.asarray(samples)
+    h, w, ch = samples.shape
+    bpp = max(1, ch * bit_depth // 8)
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+              (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)) \
+        if interlace else ((0, 0, 1, 1),)
+    raw = bytearray()
+    i = 0
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        flat = sub.reshape(len(sub), -1)
+        if bit_depth == 16:
+            lines = flat.astype(">u2").view(np.uint8)
+        elif bit_depth == 8:
+            lines = flat.astype(np.uint8)
+        else:
+            bits = ((flat[..., None] >> np.arange(bit_depth - 1, -1, -1))
+                    & 1).astype(np.uint8).reshape(len(flat), -1)
+            lines = np.packbits(bits, axis=1)
+        kinds = [filters[(i + k) % len(filters)] for k in range(len(lines))]
+        i += len(lines)
+        raw += np.concatenate([np.asarray(kinds, np.uint8)[:, None],
+                               _png_filter(kinds, lines, bpp)], 1).tobytes()
+    ihdr = struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0,
+                       int(interlace))
+    return (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", ihdr) + chunks_before
+            + png_chunk(b"IDAT", zlib.compress(bytes(raw)))
+            + chunks_after + png_chunk(b"IEND", b""))
