@@ -9,7 +9,8 @@ the CUDA toolkit:
 It builds every kernel of the port from ``simvg_tpu_torch/csrc/`` (one
 nvcc each, in parallel) and holds each against its plain PyTorch version at
 the main paths' shapes: K1, the attention forward, K2, its backward, and
-the PNG kernel (unfiltering and colour conversion).
+the image kernels (PNG's unfiltering and conversion; the WebP, GIF, TIFF,
+BMP, PNM, Sun raster and HDR decoders' pixel stages).
 bf16 takes each kernel's tensor-core route, float32 its CUDA-core route.
 Each K1/K2 row gives the kernel's time beside its plain version's, the
 bound, the achieved TFLOP/s and share of the bound, and PyTorch's SDPA as
@@ -85,7 +86,15 @@ for bit; its time on a 480 x 640 RGB image beside the host's inflate; the
 flagship's val loader over the synthetic JPEGs rewritten as PNG (each
 batch bit for bit the plain decoder's) and the server on det_best
 answering PNG requests (each held to a direct eval step on the plain
-decoder's pixels), the kernel's launches counted from 0 around both.  Then "int8" (ops/quant.py, w8a8 through
+decoder's pixels), the kernel's launches counted from 0 around both.  Then
+"formats": the decoders of WebP (csrc/vp8.cu, vp8l.cu), GIF, TIFF, BMP,
+PNM/PFM, Sun raster and HDR (csrc/image_convert.cu), with their host C++,
+against the plain decoders and cv2's digests on the committed fixtures
+(tests/fixtures/formats/), bit for bit; each kernel's time on a 480 x 640
+image beside its host stage and the plain route; the val loader over a
+WebP copy of the synthetic images and the server answering a request of
+every format (JPEG 2000, AVIF and OpenEXR with 400), the kernels' launches
+counted from 0 around both.  Then "int8" (ops/quant.py, w8a8 through
 torch._int_mm): the flagship calibrated with tools/quantize_serving.py,
 every _int_mm of a forward held to the float64 product of its operands,
 the int8_static and dynamic int8 models held to the float32 model beside
@@ -166,7 +175,8 @@ TRAIN_TIMING_STEPS = 5  # train steps per turn when timing
 # the schedule's epoch length only sets where the LR ramps; a run of a few
 # steps stays in warm-up epoch 0 for any value this large
 STEPS_PER_EPOCH = 1000
-KERNELS = ("attention_fwd", "attention_bwd", "png")
+KERNELS = ("attention_fwd", "attention_bwd", "png", "image_convert", "vp8",
+           "vp8l")
 # the card's peaks (H100 SXM data sheet):
 # dense bf16 on the tensor cores, fp32 outside them, and HBM bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
@@ -2528,6 +2538,336 @@ def png_phase(card, root, opts, launches):
                              "direct eval step beyond the bound")
     launches.append(loader_launches + serve_launches)
     return row
+
+
+# "formats": the decoders of every other format cv2 reads (csrc/
+# image_convert.cu, vp8.cu, vp8l.cu) against their plain versions on the
+# committed fixtures (tests/fixtures/formats/, written by
+# tests/fixtures/make_format_fixtures.py: the CPU tests' cases and one
+# 480 x 640 image a format), each also against cv2's digest of its pixels
+FORMATS_DIR = os.path.join(REPO, "tests", "fixtures", "formats")
+# the fixture each new kernel's row is timed on, 480 x 640
+# the 480 x 640 fixtures each new kernel is timed on: textured (the row of
+# the kernels line), then posterised
+FORMAT_TIMED = {"image_convert": ("tiff_big_textured.tif",
+                                  "tiff_big_lzw_pred2.tif"),
+                "vp8": ("webp_lossy_big_textured.webp",
+                        "webp_lossy_big_lossy.webp"),
+                "vp8l": ("webp_lossless_big_textured.webp",
+                         "webp_lossless_big_lossless.webp")}
+# requests the server must refuse: formats cv2 reads that the port does not
+FORMAT_REFUSED = {
+    "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40),
+    "AVIF": b"\x00\x00\x00\x1cftypavif" + bytes(40),
+    "OpenEXR": b"\x76\x2f\x31\x01" + bytes(40)}
+
+
+def format_fixtures():
+    """{file name: (bytes, cv2's digest record)} of the committed
+    fixtures."""
+    with open(os.path.join(FORMATS_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    out = {}
+    for name, rec in digests.items():
+        with open(os.path.join(FORMATS_DIR, name), "rb") as f:
+            out[name] = (f.read(), rec)
+    return out
+
+
+def _launch_counts():
+    from simvg_tpu_torch.data import image_convert, vp8, vp8l
+
+    return {"image_convert": image_convert.convert.launches,
+            "vp8": vp8.decode.launches, "vp8l": vp8l.decode.launches}
+
+
+def _zero_launches():
+    from simvg_tpu_torch.data import image_convert, vp8, vp8l
+
+    image_convert.convert.launches = vp8.decode.launches = 0
+    vp8l.decode.launches = 0
+
+
+def _stages(kernel):
+    """(host stage, pixel stage) of the decoder whose card route a timed
+    fixture of ``kernel`` takes: the functions ``decode`` chains."""
+    from simvg_tpu_torch.data import tiff, webp
+
+    if kernel == "image_convert":
+        return tiff.parse, tiff.pixel_stage
+    return webp.host_stage, webp.pixel_stage
+
+
+def _bound_bytes(kernel, parsed):
+    """The bytes the pixel stage must move: its inputs (the host stage's
+    output) read once and the BGR image written once."""
+    if kernel == "image_convert":
+        raw, r, _ = parsed
+        return len(raw) + sum(a.nbytes for a in (r.lut, r.palette, r.rows)
+                              if a is not None) + r.width * r.height * 3
+    f, st = parsed
+    out = st.width * st.height * 3
+    if kernel == "vp8":
+        return st.info.nbytes + st.levels.nbytes + st.quant.nbytes + out
+    return st.pixels.nbytes + sum(t.data.nbytes for t in st.transforms) + out
+
+
+_KERNEL_NAMES = {"image_convert": {"predictor_ms": "predictor_kernel",
+                                   "convert_ms": "convert_kernel"},
+                 "vp8": {"reconstruct_ms": "reconstruct_kernel",
+                         "filter_ms": "filter_kernel",
+                         "bgr_ms": "bgr_kernel"},
+                 "vp8l": {"predictor_ms": "predictor_kernel",
+                          "pixel_ms": "pixel_kernel"}}
+
+
+def formats_kernels(card, plain_cache):
+    """Every fixture through the card's route and the plain route: equal
+    bit for bit, and to cv2's digest (a broken stream raises on both);
+    the host stages' C++ (VP8, VP8L, LZW) against their Python on every
+    fixture that has one; each new kernel timed on its textured and its
+    posterised 480 x 640 fixtures through the decoder's own host and pixel
+    stages (ms: the pixel stage, copies and kernels, CUDA events;
+    device_ms: the kernels, torch.profiler; host_ms: the host stage;
+    plain_ms: the plain route's whole decode), the timed call's output
+    held to the plain pixels.  ``plain_cache`` gets the plain pixels of
+    each fixture by its bytes.  Returns {kernel: row of the textured
+    fixture, with the posterised one's row under "posterised"}."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from simvg_tpu_torch.data import gif, lzw, tiff, vp8, vp8l, webp
+    from simvg_tpu_torch.data.image_file import decode_image, image_format
+
+    fixtures = format_fixtures()
+    plain_s = {}
+    for name, (data, rec) in sorted(fixtures.items()):
+        if rec.get("error"):
+            for device in ("cuda", "cpu"):
+                try:
+                    decode_image(data, device)
+                except ValueError:
+                    continue
+                raise AssertionError(f"formats: {name} decoded on {device}, "
+                                     "where cv2 reads no image")
+            continue
+        got = decode_image(data, "cuda")
+        t0 = time.perf_counter()
+        want = decode_image(data, "cpu")
+        plain_s[name] = time.perf_counter() - t0
+        plain_cache[data] = want
+        if not torch.equal(got.cpu(), want):
+            bad = (got.cpu() != want).any(-1).nonzero()[:3].tolist()
+            raise AssertionError(f"formats: {name}: the card's route differs "
+                                 f"from the plain route at {bad}")
+        sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        if list(got.shape) != rec["shape"] or sha != rec["sha256"]:
+            raise AssertionError(f"formats: {name}: the pixels differ from "
+                                 "cv2's")
+        # the host stages' C++ against their Python
+        kind = image_format(data)
+        if kind == "webp":
+            f = webp.parse(data)
+            mod = vp8l if f.lossless else vp8
+            a, b = mod.parse(f.bitstream), mod.decode_host(f.bitstream)
+            if f.lossless:
+                same = (np.array_equal(a.pixels, b.pixels)
+                        and len(a.transforms) == len(b.transforms)
+                        and all(x.kind == y.kind and x.xsize == y.xsize
+                                and x.bits == y.bits
+                                and np.array_equal(x.data, y.data)
+                                for x, y in zip(a.transforms, b.transforms)))
+            else:
+                same = all(np.array_equal(x, y) for x, y in zip(a, b))
+        elif kind == "gif":
+            g = gif.parse(data)
+            n = g.frame[2] * g.frame[3]
+            same = lzw.decode_reference(g.lzw_data, lzw.GIF, g.min_code_size,
+                                        n) == lzw.decode_host(
+                g.lzw_data, lzw.GIF, g.min_code_size, n)
+        elif kind == "tiff":
+            same = tiff.parse(data, "cuda")[0] == tiff.parse(data, "cpu")[0]
+        else:
+            same = True
+        if not same:
+            raise AssertionError(f"formats: {name}: the host stage's C++ "
+                                 "differs from its Python")
+    n_ok = len(plain_s)
+    rows = {}
+    for kernel, names in FORMAT_TIMED.items():
+        host, pixels = _stages(kernel)
+        timed = []
+        for name in names:
+            data = fixtures[name][0]
+            parsed = host(data, "cuda")
+            t0 = time.perf_counter()
+            for _ in range(5):
+                host(data, "cuda")
+            host_ms = (time.perf_counter() - t0) * 200
+            run = lambda: pixels(parsed, "cuda")  # noqa: E731
+            got, want = run().cpu(), plain_cache[data]
+            if not torch.equal(got, want):
+                raise AssertionError(f"formats: {kernel}'s timed call on "
+                                     f"{name} differs from the plain route")
+            err = (got.int() - want.int()).abs().max().item()
+            ms = cuda_ms(run, 20)
+            split = kernel_split_ms(run, 20, _KERNEL_NAMES[kernel])
+            device_ms = sum(split.values()) if None not in split.values() \
+                else None
+            bms, by = bound_ms(_bound_bytes(kernel, parsed), 0, "bfloat16")
+            timed.append(dict(fixture=name, coded_bytes=len(data),
+                              shape=list(want.shape), max_abs_err=err, ms=ms,
+                              device_ms=device_ms, host_ms=host_ms,
+                              plain_ms=plain_s[name] * 1e3, library_ms=None,
+                              bound_ms=bms, bound_by=by, **split))
+            log(f"formats: {kernel} on {name}: {timed[-1]} [{card}]")
+        rows[kernel] = dict(timed[0], posterised=timed[1])
+    big = {n: round(plain_s[n] * 1e3, 1) for n in plain_s if "_big" in n}
+    log(f"formats: the card's route equals the plain route and cv2's digest "
+        f"on {n_ok} fixtures ({len(fixtures) - n_ok} broken ones raise on "
+        f"both); host stages' C++ equal their Python; the plain route's ms "
+        f"on the 480 x 640 fixtures {big} [{card}]")
+    return rows
+
+
+def formats_dataset(root, opts):
+    """The synthetic val images replaced by the 480 x 640 WebP fixtures
+    (textured and posterised, lossy and lossless, in turn) under
+    ``root``/webp_synth, with the same names and annotations; returns the
+    --cfg-options of that copy."""
+    fixtures = format_fixtures()
+    files = [fixtures[n][0] for k in ("vp8", "vp8l")
+             for n in FORMAT_TIMED[k]]
+    imgdir = dict(o.split("=", 1) for o in opts)["data.train.imgsfile"]
+    ann = dict(o.split("=", 1) for o in opts)["data.train.annsfile"]
+    out = os.path.join(root, "webp_synth", "images")
+    os.makedirs(out)
+    for i, name in enumerate(sorted(os.listdir(imgdir))):
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(files[i % len(files)])
+    return synth_options(out, ann)
+
+
+def formats_phase(card, root, opts, launches):
+    """The kernels against their plain versions (``formats_kernels``), then
+    the main paths that take these formats, each with the kernels'
+    launches counted from 0: the flagship's val loader over a WebP copy of
+    the synthetic images (every batch equal, bit for bit, to the batch of
+    the plain route's pixels), and the server on det_best answering one
+    request of each format with 200 and exactly the answer it gives a PNG
+    of the plain route's pixels (the server pads every device batch to
+    BATCH rows, so a row's answer does not depend on its batch mates), and
+    JPEG 2000, AVIF and OpenEXR with 400.  A direct batch-1 eval step is
+    not the reference here: on an H100, bf16 at batch 1 against the
+    served batch of 8 moved a mid-range score by 2.5e-3 (a score of 0.0096
+    on the Sun raster fixture), over "serve"'s 1e-3, which holds on the
+    synthetic JPEGs because their scores saturate near 1.  Returns {kernel: row}
+    with each row's main-path launches."""
+    import base64
+    import threading
+
+    import torch
+    from simvg_tpu_torch.config import Config, parse_cfg_options
+    from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
+                                              build_loader_from_cfg)
+    from simvg_tpu_torch.data.image_file import decode_image
+    from simvg_tpu_torch.data.image_ops import collate_images
+    from simvg_tpu_torch.tools import serve as serve_cli
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from util_torch_port import write_png
+
+    plain_cache = {}
+    rows = formats_kernels(card, plain_cache)
+
+    def plain(data):  # the plain route's pixels, on the card
+        if data not in plain_cache:
+            plain_cache[data] = decode_image(data, "cpu")
+        return plain_cache[data].cuda()
+
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict(parse_cfg_options(formats_dataset(root, opts)))
+    ds = build_dataset_from_cfg(cfg.data.val, dataset_type=cfg.dataset,
+                                seed=cfg.seed)
+    loader = build_loader_from_cfg(ds, cfg, train=False, canvas=cfg.img_size,
+                                   seed=cfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    _zero_launches()
+    batches = list(loader)
+    torch.cuda.synchronize()
+    loader_launches = _launch_counts()
+    for (idx, _), batch in zip(loader._index_batches(), batches):
+        idx = (idx * loader.bs)[:loader.bs]  # the loader's wrap-padding
+        samples = [ds[i] for i in idx]
+        want = collate_images(samples, cfg.img_size, "cuda",
+                              [plain(s["img_bytes"]) for s in samples])
+        if not torch.equal(batch["image"], want):
+            raise AssertionError("formats: a WebP loader batch differs from "
+                                 "the plain route's")
+    if loader_launches["vp8"] + loader_launches["vp8l"] != \
+            len(batches) * loader.bs or not loader_launches["vp8"] \
+            or not loader_launches["vp8l"]:
+        raise AssertionError(f"formats: {loader_launches} launches for "
+                             f"{len(batches)} batches of {loader.bs}")
+
+    fixtures = format_fixtures()
+    served = sorted(n for n in fixtures if "_big" in n) + [
+        "pnm_pfm_le.pnm", "tiff_tiles_planar_pred2.tif"]
+
+    def request(data, i):
+        return {"image_b64": base64.b64encode(data).decode(),
+                "expression": f"the green box number {i}", "all": True}
+
+    reqs = [request(fixtures[n][0], i) for i, n in enumerate(served)]
+    # the twins: a PNG of each request's plain-route pixels
+    twins = [request(write_png(plain(fixtures[n][0]).cpu().numpy()[..., ::-1]),
+                     i) for i, n in enumerate(served)]
+    det_best = os.path.join(root, "work", "det_best")
+    server = serve_cli.build_server([FLAGSHIP, "--checkpoint", det_best,
+                                     "--port", "0", "--max-batch",
+                                     str(BATCH), "--batch-timeout-ms", "20"])
+    thread = threading.Thread(target=server.serve_forever)
+    thread.start()
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        results = serve_burst(server.server_port, reqs)
+        torch.cuda.synchronize()
+        serve_launches = _launch_counts()
+        twin_results = serve_burst(server.server_port, twins)
+        refused = {k: _http(server.server_port, "/predict", {
+            "image_b64": base64.b64encode(v).decode(),
+            "expression": k}) for k, v in FORMAT_REFUSED.items()}
+    finally:
+        server.close()
+        thread.join(timeout=60)
+    for k, (status, body) in refused.items():
+        if status != 400 or k not in body.get("error", ""):
+            raise AssertionError(f"formats: a {k} request gave {status} "
+                                 f"{body}")
+    if not all(serve_launches.values()):
+        raise AssertionError(f"formats: server launches {serve_launches}")
+    answers = [{br: out[br] for br in ("token", "decoder")}
+               for _, out in results]
+    twin_answers = [{br: out[br] for br in ("token", "decoder")}
+                    for _, out in twin_results]
+    differ = [n for n, a, b in zip(served, answers, twin_answers) if a != b]
+    log(f"formats: val loader over {len(ds)} WebP files in {len(batches)} "
+        f"batches, each equal to the plain route's batch; the server "
+        f"answered {len(reqs)} requests ({served}) with 200, each with "
+        f"exactly the boxes and scores of a PNG of the plain route's pixels "
+        f"(different: {differ}); scores "
+        f"{[round(a['token']['score'], 4) for a in answers]}; JPEG 2000, "
+        f"AVIF and OpenEXR with 400; launches: loader {loader_launches}, "
+        f"server {serve_launches} [{card}]")
+    if differ:
+        raise AssertionError(f"formats: served answers of {differ} differ "
+                             "from their PNG twins'")
+    for k in rows:
+        rows[k]["launches"] = loader_launches[k] + serve_launches[k]
+    launches.append(sum(r["launches"] for r in rows.values()))
+    return rows
 
 
 def demo_inference_phase(card, root, imgdir, opts, launches):
@@ -4974,6 +5314,10 @@ def main() -> int:
         log(f"png phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         counts = []
+        format_rows = formats_phase(card, root, synth, counts)
+        log(f"formats phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        counts = []
         int8_phase(card, root, synth, counts)
         int8_k1, int8_k2 = (sum(c[i] for c in counts) for i in (0, 1))
         log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
@@ -5020,7 +5364,9 @@ def main() -> int:
         f"{new['tools'][1]}, zoo {new['zoo'][1]}, legacy "
         f"{new['legacy'][1]}, headdim "
         f"{ {hd: c[1] for hd, c in headdim.items()} }; PNG kernel "
-        f"{png_launches} (loader and server)")
+        f"{png_launches} (loader and server); "
+        + ", ".join(f"{k} {r['launches']}" for k, r in format_rows.items())
+        + " (WebP loader and the server's requests of every format)")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     # every number on this line is measured in this run, at the train
@@ -5069,7 +5415,16 @@ def main() -> int:
             "launches": png_launches,
             **{k: png_row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "device_ms")}}]}),
+                "library_ms", "device_ms")}}]
+        + [{"name": k, "route": "cuda",
+            "source": f"simvg_tpu_torch/csrc/{k}.cu",
+            "replaces": "none (cv2.imdecode in simvg_tpu/data/datasets.py:158"
+                        " and tools/serve.py:265, on the host)",
+            **{f: r[f] for f in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "device_ms", "host_ms",
+                "fixture")}}
+           for k, r in format_rows.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

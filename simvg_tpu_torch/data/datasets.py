@@ -22,7 +22,7 @@ As in the JAX module:
 - the aspect-ratio group flag for the group sampler, and the bbox clip.
 
 What differs: ``_load_image`` returns the file's bytes and the image's
-(h, w) from the JPEG or PNG header (EXIF orientation applied), not decoded
+(h, w) from the image header (EXIF orientation applied), not decoded
 pixels; the loader decodes on its device (``data/image_file.py``,
 ``data/image_ops.py``).
 With ``with_mask`` the annotation's ``mask`` (polygons, or an RLE dict)
@@ -143,8 +143,8 @@ class BaseDataset:
         )
 
     def _load_image(self, ann: dict) -> Tuple[bytes, Tuple[int, int]]:
-        """The image file's bytes (JPEG or PNG) and the decoded image's
-        (h, w)."""
+        """The image file's bytes (any format ``image_file`` reads) and
+        the decoded image's (h, w)."""
         path = _filename_for(self.dataset_name, ann, self.imgsfile)
         with open(path, "rb") as f:
             data = f.read()

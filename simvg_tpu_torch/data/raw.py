@@ -1,7 +1,7 @@
 """Raw-source preprocessing shared by the demo and the server (port of
 ``simvg_tpu/data/raw.py``).
 
-(JPEG or PNG bytes, expression) -> the sample that the config's val
+(image bytes, expression) -> the sample that the config's val
 pipeline gives, by the dataset loader's own route: the geometry from the
 file's header on the host (``data/image_file.py``), the transforms' sizes
 and scale factors on the host (``data/transforms.py``), the pixels decoded
@@ -26,7 +26,7 @@ from .tokenization import build_tokenizer
 
 
 class RawPreprocessor:
-    """(JPEG or PNG bytes, expression) -> pipeline sample dict;
+    """(image bytes, expression) -> pipeline sample dict;
     ``collate`` makes the batch of such samples on ``device``.
 
     Built from a full config (the keys the test CLI reads):
@@ -53,8 +53,8 @@ class RawPreprocessor:
 
     def __call__(self, data: bytes, expression: str,
                  filename: str = "<raw>") -> dict:
-        """The sample of one JPEG or PNG stream; raises ValueError on any
-        other stream."""
+        """The sample of one image stream (any format ``image_file``
+        reads); raises ValueError on any other stream."""
         geo = image_geometry(data)
         shape = (geo.height, geo.width, 3)
         ids, mask = self.tokenizer.encode(expression, self.max_token)

@@ -1,5 +1,5 @@
 """Single image + free-text expression demo of the port (counterpart of
-``tools/demo.py``): the config's val pipeline on one JPEG or PNG through
+``tools/demo.py``): the config's val pipeline on one image through
 ``RawPreprocessor`` (the server's route), the eval step, and the predicted
 box drawn on the image.
 

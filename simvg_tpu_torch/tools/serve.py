@@ -17,7 +17,7 @@ API (JSON over HTTP, standard library only):
 
   GET  /healthz   -> {"status": "ok", "backend": ..., "max_batch": N,
                       "img_size": S}
-  POST /predict   <- {"image_b64": <b64 JPEG or PNG>, "expression": str}
+  POST /predict   <- {"image_b64": <b64 image>, "expression": str}
                      (or {"image_path": str} under --image-root; refused
                       unless the server was started with it)
                   -> {"token":   {"box": [x0, y0, x1, y1], "score": f},
@@ -26,12 +26,14 @@ API (JSON over HTTP, standard library only):
      "all": true adds each query's "boxes"/"scores" (GRefCOCO-style).
 
 Boxes are in the original image's coordinates (the prediction divided by
-the pipeline's scale_factor, as the demo does).  The server takes JPEG
-(nvJPEG on the card) and PNG (inflated on the host, unfiltered by the
-port's kernel on the card); any other stream is answered with 400, naming
-its format where its first bytes tell it.  Requests are parsed, read and
-decoded in the HTTP handler threads, so the Huffman decode and the
-inflate of concurrent requests run side by side; the batcher
+the pipeline's scale_factor, as the demo does).  The server takes every
+format ``data/image_file.py`` reads: JPEG (nvJPEG on the card), PNG,
+WebP, GIF, TIFF, BMP, PNM/PFM, Sun raster and Radiance HDR (their
+entropy and run-length coding on the host, the pixels in the port's
+kernels on the card); any other stream (JPEG 2000, AVIF, OpenEXR, ...)
+is answered with 400, naming its format where its first bytes tell it.
+Requests are parsed, read and decoded in the HTTP handler threads, so the
+host stages of concurrent requests run side by side; the batcher
 thread builds the batch and runs the forward.  A warm-up batch runs before
 the server listens.
 
@@ -227,7 +229,7 @@ def build_backend(args, cfg, device, device_norm=None,
 
 
 def read_image(req: dict, image_root: str | None = None) -> bytes:
-    """The request's JPEG or PNG stream; raises ValueError on a request
+    """The request's image stream; raises ValueError on a request
     without an image, an ``image_path`` outside ``image_root`` (or any,
     without one), and a stream of any other format."""
     if "image_b64" in req:

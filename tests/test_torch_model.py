@@ -29,7 +29,7 @@ FIXTURE = osp.join(REPO, "tests", "fixtures", "simvg_full_tiny.pth")
 FLAGSHIP = "configs/single/ViT-base/refcoco/refcoco_onestage.py"
 OUT_KEYS = ("class_decoder", "bbox_decoder", "class_token", "bbox_token")
 # top-level modules absent from the GPU machine, and the JAX package itself
-NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2",
+NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
                    "simvg_tpu")
 
 
@@ -330,7 +330,13 @@ def test_port_imports_no_jax():
         "simvg_tpu_torch.models.beit3_heads, "
         "simvg_tpu_torch.models.legacy_layers, "
         "simvg_tpu_torch.losses.legacy, simvg_tpu_torch.data.vgtr_aug, "
-        "simvg_tpu_torch.data.png, simvg_tpu_torch.data.image_file\n"
+        "simvg_tpu_torch.data.png, simvg_tpu_torch.data.image_file, "
+        "simvg_tpu_torch.data.image_convert, simvg_tpu_torch.data.lzw, "
+        "simvg_tpu_torch.data.bmp, simvg_tpu_torch.data.pnm, "
+        "simvg_tpu_torch.data.sunras, simvg_tpu_torch.data.hdr, "
+        "simvg_tpu_torch.data.gif, simvg_tpu_torch.data.tiff, "
+        "simvg_tpu_torch.data.vp8, simvg_tpu_torch.data.vp8l, "
+        "simvg_tpu_torch.data.webp\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{NOT_ON_THE_CARD + ('tools',)})\n"
         "assert not bad, bad\n")

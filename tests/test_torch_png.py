@@ -141,10 +141,14 @@ def test_broken_streams_raise_where_cv2_fails():
 
 
 def test_other_formats_raise_naming_them():
-    ok, bmp = cv2.imencode(".bmp", np.zeros((4, 4, 3), np.uint8))
-    for data, name in ((bmp.tobytes(), "BMP"), (b"GIF89a....", "GIF"),
-                       (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "WebP"),
-                       (b"II*\x00\x08\x00", "TIFF")):
+    """The formats cv2 reads and the port does not (JPEG 2000, AVIF,
+    OpenEXR, PAM) raise naming them; BMP, GIF, WebP and TIFF, refused
+    before, are read now."""
+    for data, name in ((b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8),
+                        "JPEG 2000"),
+                       (b"\x00\x00\x00\x1cftypavif" + bytes(8), "AVIF"),
+                       (b"\x76\x2f\x31\x01" + bytes(8), "OpenEXR"),
+                       (b"P7\nWIDTH 4\n", "PAM")):
         with pytest.raises(ValueError, match=f"{name} is not an image"):
             image_format(data)
         with pytest.raises(ValueError, match=name):
@@ -153,6 +157,11 @@ def test_other_formats_raise_naming_them():
         image_geometry(b"hello")
     assert image_format(b"\xff\xd8\xff") == "jpeg"
     assert image_format(png.SIGNATURE) == "png"
+    ok, bmp = cv2.imencode(".bmp", np.zeros((4, 4, 3), np.uint8))
+    for data, kind in ((bmp.tobytes(), "bmp"), (b"GIF89a....", "gif"),
+                       (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "webp"),
+                       (b"II*\x00\x08\x00", "tiff")):
+        assert image_format(data) == kind
 
 
 def test_cpu_routes_without_cv2(monkeypatch):

@@ -3,9 +3,10 @@ in-process on the CPU: the counterparts of tests/test_serve.py.
 
 - predict and errors: 200 with boxes in the original image's coordinates,
   ``"all"``'s per-query lists; 400 for a request without an image, bad
-  base64, an ``image_path`` without ``--image-root`` and a format other
-  than JPEG and PNG (a BMP, named in the error); 404 off the two routes; a
-  PNG of a JPEG's decoded pixels answered as that JPEG is;
+  base64, an ``image_path`` without ``--image-root`` and a format the
+  port does not read (JPEG 2000, named in the error); 404 off the two
+  routes; a PNG and a BMP of a JPEG's decoded pixels answered as that JPEG
+  is;
 - dynamic batching: concurrent requests share a device batch;
 - a response equals JAX ``make_eval_step`` on the same request's batch,
   divided by scale_factor, within 1e-4 (the eval-step bound of
@@ -148,14 +149,14 @@ def test_serve_predict_and_errors(live):
     nq = Config.fromfile(TINY).model.head.num_queries
     assert len(out["token"]["boxes"]) == len(out["token"]["scores"]) == nq
 
-    ok, bmp = cv2.imencode(".bmp", np.zeros((8, 8, 3), np.uint8))
+    jp2 = b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(16)
     for bad, why in (({"expression": "no image"}, "image_b64 or image_path"),
                      ({"image_b64": "!!notbase64", "expression": "x"},
                       "base64"),
                      ({"image_path": "/etc/passwd", "expression": "x"},
                       "disabled"),
-                     ({"image_b64": _b64(bmp.tobytes()), "expression": "x"},
-                      "BMP is not an image format"),
+                     ({"image_b64": _b64(jp2), "expression": "x"},
+                      "JPEG 2000 is not an image format"),
                      ({"image_b64": _b64(b"\xff\xd8junk"),
                        "expression": "x"}, "")):
         status, out = _request(live.port, "/predict", bad)
@@ -166,12 +167,15 @@ def test_serve_predict_and_errors(live):
     assert status == 200
     pixels = cv2.imdecode(np.frombuffer(_jpg(3), np.uint8), cv2.IMREAD_COLOR)
     png = write_png(pixels[..., ::-1], filters=(0, 1, 2, 3, 4))
-    (s1, from_jpg), (s2, from_png) = (_predict(live.port, d, "the red box")
-                                      for d in (_jpg(3), png))
-    assert s1 == s2 == 200
+    ok, bmp = cv2.imencode(".bmp", pixels)
+    (s1, from_jpg), (s2, from_png), (s3, from_bmp) = (
+        _predict(live.port, d, "the red box") for d in (_jpg(3), png,
+                                                        bmp.tobytes()))
+    assert s1 == s2 == s3 == 200
     for br in ("token", "decoder"):
-        np.testing.assert_allclose(from_png[br]["box"], from_jpg[br]["box"],
-                                   atol=1e-4, rtol=0)
+        for other in (from_png, from_bmp):
+            np.testing.assert_allclose(other[br]["box"], from_jpg[br]["box"],
+                                       atol=1e-4, rtol=0)
 
 
 def test_serve_dynamic_batching(live):
@@ -276,7 +280,7 @@ def test_serve_weights_as_argument_program(jax_weights, tmp_path):
 
 def test_read_image_path_gate(tmp_path):
     """--image-root: refused by default, resolved under the root, no
-    traversal out of it; a JPEG or a PNG, not a BMP."""
+    traversal out of it; a JPEG, a PNG or a BMP, not an AVIF."""
     sub = tmp_path / "imgs"
     sub.mkdir()
     (sub / "a.jpg").write_bytes(_jpg(0, 8, 8))
@@ -294,5 +298,8 @@ def test_read_image_path_gate(tmp_path):
                             image_root=str(sub)) == png.tobytes()
     ok, bmp = cv2.imencode(".bmp", np.zeros((8, 8, 3), np.uint8))
     (sub / "c.bmp").write_bytes(bmp.tobytes())
-    with pytest.raises(ValueError, match="BMP is not"):
-        serve.read_image({"image_path": "c.bmp"}, image_root=str(sub))
+    assert serve.read_image({"image_path": "c.bmp"},
+                            image_root=str(sub)) == bmp.tobytes()
+    (sub / "d.avif").write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(16))
+    with pytest.raises(ValueError, match="AVIF is not"):
+        serve.read_image({"image_path": "d.avif"}, image_root=str(sub))
