@@ -81,8 +81,11 @@ against eager), the HTTP server on the CLI phase's det_best (a burst of
 24 JPEG requests from 8 clients, each held to a direct eval step, then 23 s
 of load from 8 closed-loop clients for latency and images/s), and the demo
 and inference CLIs.  Then "png": the PNG kernel against the plain decoder
-on streams of every colour type and bit depth, every filter, Adam7, bit
-for bit; its time on a 480 x 640 RGB image beside the host's inflate; the
+on streams of every colour type and bit depth, every filter, Adam7, and
+at the unfilter kernel's edges (row groups, the cluster's slots, widths
+of 1 and 2 units at every bytes-per-pixel, single filter types), bit for
+bit; its time on 480 x 640 RGB images (every filter, all Paeth) beside
+the host's inflate; the
 flagship's val loader over the synthetic JPEGs rewritten as PNG (each
 batch bit for bit the plain decoder's) and the server on det_best
 answering PNG requests (each held to a direct eval step on the plain
@@ -90,7 +93,8 @@ decoder's pixels), the kernel's launches counted from 0 around both.  Then
 "formats": the decoders of WebP (csrc/vp8.cu, vp8l.cu), GIF, TIFF, BMP,
 PNM/PFM, Sun raster and HDR (csrc/image_convert.cu), with their host C++,
 against the plain decoders and cv2's digests on the committed fixtures
-(tests/fixtures/formats/), bit for bit; each kernel's time on a 480 x 640
+(tests/fixtures/formats/), bit for bit, each lossy WebP also with its loop
+filter forced to none and to the simple one; each kernel's time on a 480 x 640
 image beside its host stage and the plain route; the val loader over a
 WebP copy of the synthetic images and the server answering a request of
 every format (JPEG 2000, AVIF and OpenEXR with 400), the kernels' launches
@@ -2365,10 +2369,11 @@ PNG_REQUESTS = 16
 
 def png_streams(rng):
     """PNG streams written here with zlib (``tests/util_torch_port.py``'s
-    ``write_png``) over PNG_CASES, and the timed one: 480 x 640 RGB, every
-    filter type."""
+    ``write_png``) over PNG_CASES and its PNG_BOUNDARY_CASES, and the timed
+    ones: 480 x 640 RGB with every filter type, and with Paeth alone."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from util_torch_port import png_chunk, write_png
+    from util_torch_port import (PNG_BOUNDARY_CASES, png_boundary_stream,
+                                 png_chunk, write_png)
 
     streams = []
     for ct, bd in PNG_CASES:
@@ -2383,8 +2388,10 @@ def png_streams(rng):
             for interlace in (False, True):
                 streams.append(write_png(samples, bd, ct, PNG_FILTERS,
                                          interlace, before))
-    big = write_png(rng.integers(0, 256, JPEG_HW + (3,)), 8, 2, PNG_FILTERS)
-    return streams, big
+    streams += [png_boundary_stream(c) for c in PNG_BOUNDARY_CASES]
+    pixels = rng.integers(0, 256, JPEG_HW + (3,))
+    return streams, write_png(pixels, 8, 2, PNG_FILTERS), write_png(
+        pixels, 8, 2, (4,))
 
 
 def png_dataset(root, opts):
@@ -2435,8 +2442,8 @@ def png_phase(card, root, opts, launches):
     def plain(data):  # the plain decoder's pixels, on the card
         return png.decode(data, "cpu").cuda()
 
-    streams, big = png_streams(np.random.default_rng(SEED))
-    for data in streams + [big]:
+    streams, big, paeth = png_streams(np.random.default_rng(SEED))
+    for data in streams + [big, paeth]:
         got = png.decode(data, "cuda")
         if not torch.equal(got.cpu(), png.decode(data, "cpu")):
             st = png.parse(data)
@@ -2458,19 +2465,24 @@ def png_phase(card, root, opts, launches):
     split = kernel_split_ms(kern, 20, {"unfilter_ms": "unfilter_kernel",
                                        "convert_ms": "convert_kernel"})
     device_ms = sum(split.values()) if None not in split.values() else None
+    st_paeth = png.parse(paeth)
+    paeth_split = kernel_split_ms(lambda: png.decode_cuda(st_paeth, "cuda"),
+                                  20, {"unfilter_ms": "unfilter_kernel"})
     # the inflated bytes read once, the BGR image written once
     nbytes = len(st.data) + st.height * st.width * 3
     bms, by = bound_ms(nbytes, 0, "bfloat16")
-    row = dict(shape=[st.height, st.width, 3], streams=len(streams) + 1,
+    row = dict(shape=[st.height, st.width, 3], streams=len(streams) + 2,
                max_abs_err=0, ms=ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=bms, bound_by=by, device_ms=device_ms,
-               inflate_ms=inflate_ms, **split)
-    log(f"png: the kernel equals its plain version on {len(streams) + 1} "
-        f"streams (every colour type and bit depth, filters 0-4, Adam7); "
-        f"480x640 RGB: {row} (ms: copy to the card and both kernels, CUDA "
-        f"events; device_ms: the kernels' device time, torch.profiler; "
-        f"plain_ms: the numpy decoder; inflate_ms: zlib and the chunks on "
-        f"the host) [{card}]")
+               inflate_ms=inflate_ms, **split,
+               paeth_unfilter_ms=paeth_split["unfilter_ms"])
+    log(f"png: the kernel equals its plain version on {len(streams) + 2} "
+        f"streams (every colour type and bit depth, filters 0-4, Adam7, the "
+        f"unfilter kernel's edges); 480x640 RGB, every filter: {row} (ms: "
+        f"copy to the card and both kernels, CUDA events; device_ms: the "
+        f"kernels' device time, torch.profiler; paeth_unfilter_ms: the "
+        f"unfilter kernel on the all-Paeth image; plain_ms: the numpy "
+        f"decoder; inflate_ms: zlib and the chunks on the host) [{card}]")
 
     # the flagship's val loader over the PNG copy of the synthetic images
     cfg = Config.fromfile(FLAGSHIP)
@@ -2614,8 +2626,7 @@ def _bound_bytes(kernel, parsed):
 
 _KERNEL_NAMES = {"image_convert": {"predictor_ms": "predictor_kernel",
                                    "convert_ms": "convert_kernel"},
-                 "vp8": {"reconstruct_ms": "reconstruct_kernel",
-                         "filter_ms": "filter_kernel",
+                 "vp8": {"reconstruct_filter_ms": "reconstruct_filter_kernel",
                          "bgr_ms": "bgr_kernel"},
                  "vp8l": {"predictor_ms": "predictor_kernel",
                           "pixel_ms": "pixel_kernel"}}
@@ -2694,6 +2705,25 @@ def formats_kernels(card, plain_cache):
             raise AssertionError(f"formats: {name}: the host stage's C++ "
                                  "differs from its Python")
     n_ok = len(plain_s)
+    # every lossy WebP codes the normal loop filter: its frame also forced
+    # to none and to the simple filter, the card's route against the plain
+    forced = []
+    for name, (data, _) in sorted(fixtures.items()):
+        if not name.startswith("webp_lossy"):
+            continue
+        fr = vp8.host_stage(webp.parse(data).bitstream, "cuda")
+        planes = vp8.reconstruct_unfiltered(fr)
+        for filter_type in (0, 1):
+            fr_t = fr._replace(filter_type=filter_type)
+            y, u, v = (p.copy() for p in planes)
+            vp8.loop_filter(fr_t, y, u, v)
+            want = torch.from_numpy(
+                vp8.to_bgr_reference(y, u, v, fr.width, fr.height))
+            if not torch.equal(vp8.pixel_stage(fr_t, "cuda").cpu(), want):
+                raise AssertionError(f"formats: {name} with loop filter "
+                                     f"{filter_type}: the card's route "
+                                     "differs from the plain route")
+            forced.append(f"{name}:{filter_type}")
     rows = {}
     for kernel, names in FORMAT_TIMED.items():
         host, pixels = _stages(kernel)
@@ -2726,7 +2756,9 @@ def formats_kernels(card, plain_cache):
     big = {n: round(plain_s[n] * 1e3, 1) for n in plain_s if "_big" in n}
     log(f"formats: the card's route equals the plain route and cv2's digest "
         f"on {n_ok} fixtures ({len(fixtures) - n_ok} broken ones raise on "
-        f"both); host stages' C++ equal their Python; the plain route's ms "
+        f"both), and the plain route on {len(forced)} lossy WebP frames with "
+        f"the loop filter forced to none or simple; host stages' C++ equal "
+        f"their Python; the plain route's ms "
         f"on the 480 x 640 fixtures {big} [{card}]")
     return rows
 

@@ -12,35 +12,55 @@
 //                        the token partitions (each block's levels); it
 //                        gives per macroblock the modes, the loop filter's
 //                        parameters and 25 blocks of levels;
-//   reconstruct_kernel   dequantisation, the inverse WHT and DCTs, intra
-//                        prediction.  A macroblock predicts from its left,
-//                        top and top-right neighbours' unfiltered pixels, so
-//                        the macroblocks go as a wavefront: diagonal
-//                        t = x + 2 y at step t (its top-right neighbour is on
-//                        diagonal t - 1), a warp a macroblock, one block, a
-//                        __syncthreads() between steps;
-//   filter_kernel        the simple or normal loop filter, in place over the
-//                        whole frame.  libwebp filters a macroblock at a time
-//                        in raster order, each reaching 3 pixels into its
-//                        left and top neighbours; the same wavefront gives
-//                        the same order for every pixel;
+//   reconstruct_filter_kernel
+//                        dequantisation, the inverse WHT and DCTs, intra
+//                        prediction and the simple or normal loop filter,
+//                        in one launch.  A macroblock predicts from its
+//                        left, top and top-right neighbours' unfiltered
+//                        pixels, so the macroblocks go as a wavefront:
+//                        diagonal t = x + 2 y at step t (its top-right
+//                        neighbour is on diagonal t - 1).  libwebp filters a
+//                        macroblock at a time in raster order, each reaching
+//                        3 pixels into its left and top neighbours; filtered
+//                        a diagonal behind the reconstruction, the same
+//                        wavefront keeps that order for every pixel, and
+//                        the prediction reads the unfiltered edges that the
+//                        kernel saves in shared memory (a column's bottom
+//                        row, a row's right column), never the frame;
 //   bgr_kernel           one thread a pixel: libwebp's fancy upsampling of U
 //                        and V and its 14-bit YUV -> BGR.
 //
-// What bounds it: the wavefronts' steps (mb_w + 2 (mb_h - 1), 98 for 480 x
-// 640), each a few hundred dependent shared-memory operations of one warp,
-// and before them the host's boolean decoding, which takes longer than the
-// kernels together.
+// The wavefront's design.  A warp takes a macroblock: the inverse WHT on 16
+// lanes, the 24 inverse DCTs at once (a block's column, then its row, a
+// lane each, three a lane), the 16x16 and chroma predictions a pixel pass,
+// B_PRED's 16 sub-blocks as a wavefront over bx + 2 by (10 steps, two
+// sub-blocks a step, a pixel a lane), the pixels written to the frame once;
+// its levels and modes are copied into shared memory a step ahead
+// (cp.async).  A filtering warp runs each line's edges in registers, a lane
+// a row and then a column.  The rows are dealt round a cluster of kCluster
+// blocks (one an SM; one SM's issue slots were the limit of a one-block
+// design): block k takes the rows y = k mod kCluster, stores a macroblock's
+// bottom row into the next block's shared memory (distributed shared
+// memory), and a cluster barrier separates the steps.
+//
+// What bounds it: the wavefront's steps (mb_w + 2 (mb_h - 1) + 1, 99 for
+// 480 x 640), each as long as its slowest macroblock: a B_PRED
+// reconstruction (the 10-step sub-block chain, each step a few dependent
+// shared-memory operations) plus the barrier.  Before them the host's
+// boolean decoding takes longer than the kernels together.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include <string>
 #include <vector>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -550,389 +570,489 @@ void parse(const uint8_t* data, long long size, Frame& f) {
 
 // ---- the kernels ------------------------------------------------------------
 
-constexpr int kWarps = 16;
+constexpr int kCluster = 8;      // SMs the wavefront runs on: a block each, one cluster
+constexpr int kBlockWarps = 8;   // macroblocks in flight a block: a warp each
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct WarpBuf {
-  int16_t coef[24][16];  // dequantised, the i16 luma DCs from the WHT
-  uint8_t y[17][21];     // libwebp's work buffer: row 0 above, column 0 left
-  uint8_t uv[2][9][9];
-  uint8_t pred[16];
-  int tmp[16];
-  int sum;
+// A warp's work space in shared memory.
+struct alignas(16) WarpBuf {
+  // libwebp's work buffer, luma: row 0 the pixels above (column 15 the
+  // corner, 32-35 above-right, copied to rows 4, 8 and 12 for B_PRED),
+  // column 15 the pixels to the left, the macroblock at rows 1-16, columns
+  // 16-31
+  uint8_t y[17 * 48];
+  uint8_t uv[2][9 * 16];  // chroma: the same at column 7, the block at 8-15
+  int16_t resid[24][16];  // the inverse transforms (>> 3): Y 0-15, U, V
+  union {
+    int tmp[24][16];  // the inverse DCTs' first pass
+    struct {          // the loop filter's pixels, from 4 above and 4 left
+      uint8_t y[20 * 20];
+      uint8_t uv[2][12 * 12];
+    } tile;
+  };
+  // the levels and modes of the warp's macroblock of this step and the
+  // next, copied from device memory a step ahead (cp.async)
+  int16_t staged_levels[2][400];
+  uint8_t staged_info[2][32];
 };
 
+// The unfiltered pixels the macroblocks below and to the right predict
+// from: a column's bottom row, a row's right column and its corner.
+struct TopEdge {
+  uint8_t y[16], u[8], v[8];
+};
+struct LeftEdge {
+  uint8_t y[16], u[8], v[8];
+  uint8_t cy, cu, cv, pad[13];
+};
+
+// B_PRED's modes 2-9 (VE, HE, RD, VR, LD, VL, HD, HU), a pixel (y * 4 + x)
+// each: avg3(e[i0], e[i1], e[i2]) if bit 12, else avg2(e[i0], e[i1]), over
+// the edge e = L K J I X A B C D E F G H (dsp/dec.c's names; generated from
+// data/vp8.py's _pred4).  The kernel turns it into pred4_codes' form.
+__constant__ uint16_t kPred4[8][16] = {
+    {0x1654, 0x1765, 0x1876, 0x1987, 0x1654, 0x1765, 0x1876, 0x1987, 0x1654, 0x1765, 0x1876,
+     0x1987, 0x1654, 0x1765, 0x1876, 0x1987},
+    {0x1234, 0x1234, 0x1234, 0x1234, 0x1123, 0x1123, 0x1123, 0x1123, 0x1012, 0x1012, 0x1012,
+     0x1012, 0x1001, 0x1001, 0x1001, 0x1001},
+    {0x1345, 0x1456, 0x1567, 0x1678, 0x1234, 0x1345, 0x1456, 0x1567, 0x1123, 0x1234, 0x1345,
+     0x1456, 0x1012, 0x1123, 0x1234, 0x1345},
+    {0x0554, 0x0665, 0x0776, 0x0887, 0x1543, 0x1654, 0x1765, 0x1876, 0x1432, 0x0554, 0x0665,
+     0x0776, 0x1321, 0x1543, 0x1654, 0x1765},
+    {0x1765, 0x1876, 0x1987, 0x1a98, 0x1876, 0x1987, 0x1a98, 0x1ba9, 0x1987, 0x1a98, 0x1ba9,
+     0x1cba, 0x1a98, 0x1ba9, 0x1cba, 0x1ccb},
+    {0x0665, 0x0776, 0x0887, 0x0998, 0x1765, 0x1876, 0x1987, 0x1a98, 0x0776, 0x0887, 0x0998,
+     0x1ba9, 0x1876, 0x1987, 0x1a98, 0x1cba},
+    {0x0443, 0x1543, 0x1654, 0x1765, 0x0332, 0x1432, 0x0443, 0x1543, 0x0221, 0x1321, 0x0332,
+     0x1432, 0x0110, 0x1210, 0x0221, 0x1321},
+    {0x0223, 0x1123, 0x0112, 0x1012, 0x0112, 0x1012, 0x0001, 0x1001, 0x0001, 0x1001, 0x0000,
+     0x0000, 0x0000, 0x0000, 0x0000, 0x0000}};
+
 __device__ __forceinline__ int clip8(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
-__device__ __forceinline__ int avg3(int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; }
-__device__ __forceinline__ int avg2(int a, int b) { return (a + b + 1) >> 1; }
 __device__ __forceinline__ int mul1(int a) { return ((a * 20091) >> 16) + a; }
 __device__ __forceinline__ int mul2(int a) { return (a * 35468) >> 16; }
 
-// A 4x4 block's prediction (dsp/dec.c), from the work buffer around it.
-__device__ void pred4(int mode, const uint8_t* top, const uint8_t* left, int left_stride, int X,
-                      uint8_t* p) {
-  const int A = top[0], B = top[1], C = top[2], D = top[3], E = top[4], F = top[5], G = top[6],
-            H = top[7];
-  const int I = left[0], J = left[left_stride], K = left[2 * left_stride], L = left[3 * left_stride];
-#define P(x, y) p[(y) * 4 + (x)]
-  switch (mode) {
-    case 0: {
-      const int v = (A + B + C + D + I + J + K + L + 4) >> 3;
-      for (int k = 0; k < 16; ++k) p[k] = (uint8_t)v;
-      break;
-    }
-    case 1: {
-      const int l[4] = {I, J, K, L}, t[4] = {A, B, C, D};
-      for (int y = 0; y < 4; ++y)
-        for (int x = 0; x < 4; ++x) P(x, y) = (uint8_t)clip8(l[y] + t[x] - X);
-      break;
-    }
-    case 2: {
-      const int v[4] = {avg3(X, A, B), avg3(A, B, C), avg3(B, C, D), avg3(C, D, E)};
-      for (int y = 0; y < 4; ++y)
-        for (int x = 0; x < 4; ++x) P(x, y) = (uint8_t)v[x];
-      break;
-    }
-    case 3: {
-      const int v[4] = {avg3(X, I, J), avg3(I, J, K), avg3(J, K, L), avg3(K, L, L)};
-      for (int y = 0; y < 4; ++y)
-        for (int x = 0; x < 4; ++x) P(x, y) = (uint8_t)v[y];
-      break;
-    }
-    case 4:  // RD
-      P(0, 3) = avg3(J, K, L);
-      P(1, 3) = P(0, 2) = avg3(I, J, K);
-      P(2, 3) = P(1, 2) = P(0, 1) = avg3(X, I, J);
-      P(3, 3) = P(2, 2) = P(1, 1) = P(0, 0) = avg3(A, X, I);
-      P(3, 2) = P(2, 1) = P(1, 0) = avg3(B, A, X);
-      P(3, 1) = P(2, 0) = avg3(C, B, A);
-      P(3, 0) = avg3(D, C, B);
-      break;
-    case 5:  // VR
-      P(0, 0) = P(1, 2) = avg2(X, A);
-      P(1, 0) = P(2, 2) = avg2(A, B);
-      P(2, 0) = P(3, 2) = avg2(B, C);
-      P(3, 0) = avg2(C, D);
-      P(0, 3) = avg3(K, J, I);
-      P(0, 2) = avg3(J, I, X);
-      P(0, 1) = P(1, 3) = avg3(I, X, A);
-      P(1, 1) = P(2, 3) = avg3(X, A, B);
-      P(2, 1) = P(3, 3) = avg3(A, B, C);
-      P(3, 1) = avg3(B, C, D);
-      break;
-    case 6:  // LD
-      P(0, 0) = avg3(A, B, C);
-      P(1, 0) = P(0, 1) = avg3(B, C, D);
-      P(2, 0) = P(1, 1) = P(0, 2) = avg3(C, D, E);
-      P(3, 0) = P(2, 1) = P(1, 2) = P(0, 3) = avg3(D, E, F);
-      P(3, 1) = P(2, 2) = P(1, 3) = avg3(E, F, G);
-      P(3, 2) = P(2, 3) = avg3(F, G, H);
-      P(3, 3) = avg3(G, H, H);
-      break;
-    case 7:  // VL
-      P(0, 0) = avg2(A, B);
-      P(1, 0) = P(0, 2) = avg2(B, C);
-      P(2, 0) = P(1, 2) = avg2(C, D);
-      P(3, 0) = P(2, 2) = avg2(D, E);
-      P(0, 1) = avg3(A, B, C);
-      P(1, 1) = P(0, 3) = avg3(B, C, D);
-      P(2, 1) = P(1, 3) = avg3(C, D, E);
-      P(3, 1) = P(2, 3) = avg3(D, E, F);
-      P(3, 2) = avg3(E, F, G);
-      P(3, 3) = avg3(F, G, H);
-      break;
-    case 8:  // HD
-      P(0, 0) = P(2, 1) = avg2(I, X);
-      P(0, 1) = P(2, 2) = avg2(J, I);
-      P(0, 2) = P(2, 3) = avg2(K, J);
-      P(0, 3) = avg2(L, K);
-      P(3, 0) = avg3(A, B, C);
-      P(2, 0) = avg3(X, A, B);
-      P(1, 0) = P(3, 1) = avg3(I, X, A);
-      P(1, 1) = P(3, 2) = avg3(J, I, X);
-      P(1, 2) = P(3, 3) = avg3(K, J, I);
-      P(1, 3) = avg3(L, K, J);
-      break;
-    default:  // HU
-      P(0, 0) = avg2(I, J);
-      P(2, 0) = P(0, 1) = avg2(J, K);
-      P(2, 1) = P(0, 2) = avg2(K, L);
-      P(1, 0) = avg3(I, J, K);
-      P(3, 0) = P(1, 1) = avg3(J, K, L);
-      P(3, 1) = P(1, 2) = avg3(K, L, L);
-      P(3, 2) = P(2, 2) = P(0, 3) = P(1, 3) = P(2, 3) = P(3, 3) = (uint8_t)L;
-  }
-#undef P
+// A block's dynamic shared memory: its warps' buffers, then these.  Block
+// k of the cluster takes the macroblock rows y = k mod kCluster.
+struct Shared {
+  WarpBuf* bufs;
+  int* quant;        // [4][6]
+  uint32_t* pred4;   // [10][16]: pred4_code of each B_PRED mode and pixel
+  TopEdge* top;      // [mb_w]: the bottom rows of the row above this block's
+  LeftEdge* left;    // [rows / kCluster]: this block's rows
+  TopEdge* below;    // `top` of the block of the next row (another SM's)
+};
+
+size_t shared_bytes(int mb_w, int mb_h) {
+  return kBlockWarps * sizeof(WarpBuf) + 24 * sizeof(int) + 160 * sizeof(uint32_t) +
+         (size_t)mb_w * sizeof(TopEdge) + (size_t)((mb_h + kCluster - 1) / kCluster) * sizeof(LeftEdge);
 }
 
-// The inverse DCT of one block (lanes 0-3 the vertical pass, then lanes 0-15
-// a pixel each), added to the [4 x 4] pixels at `dst` (row stride `stride`),
-// whose prediction is there already.  The whole warp calls it.
-__device__ void idct_add(const int16_t* in, uint8_t* dst, int stride, int* tmp, int lane) {
+// A B_PRED pixel's prediction as three byte offsets from the sub-block's
+// corner in the work buffer (bits 0-23) and its kind (bits 24-25): 0
+// avg2(e0, e1), 1 avg3(e0, e1, e2), 2 TM clip(e0 + e1 - e2), 3 DC.
+__device__ uint32_t pred4_code(int mode, int pix) {
+  const int px = pix & 3, py = pix >> 2;
+  if (mode == 0) return 3u << 24;
+  if (mode == 1) return (uint32_t)(48 * (1 + py)) | (uint32_t)(1 + px) << 8 | 2u << 24;
+  const int c = kPred4[mode - 2][pix];
+  uint32_t code = (c & 0x1000) ? 1u << 24 : 0u;
+  for (int k = 0; k < 3; ++k) {
+    const int i = (c >> (4 * k)) & 15;
+    code |= (uint32_t)(i < 4 ? 48 * (4 - i) : i - 4) << (8 * k);
+  }
+  return code;
+}
+
+// Copies a macroblock's levels and modes into a warp's staging buffer
+// (cp.async, one group a call and lane, empty where `idx` < 0).
+__device__ __forceinline__ void stage(WarpBuf& b, int slot, const uint8_t* info,
+                                      const int16_t* levels, long long idx, int lane) {
+  if (idx >= 0) {
+    const char* lv = reinterpret_cast<const char*>(levels + idx * 400);
+    char* dst = reinterpret_cast<char*>(b.staged_levels[slot]);
+    for (int k = lane; k < 50; k += 32)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(dst + 16 * k)),
+                   "l"(lv + 16 * k)
+                   : "memory");
+    if (lane < 3)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(b.staged_info[slot] + 8 * lane)),
+                   "l"(info + idx * INFO + 8 * lane)
+                   : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One macroblock's reconstruction by a warp: dequantisation, the inverse
+// WHT (16 lanes) and DCTs (24 blocks at once), intra prediction from the
+// saved unfiltered edges (16x16 and chroma a pixel pass; B_PRED's 16
+// sub-blocks as a wavefront over bx + 2 by, 10 steps), the pixels written
+// once to Y, U and V and its edges saved for its neighbours.
+__device__ void reconstruct(WarpBuf& b, const Shared& sh, const uint8_t* row, const int16_t* lv,
+                            int mx, int my, int mb_w, uint8_t* Y, uint8_t* U, uint8_t* V,
+                            int lane) {
+  const int i4 = row[I4X4];
+  const int* q = sh.quant + 6 * row[SEGMENT];
+  // the i16 luma DCs: the inverse WHT, lane k giving DC k
+  int dcv = 0;
+  if (!i4) {
+    const int k = lane & 15, i = k & 3, r = k >> 2;
+    const int dc = i16(lv[384 + k] * (k ? q[3] : q[2]));
+    const int d0 = __shfl_sync(kFull, dc, i), d4 = __shfl_sync(kFull, dc, 4 + i);
+    const int d8 = __shfl_sync(kFull, dc, 8 + i), d12 = __shfl_sync(kFull, dc, 12 + i);
+    const int a0 = d0 + d12, a1 = d4 + d8, a2 = d4 - d8, a3 = d0 - d12;
+    const int tv = r == 0 ? a0 + a1 : r == 1 ? a3 + a2 : r == 2 ? a0 - a1 : a3 - a2;
+    const int t0 = __shfl_sync(kFull, tv, 4 * r), t1 = __shfl_sync(kFull, tv, 4 * r + 1);
+    const int t2 = __shfl_sync(kFull, tv, 4 * r + 2), t3 = __shfl_sync(kFull, tv, 4 * r + 3);
+    const int d = t0 + 3, b0 = d + t3, b1 = t1 + t2, b2 = t1 - t2, b3 = d - t3;
+    dcv = i16((i == 0 ? b0 + b1 : i == 1 ? b3 + b2 : i == 2 ? b0 - b1 : b3 - b2) >> 3);
+  }
+  // the inverse DCTs' first pass: (block, column) pairs, 3 a lane
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int n = lane + 32 * m, blk = n >> 2, i = n & 3;
+    const int16_t* L = lv + blk * 16;
+    const bool luma = blk < 16;
+    const int qdc = luma ? q[0] : q[4], qac = luma ? q[1] : q[5];
+    const int wdc = __shfl_sync(kFull, dcv, blk & 15);
+    const int c0 = !i4 && luma && i == 0 ? wdc : i16(L[i] * (i ? qac : qdc));
+    const int c4 = i16(L[4 + i] * qac), c8 = i16(L[8 + i] * qac), c12 = i16(L[12 + i] * qac);
+    const int a = c0 + c8, bb = c0 - c8;
+    const int c = mul2(c4) - mul1(c12), d = mul1(c4) + mul2(c12);
+    *reinterpret_cast<int4*>(&b.tmp[blk][4 * i]) = make_int4(a + d, bb + c, bb - c, a - d);
+  }
+  // the work buffers' edges from the saved rows and columns
+  const TopEdge& tp = sh.top[mx];
+  LeftEdge& lf = sh.left[my / kCluster];
   if (lane < 4) {
-    const int i = lane;
-    const int a = in[i] + in[8 + i], b = in[i] - in[8 + i];
-    const int c = mul2(in[4 + i]) - mul1(in[12 + i]);
-    const int d = mul1(in[4 + i]) + mul2(in[12 + i]);
-    tmp[4 * i + 0] = a + d;
-    tmp[4 * i + 1] = b + c;
-    tmp[4 * i + 2] = b - c;
-    tmp[4 * i + 3] = a - d;
+    *reinterpret_cast<uint32_t*>(&b.y[16 + 4 * lane]) = *reinterpret_cast<const uint32_t*>(&tp.y[4 * lane]);
+  } else if (lane < 8) {  // above-right: the next column's bottom row, or this one's last pixel
+    const uint32_t ar = mx + 1 < mb_w ? *reinterpret_cast<const uint32_t*>(sh.top[mx + 1].y)
+                                      : tp.y[15] * 0x01010101u;
+    *reinterpret_cast<uint32_t*>(&b.y[48 * 4 * (lane - 4) + 32]) = ar;
+  } else if (lane == 8) {
+    b.y[15] = lf.cy;
+  } else if (lane < 11) {
+    const int c = lane - 9;
+    *reinterpret_cast<uint2*>(&b.uv[c][8]) = *reinterpret_cast<const uint2*>(c ? tp.v : tp.u);
+    b.uv[c][7] = c ? lf.cv : lf.cu;
+  } else if (lane >= 16) {
+    const int k = lane - 16, c = k >> 3, kk = k & 7;
+    b.y[48 * (1 + k) + 15] = lf.y[k];
+    b.uv[c][16 * (1 + kk) + 7] = (c ? lf.v : lf.u)[kk];
   }
   __syncwarp();
-  if (lane < 16) {
-    const int i = lane >> 2, x = lane & 3;
-    const int dc = tmp[i] + 4;
-    const int a = dc + tmp[8 + i], b = dc - tmp[8 + i];
-    const int c = mul2(tmp[4 + i]) - mul1(tmp[12 + i]);
-    const int d = mul1(tmp[4 + i]) + mul2(tmp[12 + i]);
-    const int v = x == 0 ? a + d : x == 1 ? b + c : x == 2 ? b - c : a - d;
-    uint8_t* px = dst + i * stride + x;
-    *px = (uint8_t)clip8(*px + (v >> 3));
+  // the inverse DCTs' second pass: (block, row) pairs, 3 a lane
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int n = lane + 32 * m, blk = n >> 2, i = n & 3;
+    const int t0 = b.tmp[blk][i], t1 = b.tmp[blk][4 + i], t2 = b.tmp[blk][8 + i], t3 = b.tmp[blk][12 + i];
+    const int dc = t0 + 4, a = dc + t2, bb = dc - t2;
+    const int c = mul2(t1) - mul1(t3), d = mul1(t1) + mul2(t3);
+    *reinterpret_cast<short4*>(&b.resid[blk][4 * i]) =
+        make_short4((short)((a + d) >> 3), (short)((bb + c) >> 3), (short)((bb - c) >> 3),
+                    (short)((a - d) >> 3));
   }
   __syncwarp();
-}
-
-// A 16x16 luma or 8x8 chroma block's prediction from the work buffer `ws`
-// (row stride `ws_stride`; the block at ws + ws_stride + 1).
-__device__ void pred_block(int mode, int size, uint8_t* ws, int ws_stride, int mb_x, int mb_y,
-                           int* sum, int lane) {
-  uint8_t* dst = ws + ws_stride + 1;
-  if (mode == DC_PRED) {
-    if (lane == 0) {
-      int s = 0;
-      const int shift = size == 16 ? 4 : 3;
-      for (int k = 0; k < size; ++k) s += (mb_y ? ws[1 + k] : 0) + (mb_x ? ws[(k + 1) * ws_stride] : 0);
-      if (mb_x && mb_y)
-        s = (s + size) >> (shift + 1);
-      else if (mb_x || mb_y)
-        s = (s + (size >> 1)) >> shift;
+  // chroma: lanes 0-15 U, 16-31 V; the DC sums in each half
+  {
+    const int c = lane >> 4, k = lane & 7, uvmode = row[UVMODE];
+    uint8_t* ws = b.uv[c];
+    int dc = 0;
+    if (uvmode == DC_PRED) {
+      int s = lane & 8 ? (mx ? ws[16 * (1 + k) + 7] : 0) : (my ? ws[8 + k] : 0);
+      s += __shfl_xor_sync(kFull, s, 8);
+      s += __shfl_xor_sync(kFull, s, 4);
+      s += __shfl_xor_sync(kFull, s, 2);
+      s += __shfl_xor_sync(kFull, s, 1);
+      dc = mx && my ? (s + 8) >> 4 : mx || my ? (s + 4) >> 3 : 128;
+    }
+    const int yr = (lane >> 1) & 7, xh = (lane & 1) * 4;
+    const int tl = ws[7], lp = ws[16 * (1 + yr) + 7];
+    const uint32_t above = *reinterpret_cast<const uint32_t*>(&ws[8 + xh]);
+    const short4 r = *reinterpret_cast<const short4*>(&b.resid[16 + 4 * c + 2 * (yr >> 2) + (xh >> 2)][4 * (yr & 3)]);
+    const int rs[4] = {r.x, r.y, r.z, r.w};
+    uint32_t out = 0;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int tp_x = (above >> (8 * x)) & 255;
+      const int pred = uvmode == DC_PRED ? dc : uvmode == TM_PRED ? clip8(lp + tp_x - tl)
+                     : uvmode == V_PRED ? tp_x : lp;
+      out |= (uint32_t)clip8(pred + rs[x]) << (8 * x);
+    }
+    *reinterpret_cast<uint32_t*>(&ws[16 * (1 + yr) + 8 + xh]) = out;
+  }
+  if (!i4) {  // 16x16: the prediction and the residuals, 8 pixels a lane
+    const int mode = row[MODES];
+    int dc = 0;
+    if (mode == DC_PRED) {
+      const int s = __reduce_add_sync(kFull, lane < 16 ? (my ? b.y[16 + lane] : 0)
+                                                       : (mx ? b.y[48 * (lane - 15) + 15] : 0));
+      dc = mx && my ? (s + 16) >> 5 : mx || my ? (s + 8) >> 4 : 128;
+    }
+    const int yr = lane >> 1, xh = (lane & 1) * 8;
+    const int tl = b.y[15], lp = b.y[48 * (1 + yr) + 15];
+    const uint2 above = *reinterpret_cast<const uint2*>(&b.y[16 + xh]);
+    const int blk = 4 * (yr >> 2) + (xh >> 2);
+    const short4 r0 = *reinterpret_cast<const short4*>(&b.resid[blk][4 * (yr & 3)]);
+    const short4 r1 = *reinterpret_cast<const short4*>(&b.resid[blk + 1][4 * (yr & 3)]);
+    const int rs[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+    uint2 out = make_uint2(0, 0);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int tp_x = ((x < 4 ? above.x : above.y) >> (8 * (x & 3))) & 255;
+      const int pred = mode == DC_PRED ? dc : mode == TM_PRED ? clip8(lp + tp_x - tl)
+                     : mode == V_PRED ? tp_x : lp;
+      const uint32_t v = (uint32_t)clip8(pred + rs[x]) << (8 * (x & 3));
+      if (x < 4)
+        out.x |= v;
       else
-        s = 128;
-      *sum = s;
+        out.y |= v;
     }
-    __syncwarp();
-  }
-  for (int k = lane; k < size * size; k += 32) {
-    const int y = k / size, x = k % size;
-    const int top = ws[1 + x], left = ws[(y + 1) * ws_stride], tl = ws[0];
-    int v;
-    switch (mode) {
-      case DC_PRED: v = *sum; break;
-      case TM_PRED: v = clip8(left + top - tl); break;
-      case V_PRED: v = top; break;
-      default: v = left;
+    *reinterpret_cast<uint2*>(&b.y[48 * (1 + yr) + 16 + xh]) = out;
+  } else {  // B_PRED: step s takes the sub-blocks with bx + 2 by = s, a half-warp each
+    const int bm = lane < 16 ? row[MODES + lane] : 0;
+    const int half = lane >> 4, pix = lane & 15, px = pix & 3, py = pix >> 2;
+    uint32_t code[10];  // this lane's pixel's prediction at each step
+#pragma unroll
+    for (int s = 0; s < 10; ++s) {
+      const int by = max(0, (s - 2) >> 1) + half, bx = s - 2 * by;
+      const bool on = by <= min(3, s >> 1) && bx >= 0 && bx <= 3;
+      const int mode = __shfl_sync(kFull, bm, on ? 4 * by + bx : 0);
+      code[s] = on ? sh.pred4[mode * 16 + pix] : ~0u;
     }
-    dst[y * ws_stride + x] = (uint8_t)v;
+#pragma unroll
+    for (int s = 0; s < 10; ++s) {
+      const int by = max(0, (s - 2) >> 1) + half, bx = s - 2 * by;
+      if (code[s] != ~0u) {
+        const uint8_t* corner = b.y + 48 * 4 * by + 15 + 4 * bx;
+        const int e0 = corner[code[s] & 255], e1 = corner[(code[s] >> 8) & 255];
+        const int e2 = corner[(code[s] >> 16) & 255], kind = code[s] >> 24;
+        int pred = kind == 0 ? (e0 + e1 + 1) >> 1 : kind == 1 ? (e0 + 2 * e1 + e2 + 2) >> 2
+                                                              : clip8(e0 + e1 - e2);
+        if (kind == 3)
+          pred = (corner[1] + corner[2] + corner[3] + corner[4] + corner[48] + corner[96] +
+                  corner[144] + corner[192] + 4) >> 3;
+        b.y[48 * (4 * by + 1 + py) + 16 + 4 * bx + px] =
+            (uint8_t)clip8(pred + b.resid[4 * by + bx][pix]);
+      }
+      __syncwarp();
+    }
   }
   __syncwarp();
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-reconstruct_kernel(const uint8_t* __restrict__ info, const int16_t* __restrict__ levels,
-                   const int32_t* __restrict__ quant, int mb_w, int mb_h, uint8_t* Y, uint8_t* U,
-                   uint8_t* V) {
-  __shared__ WarpBuf bufs[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  WarpBuf& b = bufs[warp];
+  // the pixels to the frame, once; the edges for the neighbours
   const int ys = 16 * mb_w, uvs = 8 * mb_w;
-  const int steps = mb_w + 2 * (mb_h - 1);
-  for (int t = 0; t < steps; ++t) {
-    int my0 = t - (mb_w - 1) > 0 ? (t - (mb_w - 1) + 1) / 2 : 0;
-    const int my1 = min(mb_h - 1, t / 2);
-    for (int my = my0 + warp; my <= my1; my += kWarps) {
-      const int mx = t - 2 * my;
-      const int idx = my * mb_w + mx;
-      const uint8_t* row = info + (size_t)idx * INFO;
-      const int32_t* q = quant + 6 * row[SEGMENT];
-      const int16_t* lv = levels + (size_t)idx * 400;
-      // dequantise
-      for (int k = lane; k < 384; k += 32) {
-        const int blk = k >> 4, pos = k & 15;
-        const int step = blk < 16 ? (pos ? q[1] : q[0]) : (pos ? q[5] : q[4]);
-        b.coef[blk][pos] = (int16_t)(lv[k] * step);
-      }
-      __syncwarp();
-      if (!row[I4X4] && lane == 0) {
-        int dc[16], out[16];
-        for (int k = 0; k < 16; ++k) dc[k] = i16(lv[384 + k] * (k ? q[3] : q[2]));
-        wht(dc, out);
-        for (int k = 0; k < 16; ++k) b.coef[k][0] = (int16_t)out[k];
-      }
-      // the work buffers' edges: 127 above the frame, 129 left of it
-      const int y0 = 16 * my, x0 = 16 * mx;
-      for (int k = lane; k < 21; k += 32) {
-        const int lx = k - 1;
-        int v;
-        if (my == 0)
-          v = 127;
-        else if (lx < 0)
-          v = mx == 0 ? 129 : Y[(y0 - 1) * ys + x0 - 1];
-        else if (lx < 16)
-          v = Y[(y0 - 1) * ys + x0 + lx];
-        else
-          v = mx == mb_w - 1 ? Y[(y0 - 1) * ys + x0 + 15] : Y[(y0 - 1) * ys + x0 + lx];
-        b.y[0][k] = (uint8_t)v;
-      }
-      for (int k = lane; k < 16; k += 32) b.y[k + 1][0] = mx == 0 ? 129 : Y[(y0 + k) * ys + x0 - 1];
-      for (int c = 0; c < 2; ++c) {
-        const uint8_t* P = c ? V : U;
-        for (int k = lane; k < 9; k += 32) {
-          const int lx = k - 1;
-          int v;
-          if (my == 0)
-            v = 127;
-          else if (lx < 0)
-            v = mx == 0 ? 129 : P[(8 * my - 1) * uvs + 8 * mx - 1];
-          else
-            v = P[(8 * my - 1) * uvs + 8 * mx + lx];
-          b.uv[c][0][k] = (uint8_t)v;
-        }
-        for (int k = lane; k < 8; k += 32) b.uv[c][k + 1][0] = mx == 0 ? 129 : P[(8 * my + k) * uvs + 8 * mx - 1];
-      }
-      __syncwarp();
-      if (row[I4X4]) {
-        if (lane < 12) b.y[4 * (1 + lane / 4)][17 + lane % 4] = b.y[0][17 + lane % 4];
-        __syncwarp();
-        for (int n = 0; n < 16; ++n) {
-          const int by = n >> 2, bx = n & 3;
-          uint8_t* corner = &b.y[4 * by][4 * bx];  // the top-left neighbour
-          if (lane == 0) pred4(row[MODES + n], corner + 1, corner + 21, 21, corner[0], b.pred);
-          __syncwarp();
-          if (lane < 16) corner[(1 + (lane >> 2)) * 21 + 1 + (lane & 3)] = b.pred[lane];
-          __syncwarp();
-          idct_add(b.coef[n], corner + 22, 21, b.tmp, lane);
-        }
-      } else {
-        pred_block(row[MODES], 16, &b.y[0][0], 21, mx, my, &b.sum, lane);
-        for (int n = 0; n < 16; ++n)
-          idct_add(b.coef[n], &b.y[1 + 4 * (n >> 2)][1 + 4 * (n & 3)], 21, b.tmp, lane);
-      }
-      for (int c = 0; c < 2; ++c) {
-        pred_block(row[UVMODE], 8, &b.uv[c][0][0], 9, mx, my, &b.sum, lane);
-        for (int n = 0; n < 4; ++n)
-          idct_add(b.coef[16 + 4 * c + n], &b.uv[c][1 + 4 * (n >> 1)][1 + 4 * (n & 1)], 9, b.tmp,
-                   lane);
-      }
-      for (int k = lane; k < 256; k += 32) Y[(y0 + k / 16) * ys + x0 + k % 16] = b.y[1 + k / 16][1 + k % 16];
-      for (int k = lane; k < 128; k += 32) {
-        const int c = k >> 6, p = k & 63;
-        (c ? V : U)[(8 * my + p / 8) * uvs + 8 * mx + p % 8] = b.uv[c][1 + p / 8][1 + p % 8];
-      }
-      __syncwarp();
-    }
-    __syncthreads();
+  if (lane < 16) {
+    *reinterpret_cast<uint4*>(&Y[(size_t)(16 * my + lane) * ys + 16 * mx]) =
+        *reinterpret_cast<const uint4*>(&b.y[48 * (1 + lane) + 16]);
+  } else {
+    const int c = (lane >> 3) & 1, k = lane & 7;
+    *reinterpret_cast<uint2*>(&(c ? V : U)[(size_t)(8 * my + k) * uvs + 8 * mx]) =
+        *reinterpret_cast<const uint2*>(&b.uv[c][16 * (1 + k) + 8]);
+  }
+  TopEdge& tw = sh.below[mx];
+  if (lane == 0) {
+    *reinterpret_cast<uint4*>(tw.y) = *reinterpret_cast<const uint4*>(&b.y[48 * 16 + 16]);
+  } else if (lane < 3) {
+    const int c = lane - 1;
+    *reinterpret_cast<uint2*>(c ? tw.v : tw.u) = *reinterpret_cast<const uint2*>(&b.uv[c][16 * 8 + 8]);
+  } else if (lane == 3) {  // the corner of the next macroblock of the row
+    lf.cy = b.y[31];
+    lf.cu = b.uv[0][15];
+    lf.cv = b.uv[1][15];
+  } else if (lane >= 16) {
+    const int k = lane - 16, c = k >> 3, kk = k & 7;
+    lf.y[k] = b.y[48 * (1 + k) + 31];
+    (c ? lf.v : lf.u)[kk] = b.uv[c][16 * (1 + kk) + 15];
   }
 }
 
-// ---- the loop filter (dsp/dec.c), on pixels `step` apart across an edge ----
+// ---- the loop filter (dsp/dec.c) on a line of pixels in registers: the
+// edge between v[P - 1] and v[P] ----
 
 __device__ __forceinline__ int sclip1(int v) { return v < -128 ? -128 : v > 127 ? 127 : v; }
 __device__ __forceinline__ int sclip2(int v) { return v < -16 ? -16 : v > 15 ? 15 : v; }
 
-__device__ void filter2(uint8_t* p, int step) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
-  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
-  p[-step] = (uint8_t)clip8(p0 + a2);
-  p[0] = (uint8_t)clip8(q0 - a1);
-}
-
-__device__ void filter4(uint8_t* p, int step) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  const int a = 3 * (q0 - p0);
-  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3), a3 = (a1 + 1) >> 1;
-  p[-2 * step] = (uint8_t)clip8(p1 + a3);
-  p[-step] = (uint8_t)clip8(p0 + a2);
-  p[0] = (uint8_t)clip8(q0 - a1);
-  p[step] = (uint8_t)clip8(q1 - a3);
-}
-
-__device__ void filter6(uint8_t* p, int step) {
-  const int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
-  const int q0 = p[0], q1 = p[step], q2 = p[2 * step];
-  const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
-  const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7, a3 = (9 * a + 63) >> 7;
-  p[-3 * step] = (uint8_t)clip8(p2 + a3);
-  p[-2 * step] = (uint8_t)clip8(p1 + a2);
-  p[-step] = (uint8_t)clip8(p0 + a1);
-  p[0] = (uint8_t)clip8(q0 - a1);
-  p[step] = (uint8_t)clip8(q1 - a2);
-  p[2 * step] = (uint8_t)clip8(q2 - a3);
-}
-
-__device__ bool needs(const uint8_t* p, int step, int t) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  return 4 * abs(p0 - q0) + abs(p1 - q1) <= t;
-}
-
-__device__ bool needs2(const uint8_t* p, int step, int t, int it) {
-  const int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
-  const int q0 = p[0], q1 = p[step], q2 = p[2 * step], q3 = p[3 * step];
-  if (4 * abs(p0 - q0) + abs(p1 - q1) > t) return false;
-  return abs(p3 - p2) <= it && abs(p2 - p1) <= it && abs(p1 - p0) <= it && abs(q3 - q2) <= it &&
-         abs(q2 - q1) <= it && abs(q1 - q0) <= it;
-}
-
-__device__ bool hev(const uint8_t* p, int step, int thresh) {
-  return abs(p[-2 * step] - p[-step]) > thresh || abs(p[step] - p[0]) > thresh;
-}
-
-// One position along an edge: `p` at q0, `step` across the edge.
-__device__ void filter_at(uint8_t* p, int step, bool simple, int thresh, int ithresh, int hev_t,
-                          bool mb_edge) {
-  const int t2 = 2 * thresh + 1;
-  if (simple) {
-    if (needs(p, step, t2)) filter2(p, step);
-  } else if (needs2(p, step, t2, ithresh)) {
-    if (hev(p, step, hev_t))
-      filter2(p, step);
-    else if (mb_edge)
-      filter6(p, step);
-    else
-      filter4(p, step);
+template <int P, bool kMbEdge>
+__device__ __forceinline__ void filter_at(int (&v)[20], bool simple, int thresh, int ithresh,
+                                          int hev_t) {
+  const int p3 = v[P - 4], p2 = v[P - 3], p1 = v[P - 2], p0 = v[P - 1];
+  const int q0 = v[P], q1 = v[P + 1], q2 = v[P + 2], q3 = v[P + 3];
+  if (4 * abs(p0 - q0) + abs(p1 - q1) > 2 * thresh + 1) return;
+  const bool weak = simple || abs(p1 - p0) > hev_t || abs(q1 - q0) > hev_t;
+  if (!simple && (abs(p3 - p2) > ithresh || abs(p2 - p1) > ithresh || abs(p1 - p0) > ithresh ||
+                  abs(q3 - q2) > ithresh || abs(q2 - q1) > ithresh || abs(q1 - q0) > ithresh))
+    return;
+  if (weak) {  // filter2: the simple filter, or high edge variance
+    const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+    v[P - 1] = clip8(p0 + sclip2((a + 3) >> 3));
+    v[P] = clip8(q0 - sclip2((a + 4) >> 3));
+  } else if (kMbEdge) {  // filter6
+    const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
+    const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7, a3 = (9 * a + 63) >> 7;
+    v[P - 3] = clip8(p2 + a3);
+    v[P - 2] = clip8(p1 + a2);
+    v[P - 1] = clip8(p0 + a1);
+    v[P] = clip8(q0 - a1);
+    v[P + 1] = clip8(q1 - a2);
+    v[P + 2] = clip8(q2 - a3);
+  } else {  // filter4
+    const int a = 3 * (q0 - p0);
+    const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3), a3 = (a1 + 1) >> 1;
+    v[P - 2] = clip8(p1 + a3);
+    v[P - 1] = clip8(p0 + a2);
+    v[P] = clip8(q0 - a1);
+    v[P + 1] = clip8(q1 - a3);
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-filter_kernel(const uint8_t* __restrict__ info, int mb_w, int mb_h, int filter_type, uint8_t* Y,
-              uint8_t* U, uint8_t* V) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool simple = filter_type == 1;
-  const int ys = 16 * mb_w, uvs = 8 * mb_w;
-  const int steps = mb_w + 2 * (mb_h - 1);
-  for (int t = 0; t < steps; ++t) {
-    int my0 = t - (mb_w - 1) > 0 ? (t - (mb_w - 1) + 1) / 2 : 0;
-    const int my1 = min(mb_h - 1, t / 2);
-    for (int my = my0 + warp; my <= my1; my += kWarps) {
-      const int mx = t - 2 * my;
-      const uint8_t* row = info + (size_t)(my * mb_w + mx) * INFO;
-      const int limit = row[LIMIT], il = row[ILEVEL], hv = row[HEV], inner = row[INNER];
-      if (limit == 0) continue;
-      // lanes 0-15: luma, one row (or column) each; lanes 16-23 U, 24-31 V
-      // (the simple filter leaves chroma alone)
-      const bool luma = lane < 16;
-      const int size = luma ? 16 : 8;
-      const int k = luma ? lane : (lane - 16) & 7;
-      uint8_t* plane = luma ? Y : (lane < 24 ? U : V);
-      const int stride = luma ? ys : uvs;
-      const int y0 = size * my, x0 = size * mx;
-      const bool active = luma || !simple;
-      for (int vertical = 1; vertical >= 0; --vertical) {
-        // vertical: an edge left of column x, lane k filters row y0 + k
-        uint8_t* base = vertical ? plane + (size_t)(y0 + k) * stride + x0
-                                 : plane + (size_t)y0 * stride + x0 + k;
-        const int step = vertical ? 1 : stride;
-        if (active && (vertical ? mx : my) > 0) filter_at(base, step, simple, limit + 4, il, hv, true);
-        __syncwarp();
-        if (inner)
-          for (int e = 4; e < 16; e += 4) {
-            if (active && e < size) filter_at(base + e * step, step, simple, limit, il, hv, false);
-            __syncwarp();
-          }
-      }
+// The edges of one line: the macroblock's (at 4, where there is a
+// neighbour) and the inner ones (8, and 12 and 16 in luma).
+__device__ __forceinline__ void filter_line(int (&v)[20], bool mb_edge, bool inner, bool luma,
+                                            bool simple, int limit, int il, int hv) {
+  if (mb_edge) filter_at<4, true>(v, simple, limit + 4, il, hv);
+  if (inner) {
+    filter_at<8, false>(v, simple, limit, il, hv);
+    if (luma) {
+      filter_at<12, false>(v, simple, limit, il, hv);
+      filter_at<16, false>(v, simple, limit, il, hv);
     }
-    __syncthreads();
+  }
+}
+
+// One macroblock's loop filter by a warp, in libwebp's order: lanes 0-15
+// a luma row (then column) each, 16-23 U, 24-31 V (the simple filter
+// leaves chroma alone).  Each lane runs its line's edges in registers;
+// the vertical edges' rows reach the horizontal edges' columns through the
+// tile, and each pixel the filter may change goes back to the frame once.
+__device__ void filter_mb(WarpBuf& b, const uint8_t* row, int mx, int my, int mb_w, bool simple,
+                          uint8_t* Y, uint8_t* U, uint8_t* V, int lane) {
+  const bool luma = lane < 16;
+  const int c = (lane >> 3) & 1, k = luma ? lane : lane & 7;
+  const bool on = luma || !simple;
+  const int size = luma ? 16 : 8, ts = luma ? 20 : 12;
+  const int stride = size * mb_w, y0 = size * my, x0 = size * mx;
+  uint8_t* plane = luma ? Y : c ? V : U;
+  uint8_t* tile = luma ? b.tile.y : b.tile.uv[c];
+  // the pixels first (other SMs wrote them: from L2), then the parameters
+  const int rr = luma ? lane >> 2 : k >> 1, ww = luma ? lane & 3 : k & 1;
+  uint8_t* src = plane + (size_t)(y0 + k) * stride + x0 - 4;  // this lane's row, from 4 left
+  uint32_t above = 0, words[5];
+  if (on && my > 0)  // the 4 rows above, a word a lane
+    above = __ldcg(reinterpret_cast<const unsigned*>(&plane[(size_t)(y0 - 4 + rr) * stride + x0 + 4 * ww]));
+#pragma unroll
+  for (int w = 0; w < 5; ++w)
+    words[w] = on && (w > 0 || mx > 0) && (w < 3 || luma) ? __ldcg(reinterpret_cast<const unsigned*>(src + 4 * w)) : 0u;
+  const int limit = row[LIMIT], il = row[ILEVEL], hv = row[HEV], inner = row[INNER];
+  if (limit == 0) return;
+  int v[20];
+  if (on) {
+    if (my > 0) *reinterpret_cast<uint32_t*>(&tile[rr * ts + 4 + 4 * ww]) = above;
+#pragma unroll
+    for (int w = 0; w < 5; ++w)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 * w + i] = (words[w] >> (8 * i)) & 255;
+    filter_line(v, mx > 0, inner, luma, simple, limit, il, hv);
+#pragma unroll
+    for (int w = 0; w < 5; ++w) {
+      const uint32_t word = (uint32_t)v[4 * w] | (uint32_t)v[4 * w + 1] << 8 |
+                            (uint32_t)v[4 * w + 2] << 16 | (uint32_t)v[4 * w + 3] << 24;
+      if (w < 3 || luma) *reinterpret_cast<uint32_t*>(&tile[(4 + k) * ts + 4 * w]) = word;
+      if (w == 0 && mx > 0) *reinterpret_cast<uint32_t*>(src) = word;  // left of the macroblock: done
+    }
+  }
+  __syncwarp();
+  if (on) {  // lane k's column, from 4 above the macroblock
+#pragma unroll
+    for (int r = 0; r < 20; ++r) v[r] = r < 12 || luma ? tile[r * ts + 4 + k] : 0;
+    filter_line(v, my > 0, inner, luma, simple, limit, il, hv);
+    uint8_t* dst = plane + (size_t)(y0 - 4) * stride + x0 + k;
+#pragma unroll
+    for (int r = 1; r < 20; ++r)
+      if ((r < 12 || luma) && (r >= 4 || my > 0)) dst[(long long)r * stride] = (uint8_t)v[r];
+  }
+}
+
+// The frame's pixels before colour conversion, in one launch: the
+// macroblocks as a wavefront over the diagonals t = x + 2 y, a warp a
+// macroblock, the rows dealt round the cluster's blocks.  Step t
+// reconstructs diagonal t (from the saved unfiltered edges in shared
+// memory: the frame in device memory is filtered behind it) and filters
+// diagonal t - 1, whose pixels and those of its left and upper neighbours
+// step t - 1 finished; a cluster barrier separates the steps.  libwebp's
+// raster order is kept for every pixel two macroblocks' filters share,
+// since their diagonals differ.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockWarps * 32, 1)
+reconstruct_filter_kernel(const uint8_t* __restrict__ info, const int16_t* __restrict__ levels,
+                          const int32_t* __restrict__ quant, int mb_w, int mb_h, int filter_type,
+                          uint8_t* Y, uint8_t* U, uint8_t* V) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  Shared sh;
+  sh.bufs = reinterpret_cast<WarpBuf*>(smem);
+  sh.quant = reinterpret_cast<int*>(sh.bufs + kBlockWarps);
+  sh.pred4 = reinterpret_cast<uint32_t*>(sh.quant + 24);
+  sh.top = reinterpret_cast<TopEdge*>(sh.pred4 + 160);
+  sh.left = reinterpret_cast<LeftEdge*>(sh.top + mb_w);
+  sh.below = cluster.map_shared_rank(sh.top, (unsigned)((rank + 1) % kCluster));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = (mb_h - rank + kCluster - 1) / kCluster;  // this block's
+  for (int k = tid; k < 24; k += blockDim.x) sh.quant[k] = quant[k];
+  for (int k = tid; k < 160; k += blockDim.x) sh.pred4[k] = pred4_code(k >> 4, k & 15);
+  // above the frame 127, left of it 129 (the corner 127 in the first row)
+  for (int k = tid; k < mb_w * 8; k += blockDim.x) reinterpret_cast<uint32_t*>(sh.top)[k] = 0x7f7f7f7fu;
+  for (int k = tid; k < rows * 12; k += blockDim.x)
+    reinterpret_cast<uint32_t*>(sh.left)[k] = k % 12 < 8 ? 0x81818181u
+                                            : k % 12 == 8 ? (k < 12 && rank == 0 ? 0x7f7f7fu : 0x818181u)
+                                                          : 0u;
+  cluster.sync();
+  WarpBuf& b = sh.bufs[warp];
+  const int diags = mb_w + 2 * (mb_h - 1), steps = diags + (filter_type > 0);
+  // this block's rows of diagonal t: first(t) and then every kCluster-th,
+  // count(t) of them
+  auto first = [&](int t) {
+    const int r0 = max(0, (t - mb_w + 2) >> 1);
+    return r0 + (rank - r0 % kCluster + kCluster) % kCluster;
+  };
+  auto count = [&](int t) {
+    const int r0 = first(t), r1 = t < diags ? min(mb_h - 1, t >> 1) : -1;
+    return r1 >= r0 ? (r1 - r0) / kCluster + 1 : 0;
+  };
+  // a warp's first macroblock of a step is staged a step ahead
+  auto staged = [&](int t) -> long long {
+    if (t >= diags || warp >= count(t)) return -1;
+    const int my = first(t) + kCluster * warp;
+    return (long long)my * mb_w + (t - 2 * my);
+  };
+  stage(b, 0, info, levels, staged(0), lane);
+  for (int t = 0; t < steps; ++t) {
+    stage(b, (t + 1) & 1, info, levels, staged(t + 1), lane);
+    const int r0 = first(t), nr = count(t);
+    const int f0 = first(t - 1), nf = filter_type > 0 && t >= 1 ? count(t - 1) : 0;
+    for (int item = warp; item < nr + nf; item += kBlockWarps) {
+      if (item < nr) {
+        const int my = r0 + kCluster * item, mx = t - 2 * my, idx = my * mb_w + mx;
+        const uint8_t* row = info + (size_t)idx * INFO;
+        const int16_t* lv = levels + (size_t)idx * 400;
+        if (item == warp) {  // staged
+          asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+          __syncwarp();
+          row = b.staged_info[t & 1];
+          lv = b.staged_levels[t & 1];
+        }
+        reconstruct(b, sh, row, lv, mx, my, mb_w, Y, U, V, lane);
+      } else {
+        const int my = f0 + kCluster * (item - nr), mx = t - 1 - 2 * my;
+        filter_mb(b, info + (size_t)(my * mb_w + mx) * INFO, mx, my, mb_w, filter_type == 1, Y, U,
+                  V, lane);
+      }
+      __syncwarp();
+    }
+    cluster.sync();
   }
 }
 
@@ -1016,26 +1136,26 @@ extern "C" void simvg_vp8_free(void* handle) { delete static_cast<Frame*>(handle
 
 // The frame's pixels on the card: info, levels and quant as simvg_vp8_copy
 // gives them; y [16 mb_h, 16 mb_w], u and v [8 mb_h, 8 mb_w] work planes;
-// out BGR uint8 [height, width, 3].  Three launches on `stream`; returns the
+// out BGR uint8 [height, width, 3].  Two launches on `stream`; returns the
 // CUDA error of the launches (0 if none).
 extern "C" int simvg_vp8_decode(const void* info, const void* levels, const void* quant, int mb_w,
                                 int mb_h, int filter_type, int width, int height, void* y, void* u,
                                 void* v, void* out, void* stream) {
-  if (mb_w <= 0 || mb_h <= 0 || width <= 0 || height <= 0 || width > 16 * mb_w ||
-      height > 16 * mb_h)
+  if (mb_w <= 0 || mb_h <= 0 || mb_w > 1024 || mb_h > 1024 || width <= 0 || height <= 0 ||
+      width > 16 * mb_w || height > 16 * mb_h)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* in = static_cast<const uint8_t*>(info);
   uint8_t *Y = static_cast<uint8_t*>(y), *U = static_cast<uint8_t*>(u), *V = static_cast<uint8_t*>(v);
-  reconstruct_kernel<<<1, kWarps * 32, 0, s>>>(in, static_cast<const int16_t*>(levels),
-                                               static_cast<const int32_t*>(quant), mb_w, mb_h, Y, U, V);
-  cudaError_t err = cudaGetLastError();
+  // the saved edges grow with the frame: 66 KB a block at 16,383 x 16,383
+  const size_t smem = shared_bytes(mb_w, mb_h);
+  cudaError_t err = cudaFuncSetAttribute(reconstruct_filter_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (filter_type > 0) {
-    filter_kernel<<<1, kWarps * 32, 0, s>>>(in, mb_w, mb_h, filter_type, Y, U, V);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  reconstruct_filter_kernel<<<kCluster, kBlockWarps * 32, smem, s>>>(
+      static_cast<const uint8_t*>(info), static_cast<const int16_t*>(levels),
+      static_cast<const int32_t*>(quant), mb_w, mb_h, filter_type, Y, U, V);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const long long pixels = (long long)width * height;
   bgr_kernel<<<(unsigned)((pixels + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       Y, U, V, mb_w, width, height, static_cast<uint8_t*>(out));

@@ -274,23 +274,28 @@ def decode_reference(st: PngStream) -> np.ndarray:
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from ``csrc/png.cu``."""
+    lib.simvg_png_decode.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    lib.simvg_png_decode.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from simvg_tpu_torch.ops import _build
 
-        lib = _build.load("png")
-        lib.simvg_png_decode.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
-        lib.simvg_png_decode.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(_build.load("png"))
     return _lib
 
 
 def decode_cuda(st: PngStream, device) -> torch.Tensor:
     """The kernel's BGR uint8 [h, w, 3] image of a parsed stream on a CUDA
     device, on the current stream (not oriented): the inflated bytes are
-    copied to the card, unfiltered there in place and converted."""
+    copied to the card (a fresh allocation: the kernel reads and writes
+    aligned 4-byte words), unfiltered there in place and converted."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"decode_cuda needs a CUDA device, got {device}")

@@ -912,26 +912,30 @@ def reconstruct_reference(fr: Vp8Frame) -> np.ndarray:
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from ``csrc/vp8.cu``."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.simvg_vp8_parse.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+    lib.simvg_vp8_parse.restype = vp
+    lib.simvg_vp8_info.argtypes = [vp, ctypes.POINTER(i)]
+    lib.simvg_vp8_info.restype = i
+    lib.simvg_vp8_copy.argtypes = [vp, i, vp]
+    lib.simvg_vp8_copy.restype = ctypes.c_longlong
+    lib.simvg_vp8_error.argtypes = [vp]
+    lib.simvg_vp8_error.restype = ctypes.c_char_p
+    lib.simvg_vp8_free.argtypes = [vp]
+    lib.simvg_vp8_decode.argtypes = [vp, vp, vp, i, i, i, i, i, vp, vp,
+                                     vp, vp, vp]
+    lib.simvg_vp8_decode.restype = i
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from simvg_tpu_torch.ops import _build
 
-        lib = _build.load("vp8")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.simvg_vp8_parse.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
-        lib.simvg_vp8_parse.restype = vp
-        lib.simvg_vp8_info.argtypes = [vp, ctypes.POINTER(i)]
-        lib.simvg_vp8_info.restype = i
-        lib.simvg_vp8_copy.argtypes = [vp, i, vp]
-        lib.simvg_vp8_copy.restype = ctypes.c_longlong
-        lib.simvg_vp8_error.argtypes = [vp]
-        lib.simvg_vp8_error.restype = ctypes.c_char_p
-        lib.simvg_vp8_free.argtypes = [vp]
-        lib.simvg_vp8_decode.argtypes = [vp, vp, vp, i, i, i, i, i, vp, vp,
-                                         vp, vp, vp]
-        lib.simvg_vp8_decode.restype = i
-        _lib = lib
+        _lib = bind(_build.load("vp8"))
     return _lib
 
 
@@ -958,9 +962,9 @@ def decode_host(data: bytes) -> Vp8Frame:
 
 def decode_cuda(fr: Vp8Frame, device) -> torch.Tensor:
     """The kernels' BGR uint8 [h, w, 3] image of a parsed frame on a CUDA
-    device, on the current stream: reconstruction (a wavefront over the
-    macroblocks), the loop filter (the same wavefront), then upsampling
-    and colour conversion (a thread a pixel)."""
+    device, on the current stream: reconstruction and the loop filter in
+    one launch (a wavefront over the macroblocks, the filter a diagonal
+    behind), then upsampling and colour conversion (a thread a pixel)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"decode_cuda needs a CUDA device, got {device}")

@@ -7,7 +7,9 @@ port does not need, so it is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The data pipeline's card route is held here too: the PNG kernel against the
-plain decoder (bit for bit), nvJPEG's encode -> decode round trip (shape
+plain decoder (bit for bit; also at the unfilter kernel's edges), the VP8
+kernels against the plain route on every lossy WebP fixture (its own loop
+filter, none and the simple one), nvJPEG's encode -> decode round trip (shape
 exact, mean |difference| <= 2 levels at quality 95, on smooth images), grayscale and EXIF-oriented files, and the pixel ops on the
 card against the same ops on the CPU, on the same decoded pixels (1 level
 per resampling; the geometry exact; VGTRAugment's ops a level an op).
@@ -31,11 +33,14 @@ so a rounding of P or dS may land one bf16 step away from the plain
 version's.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from simvg_tpu_torch.tools.make_synth_data import smooth_image, with_exif
+from util_torch_port import PNG_BOUNDARY_CASES, png_boundary_stream
 
 from simvg_tpu_torch.ops.fused_attention import (
     attention_bwd, attention_fwd, attention_residual_reference, fused_attention,
@@ -456,6 +461,48 @@ def test_png_kernel_matches_plain_version(gen, color_type, bit_depth):
             want = png.decode(data, "cpu")
             assert got.is_cuda and torch.equal(got.cpu(), want), (h, w,
                                                                   interlace)
+
+
+@pytest.mark.parametrize("case", PNG_BOUNDARY_CASES,
+                         ids=[c[0] for c in PNG_BOUNDARY_CASES])
+def test_png_kernel_matches_plain_version_at_its_edges(gen, case):
+    """The PNG kernel against the plain decoder at the unfilter kernel's
+    edges: heights around a warp's 32 rows and a block's 16 row groups,
+    widths of 1 and 2 units at every bytes-per-pixel, unit counts one past
+    a hand-over chunk and one past the ring, single filter types with and
+    without Adam7."""
+    from simvg_tpu_torch.data import png
+
+    data = png_boundary_stream(case)
+    got = png.decode(data, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), png.decode(data, "cpu")), case[0]
+
+
+FORMATS = os.path.join(os.path.dirname(__file__), "fixtures", "formats")
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in os.listdir(FORMATS) if n.startswith("webp_lossy")))
+def test_vp8_kernels_match_plain_version(gen, name):
+    """Every lossy WebP fixture through the card's VP8 route (host C++ and
+    the reconstruction and loop-filter kernel) against the plain route,
+    bit for bit, with its own loop filter and forced to none (type 0) and
+    to the simple filter (type 1): every fixture codes the normal one."""
+    from simvg_tpu_torch.data import vp8, webp
+
+    with open(os.path.join(FORMATS, name), "rb") as f:
+        frame = webp.parse(f.read()).bitstream
+    got = vp8.decode(frame, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), vp8.decode(frame, "cpu"))
+    fr = vp8.host_stage(frame, "cuda")
+    for filter_type in (0, 1):
+        forced = fr._replace(filter_type=filter_type)
+        got = vp8.pixel_stage(forced, "cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), vp8.pixel_stage(forced, "cpu")), \
+            filter_type
 
 
 def test_pixel_ops_on_the_card_match_the_cpu(gen):

@@ -29,8 +29,9 @@ from simvg_tpu_torch.data.builder import (build_dataset_from_cfg,
 from simvg_tpu_torch.data.image_file import (decode_image, image_format,
                                              image_geometry)
 from simvg_tpu_torch.data.raw import RawPreprocessor
-from util_torch_port import (one_torch_thread,  # noqa: F401
-                             png_chunk, write_png)
+from util_torch_port import (PNG_BOUNDARY_CASES,
+                             one_torch_thread,  # noqa: F401
+                             png_boundary_stream, png_chunk, write_png)
 
 TINY = "configs/smoke/tiny_synth.py"
 STD = np.asarray([58.395, 57.12, 57.375], np.float32)
@@ -75,6 +76,21 @@ def test_plain_decoder_matches_cv2(color_type, bit_depth):
             np.testing.assert_array_equal(got.numpy(), want)
             geo = image_geometry(data)
             assert (geo.height, geo.width, geo.components) == (h, w, ch)
+
+
+@pytest.mark.parametrize("case", PNG_BOUNDARY_CASES,
+                         ids=[c[0] for c in PNG_BOUNDARY_CASES])
+def test_plain_decoder_matches_cv2_at_the_kernel_edges(case):
+    """The streams at the card kernel's edges (row groups, a block's
+    groups, units a hand-over and a ring hold, every bytes-per-pixel at
+    widths of 1 and 2 units, single filter types with and without Adam7),
+    which ``chip_smoke.py`` holds the kernel to: the plain decoder gives
+    cv2's pixels on each."""
+    data = png_boundary_stream(case)
+    want = _cv2(data)
+    got = decode_image(data, "cpu")
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("orientation", [1, 3, 6, 8])

@@ -9,11 +9,16 @@ lossless at 48 x 64; with alpha, with an EXIF orientation, animated).
 The port's plain route (the card's kernels and host C++ are held to it by
 ``chip_smoke.py``) must give the JAX reader's pixels bit for bit,
 ``image_geometry`` their shape, and raise a ValueError where the JAX
-reader gets no image.
+reader gets no image.  The card kernel's macroblock schedule is replayed
+here with the plain steps on every lossy fixture of
+``tests/fixtures/formats/`` (``util_image_formats.vp8_wavefront_replay``).
 """
 
+import functools
+import os
 import struct
 
+import numpy as np
 import pytest
 
 import util_image_formats as U
@@ -111,6 +116,42 @@ def test_broken_streams_raise_where_the_jax_reader_fails(name):
     assert jax_pixels(data) is None
     with pytest.raises(ValueError):
         decode_image(data, "cpu")
+
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "formats")
+LOSSY_FIXTURES = sorted(n for n in os.listdir(FIXTURES)
+                        if n.startswith("webp_lossy"))
+
+
+@functools.lru_cache(maxsize=None)
+def _lossy_frame(name):
+    """A lossy fixture's parsed frame and its unfiltered planes (plain)."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        fr = vp8.parse(webp.parse(f.read()).bitstream)
+    return fr, vp8.reconstruct_unfiltered(fr)
+
+
+@pytest.mark.parametrize("filter_type", ["coded", 0, 1])
+@pytest.mark.parametrize("name", LOSSY_FIXTURES)
+def test_vp8_wavefront_schedule_gives_the_plain_pixels(name, filter_type):
+    """The card kernel's schedule (``csrc/vp8.cu``: diagonal t reconstructed
+    from saved unfiltered edges while diagonal t - 1 is filtered in the
+    frame), replayed with the plain per-macroblock steps, gives
+    ``reconstruct_reference``'s pixels bit for bit on every lossy fixture:
+    with the loop filter it codes (the normal one in each), forced to none
+    and to the simple one.  The coded case runs each step's filters before
+    its reconstructions and each diagonal bottom row first, as the kernel's
+    concurrent warps may."""
+    fr, planes = _lossy_frame(name)
+    coded = filter_type == "coded"
+    if not coded:
+        fr = fr._replace(filter_type=filter_type)
+    Y, U_, V = (p.copy() for p in planes)
+    vp8.loop_filter(fr, Y, U_, V)
+    want = vp8.to_bgr_reference(Y, U_, V, fr.width, fr.height)
+    assert not coded or fr.filter_type == 2
+    np.testing.assert_array_equal(U.vp8_wavefront_replay(fr, reverse=coded),
+                                  want)
 
 
 def test_orientation_and_host_stage():

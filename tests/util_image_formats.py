@@ -640,3 +640,118 @@ def big_textured(fmt, seed=0, h=480, w=640):
 
 
 TEXTURED_FORMATS = ("webp_lossy", "webp_lossless", "tiff")
+
+
+def vp8_wavefront_replay(fr, reverse=False):
+    """BGR uint8 [h, w, 3] of a parsed VP8 frame (``vp8.Vp8Frame``) from the
+    plain per-macroblock steps of ``data/vp8.py`` run in the card kernel's
+    schedule (``csrc/vp8.cu``): step t reconstructs the macroblocks of
+    diagonal t = x + 2 y, predicting only from saved unfiltered edges (a
+    column's bottom row, a row's right column and its corner), and filters
+    diagonal t - 1 in the frame.  ``reverse`` runs each step's filters
+    before its reconstructions and each diagonal's macroblocks bottom row
+    first: the result must not change, as the kernel runs them at once."""
+    from simvg_tpu_torch.data import vp8
+
+    mb_w, mb_h = fr.mb_w, fr.mb_h
+    planes = [np.zeros((16 * mb_h, 16 * mb_w), np.uint8)] + [
+        np.zeros((8 * mb_h, 8 * mb_w), np.uint8) for _ in range(2)]
+    # per plane: the bottom rows of the row above, the right columns and
+    # corners of each row; 127 above the frame, 129 left of it
+    top = [np.full((mb_w, s), 127, np.int64) for s in (16, 8, 8)]
+    left = [np.full((mb_h, s), 129, np.int64) for s in (16, 8, 8)]
+    corner = [np.where(np.arange(mb_h) == 0, 127, 129) for _ in range(3)]
+
+    def work_buffer(p, mx, my, size, right):
+        ws = np.zeros((size + 1, size + 1 + right), np.int64)
+        ws[0, 0] = corner[p][my]
+        ws[0, 1:size + 1] = top[p][mx]
+        if right:
+            ws[0, size + 1:] = top[0][mx + 1, :4] if mx < mb_w - 1 \
+                else top[0][mx, 15]
+        ws[1:, 0] = left[p][my]
+        return ws
+
+    def reconstruct(mx, my):
+        idx = my * mb_w + mx
+        row = fr.info[idx]
+        co = vp8._dequant(fr, idx)
+        ws = work_buffer(0, mx, my, 16, 4)
+        if row[vp8.I4X4]:
+            for r in (4, 8, 12):
+                ws[r, 17:21] = ws[0, 17:21]
+            ws = ws.tolist()
+            for n in range(16):
+                by, bx = n >> 2, n & 3
+                p = vp8._pred4(int(row[vp8.MODES + n]),
+                               ws[4 * by][4 * bx + 1:4 * bx + 9],
+                               [ws[4 * by + 1 + k][4 * bx] for k in range(4)],
+                               ws[4 * by][4 * bx])
+                vp8._idct_add(co[n], p)
+                for k in range(4):
+                    ws[4 * by + 1 + k][4 * bx + 1:4 * bx + 5] = p[k]
+            blocks = [np.asarray(ws, np.int64)[1:17, 1:17]]
+        else:
+            blk = vp8._pred_block(int(row[vp8.MODES]), 16, ws[0, 1:17],
+                                  ws[1:17, 0], ws[0, 0], mx, my).tolist()
+            for n in range(16):
+                by, bx = n >> 2, n & 3
+                sub = [r[4 * bx:4 * bx + 4] for r in blk[4 * by:4 * by + 4]]
+                vp8._idct_add(co[n], sub)
+                for k in range(4):
+                    blk[4 * by + k][4 * bx:4 * bx + 4] = sub[k]
+            blocks = [np.asarray(blk, np.int64)]
+        tops = [ws[0][16] if isinstance(ws, list) else ws[0, 16]]
+        for ch in range(2):
+            wc = work_buffer(1 + ch, mx, my, 8, 0)
+            blk = vp8._pred_block(int(row[vp8.UVMODE]), 8, wc[0, 1:9],
+                                  wc[1:9, 0], wc[0, 0], mx, my).tolist()
+            for n in range(4):
+                by, bx = n >> 1, n & 1
+                sub = [r[4 * bx:4 * bx + 4] for r in blk[4 * by:4 * by + 4]]
+                vp8._idct_add(co[16 + 4 * ch + n], sub)
+                for k in range(4):
+                    blk[4 * by + k][4 * bx:4 * bx + 4] = sub[k]
+            blocks.append(np.asarray(blk, np.int64))
+            tops.append(wc[0, 8])
+        for p, (blk, size) in enumerate(zip(blocks, (16, 8, 8))):
+            planes[p][size * my:size * my + size,
+                      size * mx:size * mx + size] = blk
+            corner[p][my] = tops[p]  # the next macroblock's corner
+            top[p][mx] = blk[-1]
+            left[p][my] = blk[:, -1]
+
+    def loop_filter(mx, my):
+        row = fr.info[my * mb_w + mx]
+        limit, il, hev, inner = (int(row[k]) for k in (
+            vp8.LIMIT, vp8.ILEVEL, vp8.HEV, vp8.INNER))
+        if limit == 0:
+            return
+        simple = fr.filter_type == 1
+        for vertical in (True, False):
+            for p, size in ((0, 16),) + (() if simple else ((1, 8), (2, 8))):
+                y0, x0 = size * my, size * mx
+                at = x0 if vertical else y0
+                span = slice(y0, y0 + size) if vertical \
+                    else slice(x0, x0 + size)
+                if (mx if vertical else my) > 0:
+                    vp8._edge(planes[p], at, span, vertical, simple,
+                              limit + 4, il, hev, True)
+                if inner:
+                    for k in range(4, size, 4):
+                        vp8._edge(planes[p], at + k, span, vertical, simple,
+                                  limit, il, hev, False)
+
+    def diagonal(t):
+        rows = [my for my in range(mb_h) if 0 <= t - 2 * my < mb_w]
+        return [(t - 2 * my, my) for my in (rows[::-1] if reverse else rows)]
+
+    diags = mb_w + 2 * (mb_h - 1)
+    for t in range(diags + 1):
+        work = [(reconstruct, diagonal(t))]
+        if fr.filter_type:
+            work.append((loop_filter, diagonal(t - 1)))
+        for fn, mbs in (work[::-1] if reverse else work):
+            for mx, my in mbs:
+                fn(mx, my)
+    return vp8.to_bgr_reference(*planes, fr.width, fr.height)

@@ -223,6 +223,34 @@ def png_chunk(kind: bytes, payload: bytes, crc=None) -> bytes:
         + struct.pack(">I", crc & 0xFFFFFFFF)
 
 
+# PNG streams at the edges of the card's unfilter kernel (csrc/png.cu: a
+# warp a group of 32 rows, 16 warp slots on a cluster's SMs, lane 31 handing
+# its row on through a ring of 128 units whose reader reports every 16):
+# (name, colour type, bit depth, height, width, filter types, Adam7).
+# Heights around a row group and around the slots' 512 rows, widths of 1 and
+# 2 units at every bytes-per-pixel (1, 2, 3, 4, 6, 8), unit counts past 8,
+# a report and half and all of the ring, and images of a single filter type.
+PNG_BOUNDARY_CASES = (
+    [(f"rows{h}", 2, 8, h, 17, (0, 1, 2, 3, 4), False)
+     for h in (31, 32, 33, 32 * 16 - 1, 32 * 16 + 1)]
+    + [(f"bpp{bpp}_units{w}", ct, bd, 33, w, (0, 1, 2, 3, 4), False)
+       for ct, bd, bpp in ((0, 8, 1), (4, 8, 2), (2, 8, 3), (6, 8, 4),
+                           (2, 16, 6), (6, 16, 8)) for w in (1, 2)]
+    + [(f"units{w}", 0, 8, 40, w, (0, 1, 2, 3, 4), False)
+       for w in (9, 17, 65, 129)]
+    + [(f"only{f}{'_adam7' if i else ''}", 2, 8, 37, 29, (f,), i)
+       for f in (1, 2, 3, 4) for i in (False, True)])
+
+
+def png_boundary_stream(case, seed=0):
+    """The PNG stream of one of PNG_BOUNDARY_CASES, its samples from
+    ``seed``."""
+    _, ct, bd, h, w, filters, interlace = case
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ct]
+    samples = np.random.default_rng(seed).integers(0, 1 << bd, (h, w, ch))
+    return write_png(samples, bd, ct, filters, interlace)
+
+
 def write_png(samples, bit_depth=8, color_type=2, filters=(0,),
               interlace=False, chunks_before=b"", chunks_after=b""):
     """A PNG stream of ``samples`` (uint [h, w, channels] in the colour
