@@ -94,8 +94,10 @@ decoder's pixels), the kernel's launches counted from 0 around both.  Then
 PNM/PFM, Sun raster and HDR (csrc/image_convert.cu), with their host C++,
 against the plain decoders and cv2's digests on the committed fixtures
 (tests/fixtures/formats/), bit for bit, each lossy WebP also with its loop
-filter forced to none and to the simple one; each kernel's time on a 480 x 640
-image beside its host stage and the plain route; the val loader over a
+filter forced to none and to the simple one; the VP8L and TIFF predictor
+kernels on synthetic transforms and segments against their plain versions,
+bit for bit, and TIFF's beside torch.cumsum; each kernel's time on a 480 x
+640 image beside its host stage and the plain route; the val loader over a
 WebP copy of the synthetic images and the server answering a request of
 every format (JPEG 2000, AVIF and OpenEXR with 400), the kernels' launches
 counted from 0 around both.  Then "int8" (ops/quant.py, w8a8 through
@@ -357,27 +359,63 @@ def host_ms(fn, iters: int) -> float:
     return ms
 
 
-def kernel_split_ms(fn, iters, groups):
-    """Device ms a call of each group of kernels, from torch.profiler over
-    ``iters`` calls of ``fn``; ``groups`` maps a label to a kernel-name
-    substring.  None for a group the profiler saw no device time of."""
+# torch.profiler drops kernel records: most often a session's first few
+# milliseconds of launches, however long the trace idled before them (on an
+# H100: 3.5-5.5 ms, 5-10 calls of 20), sometimes others (more often with
+# CPU activity on).  kernel_split_ms therefore calls ``fn`` for
+# PROFILE_WARM_S before the calls it reads, keeps the trace as long idle
+# after them, and reads the last launches of the session
+PROFILE_WARM_S = 0.05
+
+
+def kernel_split_ms(fn, iters, groups, launches):
+    """Device ms a call of each group of kernels, from torch.profiler:
+    ``groups`` maps a label to a kernel-name substring; ``launches`` is
+    the kernels of all the groups together that one call of ``fn``
+    launches.  A session calls ``fn`` for PROFILE_WARM_S, then ``iters``
+    times, and reads its last ``launches`` x ``iters`` launches of the
+    groups, one call's worth each.  A session with fewer launches, or
+    whose last ones are not a whole number of calls of each group (a
+    lost record among them), is repeated once, the repeat logged; then
+    its groups read None, as does a group with no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    want = launches * iters
+    for attempt in range(2):
         torch.cuda.synchronize()
-    us = dict.fromkeys(groups, 0.0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for label, key in groups.items():
-                if key in e.name:
-                    us[label] += e.time_range.end - e.time_range.start
-                    break
-    return {label: (t / 1e3 / iters if t else None) for label, t in us.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            while time.perf_counter() - t0 < PROFILE_WARM_S:
+                fn()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_WARM_S)
+        found = sorted(
+            ((e.time_range.start, e.time_range.end - e.time_range.start,
+              label) for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             for label in [next((k for k, key in groups.items()
+                                 if key in e.name), None)]
+             if label is not None))
+        us = dict.fromkeys(groups, 0.0)
+        seen = dict.fromkeys(groups, 0)
+        for _, dur, label in found[-want:]:
+            us[label] += dur
+            seen[label] += 1
+        lost = [k for k, n in seen.items() if n % iters]
+        if len(found) < want:
+            lost = list(groups)
+        if not lost:
+            break
+        log(f"profiler: {seen} of the last {want} launches of {groups} "
+            f"({len(found)} in the session), {launches} a call expected "
+            f"(session {attempt + 1} of 2)")
+    return {label: (t / 1e3 / iters if t and label not in lost else None)
+            for label, t in us.items()}
 
 
 def sdpa_args(q, k, v, pad):
@@ -419,7 +457,7 @@ def k1_times(kern, bms):
     three times."""
     dev = None
     for _ in range(3):
-        dev = kernel_split_ms(kern, 20, {"k1": "attention_fwd"})["k1"]
+        dev = kernel_split_ms(kern, 20, {"k1": "attention_fwd"}, 1)["k1"]
         if dev is not None:
             break
     return dict(device_ms=dev, host_ms=host_ms(kern, 20),
@@ -611,7 +649,8 @@ def check_k2(gen, card):
         lib_fb_ms = cuda_ms(library_fwd_bwd, 10)
         fwd_ms = cuda_ms(fwd, 10)
         split = kernel_split_ms(kern, 10, {"d_ms": "dsum_kernel",
-                                           "dq_ms": "dq_", "dkdv_ms": "dkdv_"})
+                                           "dq_ms": "dq_", "dkdv_ms": "dkdv_"},
+                                3)
         split["device_ms"] = sum(split.values()) \
             if None not in split.values() else None
         # read q, k, v, out, dO, lse and the mask; write dq, dk, dv (the
@@ -1032,12 +1071,14 @@ def train_flagship(card, cfg=None, steps=TRAIN_STEPS, name="flagship"):
     return k1, k2, step_ms["pallas"]
 
 
-# "headdim": the flagship's encoder at D = 768, FFN 3072, 12 layers, as 24
-# heads of 32, 6 heads of 128, 3 heads of 256 and 2 heads of 384
-# (BEiT3Config's width override, which both builders take), so that K1 and
-# K2 run their other instantiations and the split route on a main path:
-# head_dim -> heads
+# "headdim": the flagship's encoder at D = 768, FFN 3072, as 24 heads of
+# 32, 6 heads of 128, 3 heads of 256 and 2 heads of 384 (BEiT3Config's
+# width override, which both builders take), so that K1 and K2 run their
+# other instantiations and the split route on a main path: head_dim ->
+# heads.  Depth cut to HEADDIM_LAYERS of the flagship's 12 for the
+# script's time; the widths are the flagship's.
 HEADDIM_HEADS = {32: 24, 128: 6, 256: 3, 384: 2}
+HEADDIM_LAYERS = 6
 
 
 def headdim_config(hd, heads):
@@ -1049,10 +1090,11 @@ def headdim_config(hd, heads):
     cfg = Config.fromfile(FLAGSHIP)
     cfg.merge_from_dict({f"model.vis_enc.{k}": v for k, v in dict(
         embed_dim=768, num_heads=heads, ffn_dim=3072,
-        num_layers=12).items()})
+        num_layers=HEADDIM_LAYERS).items()})
     enc = build_model(copy.deepcopy(dict(cfg.model)), img_size=cfg.img_size,
                       device="meta")[0].cfg.beit3
-    if (enc.embed_dim // enc.num_heads, enc.num_layers) != (hd, 12):
+    if (enc.embed_dim // enc.num_heads, enc.num_layers) != (hd,
+                                                            HEADDIM_LAYERS):
         raise AssertionError(f"headdim: built {enc.num_heads} heads of "
                              f"{enc.embed_dim // enc.num_heads}")
     return cfg
@@ -1061,10 +1103,11 @@ def headdim_config(hd, heads):
 def headdim_phase(card):
     """For each head_dim of HEADDIM_HEADS, the serve and train paths
     (``serve_flagship``, ``train_flagship``) on the flagship with that
-    encoder, bf16, attn_impl="pallas": one batch of BATCH requests (12 K1
-    launches) and one train step of TRAIN_BATCH (12 K1 and 12 K2
-    launches), each after a warm-up, held by the bf16 rule and the
-    per-call rule and timed beside plain attention.  Returns {head_dim:
+    encoder at HEADDIM_LAYERS layers, bf16, attn_impl="pallas": one batch
+    of BATCH requests (a K1 launch a layer) and one train step of
+    TRAIN_BATCH (a K1 and a K2 launch a layer), each after a warm-up,
+    held by the bf16 rule and the per-call rule and timed beside plain
+    attention.  Returns {head_dim:
     (K1 launches, K2 launches)} of the counted runs."""
     out = {}
     for hd, heads in HEADDIM_HEADS.items():
@@ -2463,11 +2506,11 @@ def png_phase(card, root, opts, launches):
     kern()
     ms = cuda_ms(kern, 20)
     split = kernel_split_ms(kern, 20, {"unfilter_ms": "unfilter_kernel",
-                                       "convert_ms": "convert_kernel"})
+                                       "convert_ms": "convert_kernel"}, 2)
     device_ms = sum(split.values()) if None not in split.values() else None
     st_paeth = png.parse(paeth)
     paeth_split = kernel_split_ms(lambda: png.decode_cuda(st_paeth, "cuda"),
-                                  20, {"unfilter_ms": "unfilter_kernel"})
+                                  20, {"unfilter_ms": "unfilter_kernel"}, 1)
     # the inflated bytes read once, the BGR image written once
     nbytes = len(st.data) + st.height * st.width * 3
     bms, by = bound_ms(nbytes, 0, "bfloat16")
@@ -2624,12 +2667,113 @@ def _bound_bytes(kernel, parsed):
     return st.pixels.nbytes + sum(t.data.nbytes for t in st.transforms) + out
 
 
-_KERNEL_NAMES = {"image_convert": {"predictor_ms": "predictor_kernel",
+_KERNEL_NAMES = {"image_convert": {"predictor_ms": "scan_kernel",
                                    "convert_ms": "convert_kernel"},
                  "vp8": {"reconstruct_filter_ms": "reconstruct_filter_kernel",
                          "bgr_ms": "bgr_kernel"},
-                 "vp8l": {"predictor_ms": "predictor_kernel",
+                 "vp8l": {"predictor_ms": "predictor_pipeline_kernel",
                           "pixel_ms": "pixel_kernel"}}
+
+
+def _kernel_launches(kernel, parsed):
+    """The kernels of _KERNEL_NAMES[kernel] that one call of the pixel
+    stage launches on ``parsed``: TIFF's predictor (if the file has one)
+    and conversion; VP8's pixels and BGR; VP8L a kernel a transform and one
+    to BGR."""
+    if kernel == "image_convert":
+        return 1 + (parsed[2] is not None)
+    if kernel == "vp8":
+        return 2
+    return len(parsed[1].transforms) + 1
+
+
+def predictor_kernels(card):
+    """The VP8L and TIFF predictor kernels on the synthetic cases of
+    tests/util_image_formats.py (VP8L: random residuals, every mode in every
+    tile position, bits 2-9, widths 1, 2, 2^bits +- 1, 640, and 4097, 8192
+    and 16384 (rings in device memory, past the widths shared memory holds;
+    the two widest tall enough that every ring is refilled), heights 1,
+    31-33 and one past the kernel's slots of 32 rows; TIFF: spp 1-5, 8 and
+    9, 8 and 16 bits in both byte orders, counts around a warp and past a
+    pass, padded segments) against their plain versions, bit for bit.
+    Then TIFF's kernel alone on the textured 480 x 640 fixture's 480
+    segments beside its yardstick, torch.cumsum over their (segments,
+    count, spp) view in uint8, which wraps as the predictor does (held equal
+    to the kernel's bytes; int32 and a mask, two calls, if it did not),
+    both CUDA events over 50 calls on bytes already on the card.  Returns
+    the numbers for the image_convert row."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import util_image_formats as U
+    from simvg_tpu_torch.data import image_convert as ic
+    from simvg_tpu_torch.data import tiff, vp8l
+
+    vp8l_cases = U.vp8l_predictor_cases()
+    for label, w, h, bits, modes in vp8l_cases:
+        res, words = U.vp8l_predictor_input(w, h, bits, modes,
+                                            seed=w * 31 + h)
+        t = vp8l.Transform(vp8l.PREDICTOR, w, bits, words)
+        got = vp8l.transform_cuda(
+            t, torch.from_numpy(res.view(np.int32)).cuda(), h)
+        if not np.array_equal(got.cpu().numpy().view(np.uint32),
+                              vp8l._inverse(t, res.copy(), h)):
+            raise AssertionError(f"formats: the VP8L predictor kernel "
+                                 f"differs from its plain version on {label}")
+    for spp, bits, be, count, pad in U.TIFF_PREDICTOR_CASES:
+        data, segments, seg_bytes = U.tiff_predictor_input(spp, bits, count,
+                                                           pad)
+        got = ic.undo_predictor_cuda(data, "cuda", segments, seg_bytes,
+                                     count, spp, bits, be)
+        if got.cpu().numpy().tobytes() != ic.undo_predictor_reference(
+                data, segments, seg_bytes, count, spp, bits, be):
+            raise AssertionError(
+                f"formats: the TIFF predictor kernel differs from its plain "
+                f"version at spp {spp}, {bits} bits, big endian {be}, "
+                f"count {count}, padding {pad}")
+    raw, _, seg = tiff.parse(format_fixtures()["tiff_big_textured.tif"][0],
+                             "cuda")
+    n, seg_bytes, count, spp, bits, be = seg
+    lib = ic.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = ic.upload(raw, "cuda")
+
+    def kernel():
+        rc = lib.simvg_tiff_predictor(buf.data_ptr(), n, seg_bytes, count,
+                                      spp, bits, int(be), stream)
+        if rc:
+            raise RuntimeError(f"TIFF predictor kernel: CUDA error {rc}")
+
+    kernel()
+    kernel_ms = cuda_ms(kernel, 50)  # in place: the time is the data's
+    want = ic.undo_predictor_cuda(raw, "cuda", *seg)[:n * seg_bytes].view(
+        n, seg_bytes)[:, :count * spp].reshape(n, count, spp)
+    view = ic.upload(raw, "cuda")[:n * seg_bytes].view(n, seg_bytes)[
+        :, :count * spp].unflatten(1, (count, spp))
+    library, calls = (lambda: torch.cumsum(view, 1, dtype=torch.uint8)), 1
+    if not torch.equal(library(), want):
+        library, calls = (lambda: torch.cumsum(view, 1, dtype=torch.int32)
+                          .bitwise_and_(255)), 2
+        if not torch.equal(library().to(torch.uint8), want):
+            raise AssertionError("formats: torch.cumsum differs from the "
+                                 "TIFF predictor kernel")
+    library()
+    library_ms = cuda_ms(library, 50)
+    t0 = time.perf_counter()
+    ic.undo_predictor_reference(raw, *seg)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # the segments' bytes read once and written once
+    bms, by = bound_ms(2 * n * count * spp * bits // 8, 0, "bfloat16")
+    out = dict(predictor_kernel_ms=kernel_ms, predictor_library_ms=library_ms,
+               predictor_library_calls=calls, predictor_plain_ms=plain_ms,
+               predictor_bound_ms=bms)
+    log(f"formats: the VP8L predictor kernel equals its plain version on "
+        f"{len(vp8l_cases)} synthetic transforms, TIFF's on "
+        f"{len(U.TIFF_PREDICTOR_CASES)} synthetic segment sets; TIFF's "
+        f"predictor on the textured 480 x 640 fixture ({n} segments of "
+        f"{count} x {spp} bytes): {out} (kernel and torch.cumsum: CUDA "
+        f"events a call over 50 calls; plain: the numpy route) [{card}]")
+    return out
 
 
 def formats_kernels(card, plain_cache):
@@ -2724,6 +2868,7 @@ def formats_kernels(card, plain_cache):
                                      f"{filter_type}: the card's route "
                                      "differs from the plain route")
             forced.append(f"{name}:{filter_type}")
+    predictor = predictor_kernels(card)
     rows = {}
     for kernel, names in FORMAT_TIMED.items():
         host, pixels = _stages(kernel)
@@ -2742,7 +2887,8 @@ def formats_kernels(card, plain_cache):
                                      f"{name} differs from the plain route")
             err = (got.int() - want.int()).abs().max().item()
             ms = cuda_ms(run, 20)
-            split = kernel_split_ms(run, 20, _KERNEL_NAMES[kernel])
+            split = kernel_split_ms(run, 20, _KERNEL_NAMES[kernel],
+                                    _kernel_launches(kernel, parsed))
             device_ms = sum(split.values()) if None not in split.values() \
                 else None
             bms, by = bound_ms(_bound_bytes(kernel, parsed), 0, "bfloat16")
@@ -2753,6 +2899,10 @@ def formats_kernels(card, plain_cache):
                               bound_ms=bms, bound_by=by, **split))
             log(f"formats: {kernel} on {name}: {timed[-1]} [{card}]")
         rows[kernel] = dict(timed[0], posterised=timed[1])
+    rows["image_convert"].update(
+        predictor, notes="library_ms: the row's pixel stage, for which no "
+        "PyTorch call exists; predictor_library_ms: the predictor kernel's "
+        "yardstick, torch.cumsum on the same segments")
     big = {n: round(plain_s[n] * 1e3, 1) for n in plain_s if "_big" in n}
     log(f"formats: the card's route equals the plain route and cv2's digest "
         f"on {n_ok} fixtures ({len(fixtures) - n_ok} broken ones raise on "
@@ -5455,7 +5605,10 @@ def main() -> int:
             **{f: r[f] for f in (
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "device_ms", "host_ms",
-                "fixture")}}
+                "fixture")},
+            # the predictor kernel's own numbers (TIFF: beside torch.cumsum)
+            **{f: v for f, v in r.items()
+               if f.startswith("predictor_") or f == "notes"}}
            for k, r in format_rows.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

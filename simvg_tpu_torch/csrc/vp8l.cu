@@ -13,32 +13,64 @@
 //                      map), each prefix code decoded canonically a bit at a
 //                      time (the zlib "puff" way: VP8L packs its codes as
 //                      Deflate does);
-//   predictor_kernel   the predictor transform: each pixel adds the
+//   predictor_pipeline_kernel
+//                      the predictor transform: each pixel adds the
 //                      prediction of its tile's mode (14 modes) from its
 //                      left, top, top-left and top-right neighbours, which
-//                      are final pixels, so it is a wavefront: one block,
-//                      thread t owns row r0 + t and undoes column s - 2t at
-//                      step s (its top-right neighbour was done at step
-//                      s - 1), a __syncthreads() between steps;
+//                      are final pixels: a chain of W + 2 (H - 1) steps
+//                      (1,598 at 480 x 640), pixel (x, y) at step x + 2 y.
+//                      A warp owns 32 rows, a lane a row (lane l at pixel
+//                      x on step x + 2 l), the row above by __shfl_up_sync
+//                      (top-right from the step before, top and top-left
+//                      kept in registers); the row groups form a pipeline
+//                      over a cluster of 4 SMs, four warps an SM, lane 31
+//                      handing its pixels to the next group's warp through
+//                      a ring in that SM's shared memory (an 8-byte store
+//                      of a pixel and its sequence number, polled with a
+//                      pause), as png.cu's unfilter does at lag 1.  A ring
+//                      holds a whole row, a slot a pixel, and needs no
+//                      flow control: the next round's writer of slot u
+//                      (15 groups on) makes its pixel u from pixels its
+//                      reader made after it took slot u.  Up to kWideRing
+//                      pixels wide the rings lie in the cluster's shared
+//                      memory; wider (the second route, the same code),
+//                      in a buffer in device memory.  A step waits on no
+//                      memory: the residuals
+//                      stream into shared memory kAhead pixels ahead
+//                      (cp.async), and the next residual, ring entry, mode
+//                      word and the warp's modes are loaded a step before
+//                      their use; the prediction is SIMD-in-a-word code
+//                      selected by the mode's bits, skipping the averages
+//                      or the select and clamps where no lane of the warp
+//                      needs them;
 //   pixel_kernel       one thread a pixel: cross-colour (the tile's three
 //                      signed multipliers), subtract-green, colour-indexing
 //                      (bundled indices unpacked, an index past the palette
 //                      transparent black), and ARGB -> BGR with alpha
 //                      dropped as IMREAD_COLOR drops it.
 //
-// What bounds it: the predictor's wavefront, W + 2 (H - 1) steps of a few
-// dependent loads and a barrier (1,598 at 480 x 640), and before it the
-// host's prefix decoding, which takes longer than every kernel together.
+// What bounds it: the predictor's chain, whose length is fixed by the
+// format; a step is the instruction stream of one warp (some 140
+// instructions: the prediction, the streams, the hand-over), issued in
+// order on a scheduler of its own, most on the half-rate integer pipe,
+// about 500 cycles a step (PERF.md).  The bytes (1.2 MB in, 1.2 MB out at
+// 480 x 640) are three orders of magnitude below the card's rate.  Before
+// the kernels, the host's prefix decoding takes longer than every kernel
+// together.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (simvg_tpu_torch/ops/_build.py); called through ctypes with a plain C ABI.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
 #include <string>
 #include <vector>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -300,74 +332,273 @@ __device__ __forceinline__ uint32_t add_px(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t avg2(uint32_t a, uint32_t b) {
   return (((a ^ b) & 0xFEFEFEFEu) >> 1) + (a & b);
 }
-__device__ __forceinline__ int clip255(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
-__device__ __forceinline__ int ch(uint32_t p, int s) { return (int)((p >> s) & 0xFF); }
+// The prediction of the 14 modes on packed ARGB words, each byte a lane
+// of a SIMD word: no branch, so that lanes holding different modes run one
+// block of code.  Modes 12 and 13 clamp in 16-bit fields (the even bytes,
+// then the odd ones) biased by 256: a field v stands for v - 256.
+constexpr uint32_t kEven = 0x00FF00FFu;
+constexpr uint32_t kBlack = 0xFF000000u;
 
-__device__ uint32_t predict(int mode, uint32_t L, uint32_t T, uint32_t TL, uint32_t TR) {
-  switch (mode) {
-    case 1: return L;
-    case 2: return T;
-    case 3: return TR;
-    case 4: return TL;
-    case 5: return avg2(avg2(L, TR), T);
-    case 6: return avg2(L, TL);
-    case 7: return avg2(L, T);
-    case 8: return avg2(TL, T);
-    case 9: return avg2(T, TR);
-    case 10: return avg2(avg2(L, TL), avg2(T, TR));
-    case 11: {
-      int s = 0;
-      for (int k = 24; k >= 0; k -= 8) s += abs(ch(L, k) - ch(TL, k)) - abs(ch(T, k) - ch(TL, k));
-      return s <= 0 ? T : L;
-    }
-    case 12: {
-      uint32_t v = 0;
-      for (int k = 24; k >= 0; k -= 8) v |= (uint32_t)clip255(ch(L, k) + ch(T, k) - ch(TL, k)) << k;
-      return v;
-    }
-    case 13: {
-      const uint32_t a = avg2(L, T);
-      uint32_t v = 0;
-      for (int k = 24; k >= 0; k -= 8) {
-        const int x = ch(a, k);
-        v |= (uint32_t)clip255(x + (x - ch(TL, k)) / 2) << k;  // C division: toward zero
-      }
-      return v;
-    }
-    default: return 0xFF000000u;  // 0, and 14-15 as libwebp treats them
+// Fields of v in [0, 1023] (v - 256 in [-256, 767]) -> v - 256 clamped to
+// [0, 255].
+__device__ __forceinline__ uint32_t clamp_fields(uint32_t v) {
+  const uint32_t over = (v >> 9) & 0x00010001u;                               // v >= 512
+  const uint32_t under = (((v >> 8) | (v >> 9)) & 0x00010001u) ^ 0x00010001u;  // v < 256
+  return ((v & kEven) | (over * 0xFFu)) & ~(under * 0xFFu);
+}
+// Mode 12, clamp(L + T - TL) byte by byte.
+__device__ __forceinline__ uint32_t clamp_full(uint32_t l, uint32_t t, uint32_t tl) {
+  const uint32_t lo = clamp_fields((l & kEven) + (t & kEven) + 0x01000100u - (tl & kEven));
+  const uint32_t hi = clamp_fields(((l >> 8) & kEven) + ((t >> 8) & kEven) + 0x01000100u -
+                                   ((tl >> 8) & kEven));
+  return lo | (hi << 8);
+}
+// a + (a - b) / 2 in the fields a, b (bytes in [0, 255]) with C's division
+// toward zero, as v + 256: d + 512 plus one where d < 0, halved.
+__device__ __forceinline__ uint32_t half_fields(uint32_t a, uint32_t b) {
+  const uint32_t d = a + 0x02000200u - b;               // d + 512, in [257, 767]
+  const uint32_t neg = (~d >> 9) & 0x00010001u;         // d < 0
+  return a + (((d + neg) >> 1) & 0x7FFF7FFFu);          // a + d / 2 + 256
+}
+// Mode 13, clamp(a + (a - TL) / 2) with a = avg2(L, T).
+__device__ __forceinline__ uint32_t clamp_half(uint32_t a, uint32_t tl) {
+  const uint32_t lo = clamp_fields(half_fields(a & kEven, tl & kEven));
+  const uint32_t hi = clamp_fields(half_fields((a >> 8) & kEven, (tl >> 8) & kEven));
+  return lo | (hi << 8);
+}
+__device__ __forceinline__ int sad4(uint32_t a, uint32_t b) { return (int)__vsadu4(a, b); }
+
+// The prediction of `mode` for each lane; `present` (the same in every
+// lane: the modes some lane of the warp needs at this step, a bit each)
+// lets the warp skip the averages, or the select and the clamps, where no
+// lane needs them.
+__device__ __forceinline__ uint32_t predict(int mode, unsigned present, uint32_t l, uint32_t t,
+                                            uint32_t tl, uint32_t tr) {
+  uint32_t m5 = 0, m6 = 0, m7 = 0, m8 = 0, m9 = 0, m10 = 0, m11 = 0, m12 = 0, m13 = 0;
+  if (present & 0x7E0u) {  // 5-10: averages
+    m6 = avg2(l, tl);
+    m9 = avg2(t, tr);
+    m5 = avg2(avg2(l, tr), t);
+    m7 = avg2(l, t);
+    m8 = avg2(tl, t);
+    m10 = avg2(m6, m9);
   }
+  if (present & 0x3800u) {  // 11-13: select, and the clamps
+    m11 = sad4(l, tl) - sad4(t, tl) <= 0 ? t : l;
+    m12 = clamp_full(l, t, tl);
+    m13 = clamp_half(avg2(l, t), tl);
+  }
+  // a tree of selects on the mode's bits: 0 and 14-15 give black, as in libwebp
+  const bool b0 = mode & 1, b1 = mode & 2, b2 = mode & 4, b3 = mode & 8;
+  const uint32_t p01 = b0 ? l : kBlack, p23 = b0 ? tr : t, p45 = b0 ? m5 : tl, p67 = b0 ? m7 : m6;
+  const uint32_t p89 = b0 ? m9 : m8, pab = b0 ? m11 : m10, pcd = b0 ? m13 : m12;
+  const uint32_t p03 = b1 ? p23 : p01, p47 = b1 ? p67 : p45, p8b = b1 ? pab : p89;
+  const uint32_t pcf = b1 ? kBlack : pcd;
+  const uint32_t p07 = b2 ? p47 : p03, p8f = b2 ? pcf : p8b;
+  return b3 ? p8f : p07;
 }
 
-constexpr int kWaveThreads = 1024;
+// The predictor's pipeline: kCluster blocks of kBlockWarps warps, one warp
+// a row group of 32 rows (group g on slot g % kSlots).
+constexpr int kCluster = 4;      // SMs the predictor runs on: a block each, one cluster
+constexpr int kBlockWarps = 4;   // warps a block, each on its own scheduler
+constexpr int kSlots = kCluster * kBlockWarps;  // row groups of 32 in flight
+constexpr int kWideRing = 4096;  // widths up to which the rings lie in shared memory
+constexpr int kAhead = 16;       // residuals of its row a lane has in flight (a power of two)
+constexpr int kWaveThreads = kBlockWarps * 32;
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWaveThreads)
-predictor_kernel(const uint32_t* __restrict__ res, uint32_t* __restrict__ out,
-                 const uint32_t* __restrict__ modes, int w, int h, int bits) {
-  const int tw = (w + (1 << bits) - 1) >> bits;
-  for (int r0 = 0; r0 < h; r0 += blockDim.x) {
-    const int rows = min((int)blockDim.x, h - r0);
-    const int y = r0 + (int)threadIdx.x;
-    for (int step = 0; step < w + 2 * (rows - 1); ++step) {
-      const int x = step - 2 * (int)threadIdx.x;
-      if (y < h && x >= 0 && x < w) {
-        const long long i = (long long)y * w + x;
-        uint32_t p;
-        if (y == 0) {
-          p = x == 0 ? 0xFF000000u : out[i - 1];
-        } else if (x == 0) {
-          p = out[i - w];
-        } else {
-          const int mode = (modes[(y >> bits) * tw + (x >> bits)] >> 8) & 0xF;
-          // the rightmost column's top-right is this row's first pixel
-          const uint32_t tr = x + 1 < w ? out[i - w + 1] : out[i - x];
-          p = predict(mode, out[i - 1], out[i - w], out[i - w - 1], tr);
-        }
-        out[i] = add_px(res[i], p);
+// A block's shared memory: each lane's next kAhead residuals (pixel x at
+// window[warp][x % kAhead][lane]: lane l's words all in bank l); then, up
+// to kWideRing pixels, each warp's ring, which the warp of the 32 rows
+// above fills from another SM (w slots, a pixel a slot, in the low word
+// beside its sequence number + 1 in the high word, so that one 8-byte
+// store hands over both).  Wider, the rings lie in device memory, laid out
+// the same way ([kSlots][w], slot k's ring read by the warp on slot k).
+struct WaveShared {
+  uint32_t window[kBlockWarps][kAhead][32];
+  unsigned long long ring[1];  // [kBlockWarps][w], up to kWideRing pixels
+};
+
+constexpr size_t wave_shared_bytes(int w) {
+  return offsetof(WaveShared, ring) + (w <= kWideRing ? sizeof(unsigned long long) * kBlockWarps * w : 0);
+}
+
+// 4 bytes from device memory into shared memory (cp.async), if `p`.
+__device__ __forceinline__ void copy_async4_if(bool p, uint32_t* dst, const uint32_t* src) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(dst)),
+      "l"(src), "r"((int)p)
+      : "memory");
+}
+// Loads that leave `v` as it was unless `p`, written by the load itself,
+// so that no step reads a register still waiting on memory: each is
+// issued a step before its value is used.
+__device__ __forceinline__ void load_global_if(bool p, uint32_t& v, const uint32_t* a) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p ld.global.nc.u32 %0, [%1];\n}\n"
+      : "+r"(v)
+      : "l"(a), "r"((int)p));
+}
+__device__ __forceinline__ void load_shared_if(bool p, uint32_t& v, const uint32_t* a) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p ld.shared.u32 %0, [%1];\n}\n"
+      : "+r"(v)
+      : "r"((unsigned)__cvta_generic_to_shared(a)), "r"((int)p)
+      : "memory");
+}
+// a ring entry, in this block's shared memory or in device memory
+template <bool kGlobal>
+__device__ __forceinline__ unsigned long long load_ring(const unsigned long long* a) {
+  unsigned long long v;
+  if (kGlobal)
+    asm volatile("ld.volatile.global.u64 %0, [%1];\n" : "=l"(v) : "l"(a) : "memory");
+  else
+    asm volatile("ld.volatile.shared.u64 %0, [%1];\n"
+                 : "=l"(v)
+                 : "r"((unsigned)__cvta_generic_to_shared(a))
+                 : "memory");
+  return v;
+}
+// p, as a value the compiler keeps in a register rather than recomputes
+template <class T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm("" : "+l"(p));
+  return p;
+}
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {  // all but the last kAhead - 1 groups
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
+}
+
+// Undoes the predictor transform: out[y, x] = res[y, x] + the prediction of
+// the mode of tile (y >> bits, x >> bits) from out's left, top, top-left
+// and top-right neighbours.  Row group g (rows 32 g .. 32 g + 31) runs on
+// warp slot g % kSlots of the cluster, a lane a row: lane l undoes pixel x
+// at step x + 2 l.  Its top-right neighbour is what lane l - 1 made the
+// step before (__shfl_up_sync), its top and top-left the two values it
+// took that way before that; lane 0 takes the row above from the ring that
+// lane 31 of the slot before fills.  Nothing a step needs waits on memory
+// within the step: each lane streams its residuals kAhead pixels ahead
+// into shared memory (cp.async) and loads the next pixel's, the ring's
+// next entry, the next tile's mode word and the warp's next modes (a
+// __reduce_or_sync of a bit each, which lets the prediction skip the
+// families no lane needs) a step before their use; it stores each pixel
+// as it makes it (16-byte chunks gathered across steps cost more
+// instructions than the stores they save).  `rings`: with kGlobalRing,
+// the zeroed rings in device memory ([kSlots][w]), else unused.
+template <bool kGlobalRing>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kWaveThreads)
+predictor_pipeline_kernel(const uint32_t* __restrict__ res, uint32_t* __restrict__ out,
+                          const uint32_t* __restrict__ modes, unsigned long long* rings, int w, int h,
+                          int bits) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  WaveShared& sh = *reinterpret_cast<WaveShared*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (!kGlobalRing)
+    for (int i = threadIdx.x; i < kBlockWarps * w; i += blockDim.x) sh.ring[i] = 0;
+  cluster.sync();
+  const int slot = warp * kCluster + rank, groups = (h + 31) >> 5;
+  const int next = (slot + 1) % kSlots;
+  WaveShared* below = cluster.map_shared_rank(&sh, (unsigned)(next % kCluster));
+  const int tw = (w + (1 << bits) - 1) >> bits, tmask = (1 << bits) - 1;
+  uint32_t* const win = &sh.window[warp][0][lane];
+  const unsigned long long* const ring_in = kGlobalRing ? rings + (size_t)slot * w : sh.ring + warp * w;
+  unsigned long long* const ring_out =
+      kGlobalRing ? rings + (size_t)next * w : below->ring + (next / kCluster) * w;
+  for (int g = slot; g < groups; g += kSlots) {
+    const int r = 32 * g + lane;
+    const bool active = r < h;
+    // pixel indices fit an int: the format's images hold at most 2^28
+    const int row = (active ? r : h - 1) * w;
+    // residual x in window slot x % kAhead, fetched kAhead pixels ahead
+    for (int q = 0; q < kAhead; ++q) {  // a group a pixel
+      copy_async4_if(active && q < w, win + 32 * q, res + row + q);
+      copy_async_commit();
+    }
+    const uint32_t* fetch = opaque(res + row + kAhead - 2 * lane);  // pixel x + kAhead
+    const uint32_t* const mrow = opaque(modes + ((active ? r : h - 1) >> bits) * tw);
+    // the mode word of the tile that pixel x + 1 starts, loaded a step
+    // before (tile 0's until the first load); this step's mode and the
+    // modes the warp's lanes need, found the step before
+    uint32_t mword = mrow[0];
+    int mode = (int)((mword >> 8) & 15);
+    unsigned present = 0;
+    // a row group's pixel u goes to ring slot u with tag seq + u + 1
+    const int seq = (g / kSlots) * w, seq_next = ((g + 1) / kSlots) * w;
+    const bool feeds = g + 1 < groups;  // lane 31 hands its row on
+    const bool top_row = r == 0;
+    int in_u = 0;  // lane 0: the pixel of the row above it takes next
+    // lane 0: that pixel from the ring (`v` read before)
+    auto take = [&](bool want, unsigned long long v) -> uint32_t {
+      const unsigned tag = (unsigned)(seq + in_u + 1);
+      if (__any_sync(kFull, want && lane == 0 && (unsigned)(v >> 32) != tag)) {
+        // a poll that never pauses holds off the other SM's stores to the
+        // ring, and the whole chain with them
+        if (lane == 0)
+          while ((unsigned)((v = load_ring<kGlobalRing>(ring_in + in_u)) >> 32) != tag) __nanosleep(20);
+        __syncwarp();
       }
-      __syncthreads();
+      in_u += want;
+      return (uint32_t)v;
+    };
+    // the row above's pixels x + 1 (tr), x (t) and x - 1 (tl) of this step
+    uint32_t tr = 0, t = 0, tl = 0, up = 0;
+    tr = take(g > 0, load_ring<kGlobalRing>(ring_in));
+    // the next entry, read a step before its use (the last one again past it)
+    unsigned long long ahead = load_ring<kGlobalRing>(ring_in + min(in_u, w - 1));
+    uint32_t left = 0, first = 0, resid = 0;
+    // this step's residual: lane 0's pixel 0 at step 0
+    copy_async_wait();
+    load_shared_if(active && lane == 0, resid, win);
+    int x = -2 * lane;  // this step's pixel
+    uint32_t* dst = opaque(out + row + x);
+    int out_u = 0;  // lane 31's pixel to hand on next
+    const int steps = w + 62;
+    for (int s = 0; s < steps; ++s, ++x, ++dst) {
+      const bool mine = active && x >= 0 && x < w;
+      const uint32_t above_next = take(g > 0 && s + 1 < w, ahead);
+      ahead = load_ring<kGlobalRing>(ring_in + min(in_u, w - 1));
+      tl = t;
+      t = tr;
+      tr = lane == 0 ? above_next : up;
+      const bool edge = top_row || x == 0;
+      // the rightmost column's top-right is this row's first pixel
+      const uint32_t p = predict(mode, present, left, t, tl, x + 1 < w ? tr : first);
+      const uint32_t o = add_px(resid, !edge ? p : top_row ? (x == 0 ? kBlack : left) : t);
+      // the slot this pixel's residual left takes pixel x + kAhead's
+      copy_async4_if(active && x >= 0 && x + kAhead < w, win + 32 * (x & (kAhead - 1)), fetch);
+      copy_async_commit();
+      ++fetch;
+      // the next step's residual, mode and the warp's modes; the mode word
+      // of the tile pixel x + 2 starts
+      const bool live = active && x + 1 >= 0 && x + 1 < w;
+      copy_async_wait();  // a group a step: pixel x + 1's is older than kAhead - 1
+      load_shared_if(live, resid, win + 32 * ((x + 1) & (kAhead - 1)));
+      mode = live && ((x + 1) & tmask) == 0 ? (int)((mword >> 8) & 15) : mode;
+      present = __reduce_or_sync(kFull, live && !top_row && x + 1 > 0 ? 1u << mode : 0u);
+      load_global_if(active && x + 2 > 0 && x + 2 < w && ((x + 2) & tmask) == 0, mword,
+                     mrow + ((x + 2) >> bits));
+      left = mine ? o : left;
+      first = mine && x == 0 ? o : first;
+      if (mine) *dst = o;
+      // lane 31's pixel (s - 62) to the warp of the next rows
+      const bool hand = feeds && s >= 62 && s - 62 < w;
+      if (hand && lane == 31)
+        *reinterpret_cast<volatile unsigned long long*>(ring_out + out_u) =
+            (unsigned long long)(unsigned)(seq_next + out_u + 1) << 32 | o;
+      out_u += hand;
+      up = __shfl_up_sync(kFull, o, 1);
     }
   }
+  cluster.sync();  // no block leaves while another may still write its rings
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -458,9 +689,27 @@ extern "C" int simvg_vp8l_transform(const void* in, void* out, const void* aux, 
       (kind != SUBTRACT_GREEN && aux == nullptr))
     return (int)cudaErrorInvalidValue;
   if (kind == PREDICTOR) {
-    predictor_kernel<<<1, kWaveThreads, 0, s>>>(static_cast<const uint32_t*>(in),
-                                               static_cast<uint32_t*>(out),
-                                               static_cast<const uint32_t*>(aux), xsize, height, bits);
+    if (bits < 2 || bits > 9) return (int)cudaErrorInvalidValue;
+    const size_t bytes = wave_shared_bytes(xsize);
+    const uint32_t* res = static_cast<const uint32_t*>(in);
+    const uint32_t* modes = static_cast<const uint32_t*>(aux);
+    if (xsize <= kWideRing) {
+      cudaFuncSetAttribute(predictor_pipeline_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      predictor_pipeline_kernel<false><<<kCluster, kWaveThreads, bytes, s>>>(
+          res, static_cast<uint32_t*>(out), modes, nullptr, xsize, height, bits);
+    } else {  // the rings in device memory: kSlots rows of tags 0, freed behind the kernel
+      unsigned long long* rings = nullptr;
+      const size_t ring_bytes = sizeof(unsigned long long) * kSlots * (size_t)xsize;
+      cudaError_t e = cudaMallocAsync(reinterpret_cast<void**>(&rings), ring_bytes, s);
+      if (e == cudaSuccess) e = cudaMemsetAsync(rings, 0, ring_bytes, s);
+      if (e != cudaSuccess) return (int)e;
+      predictor_pipeline_kernel<true><<<kCluster, kWaveThreads, bytes, s>>>(
+          res, static_cast<uint32_t*>(out), modes, rings, xsize, height, bits);
+      e = cudaGetLastError();
+      const cudaError_t freed = cudaFreeAsync(rings, s);
+      return (int)(e != cudaSuccess ? e : freed);
+    }
   } else {
     const long long blocks = ((long long)xsize * height + kThreads - 1) / kThreads;
     pixel_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(static_cast<const uint32_t*>(in), out,

@@ -9,8 +9,8 @@ byte buffer and how they become B, G and R.  ``convert`` turns a Raster
 into the BGR uint8 [h, w, 3] image that ``cv2.imdecode(..., IMREAD_COLOR)``
 gives: on a CUDA device ``csrc/image_convert.cu``'s kernel, a thread a
 pixel; on the CPU ``convert_reference``, the same arithmetic in numpy.
-TIFF's horizontal predictor (``undo_predictor``) is a row scan, a thread a
-row on the card.
+TIFF's horizontal predictor (``undo_predictor_cuda``) is a prefix sum per
+channel along each segment, a warp scan on the card.
 
 What a Raster can say, and which format needs it:
 
@@ -233,6 +233,24 @@ class _Desc(ctypes.Structure):
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from
+    ``csrc/image_convert.cu``."""
+    vp = ctypes.c_void_p
+    lib.simvg_image_convert.argtypes = [ctypes.POINTER(_Desc), vp, vp, vp, vp,
+                                        vp, vp]
+    lib.simvg_image_convert.restype = ctypes.c_int
+    lib.simvg_tiff_predictor.argtypes = [vp, ctypes.c_int,
+                                         ctypes.c_longlong] \
+        + [ctypes.c_int] * 4 + [vp]
+    lib.simvg_tiff_predictor.restype = ctypes.c_int
+    lib.simvg_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_int, vp,
+                                     ctypes.c_longlong]
+    lib.simvg_lzw_decode.restype = ctypes.c_longlong
+    return lib
+
+
 def library():
     """``csrc/image_convert.cu``, built at first use: the kernels and the
     host LZW decoder (``lzw.py``'s card route)."""
@@ -240,20 +258,7 @@ def library():
     if _lib is None:
         from simvg_tpu_torch.ops import _build
 
-        lib = _build.load("image_convert")
-        vp = ctypes.c_void_p
-        lib.simvg_image_convert.argtypes = [ctypes.POINTER(_Desc), vp, vp, vp,
-                                            vp, vp, vp]
-        lib.simvg_image_convert.restype = ctypes.c_int
-        lib.simvg_tiff_predictor.argtypes = [vp, ctypes.c_int,
-                                             ctypes.c_longlong] \
-            + [ctypes.c_int] * 4 + [vp]
-        lib.simvg_tiff_predictor.restype = ctypes.c_int
-        lib.simvg_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
-                                         ctypes.c_int, ctypes.c_int, vp,
-                                         ctypes.c_longlong]
-        lib.simvg_lzw_decode.restype = ctypes.c_longlong
-        _lib = lib
+        _lib = bind(_build.load("image_convert"))
     return _lib
 
 
@@ -326,8 +331,8 @@ def undo_predictor_cuda(data: bytes, device, segments: int, seg_bytes: int,
                         count: int, spp: int, bits: int,
                         big_endian: bool) -> torch.Tensor:
     """``undo_predictor_reference`` on the card: the bytes are copied
-    there and each segment is summed in place by a thread; returns the
-    card's buffer."""
+    there and each segment is scanned in place by a warp (a block's warps
+    for a long segment); returns the card's buffer."""
     device = _check_cuda(device)
     lib = library()
     buf = upload(data, device)

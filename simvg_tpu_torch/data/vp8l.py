@@ -458,27 +458,31 @@ def reconstruct_reference(st: Vp8lStream) -> np.ndarray:
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from ``csrc/vp8l.cu``."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.simvg_vp8l_parse.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+    lib.simvg_vp8l_parse.restype = vp
+    lib.simvg_vp8l_info.argtypes = [vp, ctypes.POINTER(i)]
+    lib.simvg_vp8l_info.restype = i
+    lib.simvg_vp8l_copy.argtypes = [vp, i, vp]
+    lib.simvg_vp8l_copy.restype = ctypes.c_longlong
+    lib.simvg_vp8l_free.argtypes = [vp]
+    lib.simvg_vp8l_error.argtypes = [vp]
+    lib.simvg_vp8l_error.restype = ctypes.c_char_p
+    lib.simvg_vp8l_transform.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    lib.simvg_vp8l_transform.restype = i
+    lib.simvg_vp8l_to_bgr.argtypes = [vp, i, vp, vp]
+    lib.simvg_vp8l_to_bgr.restype = i
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from simvg_tpu_torch.ops import _build
 
-        lib = _build.load("vp8l")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.simvg_vp8l_parse.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
-        lib.simvg_vp8l_parse.restype = vp
-        lib.simvg_vp8l_info.argtypes = [vp, ctypes.POINTER(i)]
-        lib.simvg_vp8l_info.restype = i
-        lib.simvg_vp8l_copy.argtypes = [vp, i, vp]
-        lib.simvg_vp8l_copy.restype = ctypes.c_longlong
-        lib.simvg_vp8l_free.argtypes = [vp]
-        lib.simvg_vp8l_error.argtypes = [vp]
-        lib.simvg_vp8l_error.restype = ctypes.c_char_p
-        lib.simvg_vp8l_transform.argtypes = [vp, vp, vp, i, i, i, i, vp]
-        lib.simvg_vp8l_transform.restype = i
-        lib.simvg_vp8l_to_bgr.argtypes = [vp, i, vp, vp]
-        lib.simvg_vp8l_to_bgr.restype = i
-        _lib = lib
+        _lib = bind(_build.load("vp8l"))
     return _lib
 
 
@@ -507,34 +511,46 @@ def decode_host(data: bytes) -> Vp8lStream:
         lib.simvg_vp8l_free(handle)
 
 
+def transform_cuda(t: Transform, img: torch.Tensor, height: int) -> torch.Tensor:
+    """``_inverse(t, img, height)`` on the card, on the current stream: the
+    ARGB image (contiguous int32 [n] on a CUDA device) with transform
+    ``t`` undone, as a new int32 [t.xsize * height] tensor."""
+    device = img.device
+    if device.type != "cuda":
+        raise ValueError(f"transform_cuda needs a CUDA tensor, got {device}")
+    if img.dtype != torch.int32 or not img.is_contiguous():
+        raise ValueError("transform_cuda takes a contiguous int32 tensor")
+    out = torch.empty(t.xsize * height, dtype=torch.int32, device=device)
+    aux = torch.from_numpy(t.data.view(np.int32)).to(device) \
+        if len(t.data) else None
+    with torch.cuda.device(device):
+        rc = _library().simvg_vp8l_transform(
+            img.data_ptr(), out.data_ptr(),
+            None if aux is None else aux.data_ptr(), t.kind, t.xsize,
+            height, t.bits, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"VP8L transform kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out
+
+
 def decode_cuda(st: Vp8lStream, device) -> torch.Tensor:
     """The kernels' BGR uint8 [h, w, 3] image of a parsed stream on a CUDA
-    device, on the current stream: each transform undone in place, then
-    the ARGB pixels converted."""
+    device, on the current stream: each transform undone
+    (``transform_cuda``), then the ARGB pixels converted."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"decode_cuda needs a CUDA device, got {device}")
     lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
     cur = torch.from_numpy(st.pixels.view(np.int32)).to(device)
+    for t in reversed(st.transforms):
+        cur = transform_cuda(t, cur, st.height)
+    out = torch.empty(st.height, st.width, 3, dtype=torch.uint8,
+                      device=device)
     with torch.cuda.device(device):
-        for t in reversed(st.transforms):
-            out_len = t.xsize * st.height
-            nxt = torch.empty(out_len, dtype=torch.int32, device=device)
-            aux = torch.from_numpy(t.data.view(np.int32)).to(device) \
-                if len(t.data) else None
-            rc = lib.simvg_vp8l_transform(
-                cur.data_ptr(), nxt.data_ptr(),
-                None if aux is None else aux.data_ptr(), t.kind, t.xsize,
-                st.height, t.bits, stream)
-            if rc != 0:
-                raise RuntimeError(f"VP8L transform kernel launch failed: "
-                                   f"CUDA error {rc}")
-            cur = nxt
-        out = torch.empty(st.height, st.width, 3, dtype=torch.uint8,
-                          device=device)
-        rc = lib.simvg_vp8l_to_bgr(cur.data_ptr(), st.width * st.height,
-                                   out.data_ptr(), stream)
+        rc = lib.simvg_vp8l_to_bgr(
+            cur.data_ptr(), st.width * st.height, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"VP8L convert kernel launch failed: CUDA error "
                            f"{rc}")

@@ -9,7 +9,8 @@ port does not need, so it is left out):
 The data pipeline's card route is held here too: the PNG kernel against the
 plain decoder (bit for bit; also at the unfilter kernel's edges), the VP8
 kernels against the plain route on every lossy WebP fixture (its own loop
-filter, none and the simple one), nvJPEG's encode -> decode round trip (shape
+filter, none and the simple one), the VP8L and TIFF predictor kernels on
+the synthetic cases of tests/util_image_formats.py, nvJPEG's encode -> decode round trip (shape
 exact, mean |difference| <= 2 levels at quality 95, on smooth images), grayscale and EXIF-oriented files, and the pixel ops on the
 card against the same ops on the CPU, on the same decoded pixels (1 level
 per resampling; the geometry exact; VGTRAugment's ops a level an op).
@@ -40,6 +41,7 @@ import pytest
 import torch
 
 from simvg_tpu_torch.tools.make_synth_data import smooth_image, with_exif
+import util_image_formats as U
 from util_torch_port import PNG_BOUNDARY_CASES, png_boundary_stream
 
 from simvg_tpu_torch.ops.fused_attention import (
@@ -503,6 +505,44 @@ def test_vp8_kernels_match_plain_version(gen, name):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), vp8.pixel_stage(forced, "cpu")), \
             filter_type
+
+
+@pytest.mark.parametrize("label,w,h,bits,modes", U.vp8l_predictor_cases(),
+                         ids=[c[0] for c in U.vp8l_predictor_cases()])
+def test_vp8l_predictor_kernel_matches_plain_version(gen, label, w, h, bits,
+                                                     modes):
+    """The VP8L predictor kernel (``vp8l.transform_cuda``) against
+    ``vp8l._inverse`` on the synthetic transforms the CPU replay is held
+    to: every mode in every tile position, bits 2-9, the edge widths and
+    heights; bit for bit, alpha included."""
+    from simvg_tpu_torch.data import vp8l
+
+    res, words = U.vp8l_predictor_input(w, h, bits, modes, seed=w * 31 + h)
+    t = vp8l.Transform(vp8l.PREDICTOR, w, bits, words)
+    got = vp8l.transform_cuda(t, torch.from_numpy(res.view(np.int32)).cuda(),
+                              h)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  vp8l._inverse(t, res.copy(), h))
+
+
+@pytest.mark.parametrize("spp,bits,big_endian,count,pad",
+                         U.TIFF_PREDICTOR_CASES)
+def test_tiff_predictor_kernel_matches_plain_version(gen, spp, bits,
+                                                     big_endian, count, pad):
+    """TIFF's predictor kernels (``undo_predictor_cuda``: the register
+    route and, past 8 samples a pixel, the strided one) against
+    ``undo_predictor_reference`` bit for bit, padding and the bytes past
+    the last segment untouched."""
+    from simvg_tpu_torch.data import image_convert
+
+    data, segments, seg_bytes = U.tiff_predictor_input(spp, bits, count, pad)
+    got = image_convert.undo_predictor_cuda(data, "cuda", segments, seg_bytes,
+                                            count, spp, bits, big_endian)
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes() == \
+        image_convert.undo_predictor_reference(data, segments, seg_bytes,
+                                               count, spp, bits, big_endian)
 
 
 def test_pixel_ops_on_the_card_match_the_cpu(gen):

@@ -196,6 +196,30 @@ def test_lzw_round_trips(kind):
         assert got[:size] == img[:rows, :, ::-1].tobytes()
 
 
+@pytest.mark.parametrize("spp,bits,big_endian,count,pad",
+                         U.TIFF_PREDICTOR_CASES)
+def test_tiff_predictor_scan_gives_the_plain_bytes(spp, bits, big_endian,
+                                                   count, pad):
+    """TIFF's predictor 2 in the card kernel's chunked scans
+    (``csrc/image_convert.cu``: runs of whole pixels a lane, warp and
+    cross-warp scans, a carry from pass to pass; the strided route past
+    the register route's samples) gives ``undo_predictor_reference``'s
+    bytes: spp 1-5, 8 and 9, 8 and 16 bits in both byte orders, counts
+    around a warp and past a pass; the padding after each segment's
+    pixels and the bytes after the last segment are left as they were."""
+    data, segments, seg_bytes = U.tiff_predictor_input(spp, bits, count, pad)
+    want = image_convert.undo_predictor_reference(
+        data, segments, seg_bytes, count, spp, bits, big_endian)
+    got = U.tiff_predictor_replay(data, segments, seg_bytes, count, spp,
+                                  bits, big_endian)
+    assert got == want
+    pixels = count * spp * (bits // 8)
+    for k in range(segments):
+        at = k * seg_bytes + pixels
+        assert got[at:at + pad] == data[at:at + pad]
+    assert got[segments * seg_bytes:] == data[segments * seg_bytes:]
+
+
 def test_convert_reference_raster_options():
     """The plain converter's less common descriptions: a frame outside the
     canvas edge, planar tiles, float scale and RGBE's zero exponent."""

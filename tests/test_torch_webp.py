@@ -11,7 +11,10 @@ The port's plain route (the card's kernels and host C++ are held to it by
 ``image_geometry`` their shape, and raise a ValueError where the JAX
 reader gets no image.  The card kernel's macroblock schedule is replayed
 here with the plain steps on every lossy fixture of
-``tests/fixtures/formats/`` (``util_image_formats.vp8_wavefront_replay``).
+``tests/fixtures/formats/`` (``util_image_formats.vp8_wavefront_replay``),
+and the VP8L predictor kernel's row-group pipeline and branch-free
+prediction on synthetic predictor transforms and on every lossless
+fixture's own (``util_image_formats.vp8l_predictor_replay``).
 """
 
 import functools
@@ -152,6 +155,47 @@ def test_vp8_wavefront_schedule_gives_the_plain_pixels(name, filter_type):
     assert not coded or fr.filter_type == 2
     np.testing.assert_array_equal(U.vp8_wavefront_replay(fr, reverse=coded),
                                   want)
+
+
+@pytest.mark.parametrize("label,w,h,bits,modes", U.vp8l_predictor_cases(),
+                         ids=[c[0] for c in U.vp8l_predictor_cases()])
+def test_vp8l_predictor_schedule_gives_the_plain_pixels(label, w, h, bits,
+                                                        modes):
+    """The card kernel's predictor schedule (``csrc/vp8l.cu``: a lane a
+    row at lag 2, row groups handed over through rings, the prediction on
+    packed words, selected without a branch) gives ``vp8l._inverse``'s
+    pixels bit for bit: random residuals; random tile modes 0-15, or every
+    mode in every tile position; bits 2-9; widths 1, 2, 2^bits - 1,
+    2^bits + 1, 640, and 4097, 8192 and 16384 (the rings in device memory,
+    past the widths shared memory holds; the two widest with every ring
+    refilled); heights 1, 31, 32, 33 and one past the kernel's slots of 32
+    rows."""
+    res, words = U.vp8l_predictor_input(w, h, bits, modes, seed=w * 31 + h)
+    t = vp8l.Transform(vp8l.PREDICTOR, w, bits, words)
+    np.testing.assert_array_equal(
+        U.vp8l_predictor_replay(res, w, h, bits, words),
+        vp8l._inverse(t, res.copy(), h))
+
+
+LOSSLESS_FIXTURES = sorted(n for n in os.listdir(FIXTURES)
+                           if n.startswith("webp_lossless"))
+
+
+@pytest.mark.parametrize("name", LOSSLESS_FIXTURES)
+def test_vp8l_predictor_schedule_on_the_fixtures(name):
+    """The same replay on each lossless fixture's own predictor transform
+    (on its input: the pixels with the later transforms undone); a
+    fixture without one undoes its transforms all the same."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        st = vp8l.parse(webp.parse(f.read()).bitstream)
+    img = st.pixels
+    for t in reversed(st.transforms):
+        want = vp8l._inverse(t, img, st.height)
+        if t.kind == vp8l.PREDICTOR:
+            np.testing.assert_array_equal(U.vp8l_predictor_replay(
+                img, t.xsize, st.height, t.bits, t.data), want)
+        img = want
+    assert img.shape == (st.width * st.height,)
 
 
 def test_orientation_and_host_stage():

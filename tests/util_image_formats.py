@@ -755,3 +755,339 @@ def vp8_wavefront_replay(fr, reverse=False):
             for mx, my in mbs:
                 fn(mx, my)
     return vp8.to_bgr_reference(*planes, fr.width, fr.height)
+
+
+# ---- the predictor kernels' schedules (csrc/vp8l.cu, csrc/image_convert.cu)
+
+# csrc/vp8l.cu's kSlots (kCluster x kBlockWarps) and kWideRing (the widths
+# up to which its rings lie in shared memory, in device memory past them)
+VP8L_SLOTS, VP8L_WIDE_RING = 16, 4096
+_BLACK = np.uint32(0xFF000000)
+
+
+def _avg2(a, b):
+    return (((a ^ b) & np.uint32(0xFEFEFEFE)) >> 1) + (a & b)
+
+
+def _clamp_fields(v):
+    """The kernel's 16-bit fields v (in [0, 1023], standing for v - 256)
+    clamped to [0, 255]."""
+    over = (v >> 9) & np.uint32(0x00010001)
+    under = (((v >> 8) | (v >> 9)) & np.uint32(0x00010001)) \
+        ^ np.uint32(0x00010001)
+    return ((v & np.uint32(0x00FF00FF)) | (over * np.uint32(0xFF))) \
+        & ~(under * np.uint32(0xFF))
+
+
+def _half_fields(a, b):
+    d = a + np.uint32(0x02000200) - b
+    neg = (~d >> 9) & np.uint32(0x00010001)
+    return a + (((d + neg) >> 1) & np.uint32(0x7FFF7FFF))
+
+
+def _sad4(a, b):
+    s = np.zeros(a.shape, np.int64)
+    for k in (0, 8, 16, 24):
+        s += np.abs(((a >> k) & 255).astype(np.int64)
+                    - ((b >> k) & 255).astype(np.int64))
+    return s
+
+
+# csrc/vp8l.cu's operands of modes 1-10, avg2(avg2(P, Q), avg2(R, S)):
+# two bits an operand (0 L, 1 T, 2 TL, 3 TR), P lowest, a byte a mode
+VP8L_OPERANDS = 0xD8DD6644885CAAFF550000
+_VP8L_OPS = np.array([(VP8L_OPERANDS >> (8 * m)) & 255 for m in range(16)],
+                     np.int64)
+
+
+def vp8l_predict_simd(mode, l, t, tl, tr, present=0xFFFF):
+    """The kernel's prediction (``predict`` in csrc/vp8l.cu) of uint32
+    arrays of packed ARGB words, each element with its own mode: modes
+    1-10 through their operands, 11-13 as SIMD-in-a-word clamps, the rest
+    black; ``present``: the modes the warp needs (a bit each; an array
+    that broadcasts against ``mode`` gives each warp its own), the parts
+    of the others skipped as the kernel skips them."""
+    e = np.uint32(0x00FF00FF)
+    mode = np.asarray(mode, np.int64)
+    present = np.asarray(present, np.int64)
+    ops = _VP8L_OPS[mode]
+
+    def pick(c):
+        return np.where(c & 2, np.where(c & 1, tr, tl),
+                        np.where(c & 1, t, l)).astype(np.uint32)
+
+    p = pick(ops)
+    averages, clamps = present & 0x7E0, present & 0x3800
+    if averages.any():
+        p = np.where(averages != 0, _avg2(
+            _avg2(p, pick(ops >> 2)), _avg2(pick(ops >> 4), pick(ops >> 6))), p)
+    if clamps.any():
+        m11 = np.where(_sad4(l, tl) - _sad4(t, tl) <= 0, t, l)
+        m12 = _clamp_fields((l & e) + (t & e) + np.uint32(0x01000100)
+                            - (tl & e)) \
+            | (_clamp_fields(((l >> 8) & e) + ((t >> 8) & e)
+                             + np.uint32(0x01000100) - ((tl >> 8) & e)) << 8)
+        m7 = _avg2(l, t)
+        m13 = _clamp_fields(_half_fields(m7 & e, tl & e)) \
+            | (_clamp_fields(_half_fields((m7 >> 8) & e, (tl >> 8) & e)) << 8)
+        p = np.where(clamps == 0, p, np.where(mode == 11, m11, np.where(
+            mode == 12, m12, np.where(mode == 13, m13, p))))
+    return np.where((mode >= 1) & (mode <= 13), p, _BLACK).astype(np.uint32)
+
+
+def vp8l_predictor_replay(res, w, h, bits, tiles):
+    """The predictor transform undone in csrc/vp8l.cu's schedule: row group
+    g (32 rows, a lane a row) on slot g % VP8L_SLOTS; lane l undoes pixel x
+    at step x + 2 l from its left pixel, the row above's pixels x + 1, x and
+    x - 1 as lane l - 1 made them one, two and three steps before (lane 0:
+    from the ring that lane 31 of the slot before fills, with the kernel's
+    sequence numbers: a slot a pixel of the row at every width, with no
+    flow control); the rightmost column's top-right from the lane's
+    register; the mode switched as the pixel starts a tile; the prediction
+    ``vp8l_predict_simd`` with only the families some lane of the warp
+    needs.  The slots run in rounds, all at once ([slot, lane] arrays):
+    in a round each slot whose ring entries have come takes a step, the
+    others wait where the kernel's warp would poll; a round's hand-overs
+    are seen in the next.  A slot whose entry was overwritten by the next
+    round's writer before it took it would wait for ever, and the replay
+    raises.  ``res``: uint32 [h * w]; ``tiles``: the sub-image's words
+    [th * tw].  Returns uint32 [h * w]."""
+    res = np.asarray(res, np.uint32)
+    tiles = np.asarray(tiles, np.uint32)
+    tw = (w + (1 << bits) - 1) >> bits
+    total = w * h
+    out = np.full(total, 0x5A5A5A5A, np.uint32)  # every pixel is written
+    groups = (h + 31) >> 5
+    n = VP8L_SLOTS
+    # slot k's ring is rings[k, :w]; column w is never written
+    rings = np.zeros((n, w + 1), np.uint64)
+    lanes, slots = np.arange(32), np.arange(n)
+    g = slots.copy()  # each slot's row group, and its step in the group
+    s = np.zeros(n, np.int64)
+    shape = (n, 32)
+    r, row, mrow = (np.zeros(shape, np.int64) for _ in range(3))
+    mode = np.zeros(shape, np.int64)
+    tr, t, tl, up, left, first, mnext = (np.zeros(shape, np.uint32)
+                                         for _ in range(7))
+
+    def start(sel):  # the slots `sel` begin their group g
+        rr = 32 * g[sel, None] + lanes
+        hr = np.minimum(rr, h - 1)
+        r[sel], row[sel], mrow[sel] = rr, hr * w, (hr >> bits) * tw
+        mode[sel] = (tiles[mrow[sel]] >> 8) & 15
+        mnext[sel] = tiles[mrow[sel] + 1] if tw > 1 else 0
+        for a in (tr, t, tl, up, left, first):
+            a[sel] = 0
+        s[sel] = 0
+
+    start(g < groups)
+    while (g < groups).any():
+        live = g < groups
+        seq, seq_next = (g // n) * w, ((g + 1) // n) * w
+        # lane 0's entries: 0 before the group's first step, s + 1 at step s
+        need0 = live & (g > 0) & (s == 0)
+        need1 = live & (g > 0) & (s + 1 < w)
+        u1 = np.minimum(s + 1, w)
+        e0, e1 = rings[slots, 0], rings[slots, u1]
+        tag0, tag1 = (e0 >> 32).astype(np.int64), (e1 >> 32).astype(np.int64)
+        go = live & (~need0 | (tag0 == seq + 1)) & (~need1 | (tag1 == seq + u1 + 1))
+        if not go.any():
+            raise RuntimeError("the predictor's slots wait on each other")
+        G = go[:, None]
+        tr0 = tr.copy()
+        tr0[:, 0] = np.where(need0, (e0 & 0xFFFFFFFF).astype(np.uint32), tr[:, 0])
+        tl_n, t_n = t, tr0
+        tr_n = up.copy()
+        tr_n[:, 0] = np.where(need1, (e1 & 0xFFFFFFFF).astype(np.uint32), 0)
+        x = s[:, None] - 2 * lanes
+        active = r < h
+        mine = active & (x >= 0) & (x < w)
+        resid = res[np.clip(row + x, 0, total - 1)]
+        tile = mine & (x > 0) & ((x & ((1 << bits) - 1)) == 0)
+        mode_n = np.where(tile, (mnext >> 8) & 15, mode)
+        has = tile & ((x >> bits) + 1 < tw)
+        mnext_n = np.where(has, tiles[np.clip(
+            mrow + (x >> bits) + 1, 0, len(tiles) - 1)], mnext)
+        top_row = r == 0
+        edge = top_row | (x == 0)
+        present = np.bitwise_or.reduce(
+            np.where(mine & ~edge, 1 << mode_n, 0), axis=1)
+        p = vp8l_predict_simd(mode_n, left, t_n, tl_n,
+                              np.where(x + 1 < w, tr_n, first), present[:, None])
+        pred = np.where(edge, np.where(top_row, np.where(
+            x == 0, _BLACK, left), t_n), p).astype(np.uint32)
+        o = ((((resid & 0xFF00FF00) + (pred & 0xFF00FF00)) & 0xFF00FF00)
+             | (((resid & 0x00FF00FF) + (pred & 0x00FF00FF)) & 0x00FF00FF)
+             ).astype(np.uint32)
+        wrote = mine & G
+        out[(row + x)[wrote]] = o[wrote]
+        # lane 31's pixel s - 62 to the next slot's ring
+        u31 = s - 62
+        hand = go & (g + 1 < groups) & (u31 >= 0) & (u31 < w)
+        rings[(slots[hand] + 1) % n, u31[hand]] = \
+            ((seq_next[hand] + u31[hand] + 1).astype(np.uint64) << 32) \
+            | o[hand, 31].astype(np.uint64)
+        for a, v in ((tl, tl_n), (t, t_n), (tr, tr_n), (mode, mode_n),
+                     (mnext, mnext_n), (left, np.where(mine, o, left)),
+                     (first, np.where(mine & (x == 0), o, first)),
+                     (up, np.concatenate([o[:, :1], o[:, :-1]], axis=1))):
+            a[:] = np.where(G, v, a)  # __shfl_up_sync, the last
+        s += go
+        done = go & (s == w + 62)
+        g[done] += n
+        start(done & (g < groups))
+    return out
+
+
+# VP8L predictor cases: (label, width, height, bits, tile modes or None for
+# random ones); every mode in every tile position comes from the
+# ``modes_cycle`` images (tile i takes mode (i + k) % 16 over k)
+def vp8l_predictor_cases():
+    cases = []
+    for w, h, bits in ((1, 1, 2), (2, 31, 2), (3, 32, 2), (5, 33, 2),
+                       (7, 33, 3), (9, 40, 3), (15, 31, 4), (17, 33, 4),
+                       (31, 32, 5), (33, 33, 5), (63, 20, 6), (65, 33, 6),
+                       (127, 9, 7), (129, 31, 7), (255, 5, 8), (257, 33, 8),
+                       (511, 3, 9), (513, 33, 9), (640, 33, 2),
+                       (VP8L_WIDE_RING + 1, 33, 9),
+                       (40, VP8L_SLOTS * 32 + 1, 2),
+                       # rings in device memory, each slot's ring refilled
+                       # by the next round (slot 15 feeds slot 0)
+                       (8192, VP8L_SLOTS * 32 + 1, 9), (16384, 600, 9)):
+        cases.append((f"{w}x{h}_bits{bits}", w, h, bits, None))
+    for k in range(16):
+        cases.append((f"modes_cycle{k}", 21, 40, 2, k))
+    return cases
+
+
+def vp8l_predictor_input(w, h, bits, modes, seed=0):
+    """(residuals uint32 [h * w], the sub-image's words) of a case: random
+    residuals from ``seed``; tile modes random (``modes`` None) or tile i's
+    mode (i + modes) % 16; the words' other bits random."""
+    rng = np.random.default_rng(seed)
+    tw, th = (w + (1 << bits) - 1) >> bits, (h + (1 << bits) - 1) >> bits
+    res = rng.integers(0, 1 << 32, w * h, dtype=np.uint64).astype(np.uint32)
+    m = rng.integers(0, 16, tw * th) if modes is None \
+        else (np.arange(tw * th) + modes) % 16
+    words = rng.integers(0, 1 << 32, tw * th, dtype=np.uint64) \
+        .astype(np.uint32) & np.uint32(0xFFFFF0FF)
+    return res, words | (m.astype(np.uint32) << 8)
+
+
+# csrc/image_convert.cu's register route: kLaneBytes a lane's run at most,
+# kMaxSpp samples a pixel; kStrideRun pixels a lane on the strided route
+TIFF_LANE_BYTES, TIFF_MAX_SPP, TIFF_STRIDE_RUN, TIFF_WARPS = 64, 8, 8, 8
+
+
+def tiff_predictor_replay(data, segments, seg_bytes, count, spp, bits,
+                          big_endian):
+    """TIFF's predictor 2 undone in csrc/image_convert.cu's chunked scans.
+    The register route (spp <= TIFF_MAX_SPP): a segment in passes of 32
+    runs of whole pixels, a lane a run (TIFF_LANE_BYTES), its sums
+    scanned across the warp, passes dealt to ``wps`` warps a round (enough
+    for the passes, up to TIFF_WARPS) and each round's sums scanned across
+    them, a carry from round to round; the strided route: a warp a
+    (segment, sample), runs of TIFF_STRIDE_RUN pixels, a carry from pass to
+    pass.  Only the segments' pixel bytes are written.  Returns the
+    bytes."""
+    buf = np.frombuffer(data, np.uint8).copy()
+    n = bits // 8
+    mod = (1 << bits) - 1
+
+    def get(at):
+        b = buf[at:at + n].astype(np.int64)
+        return int(b[0]) if n == 1 else int(
+            (b[0] << 8 | b[1]) if big_endian else (b[0] | b[1] << 8))
+
+    def put(at, v):
+        v &= mod
+        if n == 1:
+            buf[at] = v
+        else:
+            buf[at:at + 2] = (v >> 8, v & 255) if big_endian \
+                else (v & 255, v >> 8)
+
+    def warp_exclusive(sums):  # __shfl_up_sync's scan: before each lane
+        return np.concatenate([[0], np.cumsum(sums)[:-1]]), int(sums.sum())
+
+    pb = spp * n
+    for seg in range(segments):
+        base = seg * seg_bytes
+        if spp > TIFF_MAX_SPP:
+            for c in range(spp):
+                carry = 0
+                for px0 in range(0, count, 32 * TIFF_STRIDE_RUN):
+                    runs = []
+                    for lane in range(32):
+                        mine = [px for px in range(
+                            px0 + lane * TIFF_STRIDE_RUN,
+                            px0 + (lane + 1) * TIFF_STRIDE_RUN) if px < count]
+                        vals = np.cumsum([get(base + px * pb + c * n)
+                                          for px in mine]).tolist()
+                        runs.append((mine, vals))
+                    before, total = warp_exclusive(np.asarray(
+                        [v[-1] if v else 0 for _, v in runs], np.int64))
+                    for (mine, vals), b in zip(runs, before):
+                        for px, v in zip(mine, vals):
+                            put(base + px * pb + c * n, v + b + carry)
+                    carry += total
+            continue
+        run = TIFF_LANE_BYTES // pb
+        pass_px = 32 * run
+        passes = -(-count // pass_px)
+        wps = 1
+        while wps < TIFF_WARPS and wps < passes:
+            wps *= 2
+        carry = np.zeros(spp, np.int64)
+        for r0 in range(0, passes, wps):
+            work = []
+            for part in range(wps):  # the round's warps
+                px0 = (r0 + part) * pass_px
+                lanes = []
+                for lane in range(32):
+                    mine = [px for px in range(px0 + lane * run,
+                                               px0 + (lane + 1) * run)
+                            if px < count]
+                    acc = np.zeros(spp, np.int64)
+                    for px in mine:  # the run summed in place
+                        for c in range(spp):
+                            acc[c] += get(base + px * pb + c * n)
+                            put(base + px * pb + c * n, int(acc[c]))
+                    lanes.append((mine, acc))
+                sums = np.stack([a for _, a in lanes])
+                before = np.concatenate([np.zeros((1, spp), np.int64),
+                                         np.cumsum(sums, 0)[:-1]])
+                work.append((lanes, before, sums.sum(0)))
+            pass_sums = [s for _, _, s in work]
+            for part, (lanes, before, _) in enumerate(work):
+                earlier = carry + sum(pass_sums[:part])
+                for (mine, _), b in zip(lanes, before):
+                    for px in mine:
+                        for c in range(spp):
+                            at = base + px * pb + c * n
+                            put(at, get(at) + int(b[c] + earlier[c]))
+            carry = carry + sum(pass_sums)
+    return buf.tobytes()
+
+
+# TIFF predictor cases: (spp, bits, big_endian, count, padding bytes a
+# segment); spp 1-5, the register route's last and the strided route's
+# first, 8 and 16 bits, both byte orders, counts around a warp and past a
+# pass (RGB at 8 bits: 672 pixels a pass; gray at 16 bits: 1,024)
+TIFF_PREDICTOR_CASES = tuple(
+    (spp, bits, be, count, pad)
+    for spp in (1, 2, 3, 4, 5, TIFF_MAX_SPP, TIFF_MAX_SPP + 1)
+    for bits, be in ((8, False), (16, False), (16, True))
+    for count, pad in ((1, 0), (31, 3), (32, 0), (33, 1))) + (
+    (3, 8, False, 640, 0), (3, 8, False, 673, 5), (1, 16, True, 1025, 2),
+    (3, 16, False, 2700, 0), (4, 8, False, 9000, 3), (9, 8, False, 300, 1))
+
+
+def tiff_predictor_input(spp, bits, count, pad, segments=5, seed=0):
+    """(bytes, segments, seg_bytes) of a case: random samples, ``pad``
+    random bytes after each segment's pixels and 3 after the last
+    segment."""
+    rng = np.random.default_rng(seed)
+    seg_bytes = count * spp * (bits // 8) + pad
+    data = rng.integers(0, 256, segments * seg_bytes + 3, dtype=np.uint8)
+    return data.tobytes(), segments, seg_bytes
